@@ -1,0 +1,139 @@
+"""Batch driver: generation, fit, thresholds and on-device count reduction.
+
+The port of ``mcpower_tpu.engine.batch`` for this slice. Where the reference
+vmaps ``run_one_sim`` over sims inside one jitted program, :func:`run_sims`
+runs each stage once over a chunk of sims with the sim axis written out:
+the Philox fill (K1), the design and outcome, the fit (K2 + K3 for OLS, K2 +
+K4 for the random-intercept LMM), t^2 thresholds and corrections, and the
+reduction of per-sim flags to int32 counts before they leave the device.
+Results depend only on sim ids, never on chunking or the device.
+
+Specs outside the slice raise ``NotImplementedError`` naming the ROADMAP
+item that will port them; nothing quietly computes something else.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import corrections, datagen, mixedfit, olsfit
+from .spec import SimSpec
+
+
+def _split_seed(base_seed: int) -> Tuple[int, int]:
+    base_seed = int(base_seed) & 0xFFFFFFFFFFFFFFFF
+    return base_seed & 0xFFFFFFFF, base_seed >> 32
+
+
+def _crit_rows(arr: Dict[str, torch.Tensor], key2d: str) -> torch.Tensor:
+    """The (G, ...) crit table; the reduced-df stacks of the reference's
+    ``_crit_rows`` belong to factor exclusion, outside this slice."""
+    return arr[key2d]
+
+
+def run_sims(spec: SimSpec, arr: Dict[str, torch.Tensor], seed_lo: int, seed_hi: int,
+             sim_ids: torch.Tensor, *, plain: bool = False) -> Dict[str, torch.Tensor]:
+    """Per-sim significance flags across the grid for the sims ``sim_ids``:
+    the reference's ``run_one_sim`` batched over sims. Returns tensors with
+    a leading sim axis.
+    """
+    X, y, _ = datagen.generate_batch(spec, arr, seed_lo, seed_hi, sim_ids, plain=plain)
+    if spec.estimator == "ols":
+        stats = olsfit.ols_grid_stats(spec, X, y, plain=plain)
+    else:  # "mle" with a cluster: generate_batch has checked the scope
+        stats = mixedfit.mixed_grid_stats(spec, X, y, plain=plain)
+
+    t2 = stats["t2"]  # (sims, G, k)
+    converged = stats["converged"]  # (sims, G)
+    sig_unc = (t2 > _crit_rows(arr, "t2_uncorrected")) & converged[..., None]
+    sig_corr = corrections.apply_correction(
+        t2, _crit_rows(arr, "t2_corrected_ranks").expand_as(t2), spec.correction
+    ) & converged[..., None]
+    out = {"sig_unc": sig_unc, "sig_corr": sig_corr, "converged": converged, "t2": t2}
+    if spec.report_overall:
+        out["overall"] = (stats["overall"] > _crit_rows(arr, "overall_crit")) & converged
+
+    k = spec.n_targets
+    if k > 0:
+        nsig_unc = sig_unc.sum(-1)
+        nsig_corr = sig_corr.sum(-1)
+        out["joint_unc"] = nsig_unc == k
+        out["joint_corr"] = nsig_corr == k
+        levels = torch.arange(k + 1, device=t2.device)
+        out["nsig_hist_unc"] = nsig_unc[..., None] == levels
+        out["nsig_hist_corr"] = nsig_corr[..., None] == levels
+
+    for extra in ("boundary_hit", "boundary_hi", "tau2_hat", "pinned_comp"):
+        if extra in stats:
+            out[extra] = stats[extra]
+    # tau2 counts only for converged fits (the host divides by that count)
+    if "tau2_hat" in out:
+        out["tau2_hat"] = torch.where(converged, out["tau2_hat"], torch.zeros_like(out["tau2_hat"]))
+    return out
+
+
+def _reduce_counts(per_sim: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Booleans -> int32 sums over the sim axis; floats -> f64 sums of the
+    finite values (the host divides by n)."""
+    counts = {}
+    for name, v in per_sim.items():
+        if name == "t2":
+            continue
+        if v.dtype == torch.bool:
+            counts[name] = v.sum(0, dtype=torch.int32)
+        else:
+            v = v.to(torch.float64)
+            counts[name] = torch.where(torch.isfinite(v), v, torch.zeros_like(v)).sum(0)
+    return counts
+
+
+def run_batch(
+    spec: SimSpec,
+    arrays: Dict,
+    n_sims: int,
+    base_seed: int,
+    *,
+    sim_id_offset: int = 0,
+    chunk_size: Optional[int] = None,
+    progress: Optional[Callable[[int, int], None]] = None,
+    cancel: Optional[Callable[[], bool]] = None,
+    device="cpu",
+    plain: bool = False,
+) -> Dict[str, np.ndarray]:
+    """Run ``n_sims`` simulations on ``device`` and return host count arrays.
+
+    ``arrays`` is the dict ``lower.lower`` returns (numpy, or tensors).
+    ``progress(done, total)`` is called between chunks; ``cancel()``
+    returning True stops between chunks, and ``counts['n_done']`` records
+    how many sims completed. ``plain=True`` runs every stage through its
+    plain PyTorch version on any device, to time and check the kernels.
+    """
+    spec.validate_layout()
+    datagen.check_supported(spec)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("run_batch: device='cuda' but no CUDA device is available")
+    arr = datagen.to_device(arrays, device)
+    seed_lo, seed_hi = _split_seed(base_seed)
+
+    chunk = int(chunk_size) if chunk_size else max(min(n_sims, 4096), 1)
+    totals: Dict[str, np.ndarray] = {}
+    done = 0
+    while done < n_sims:
+        m = min(chunk, n_sims - done)
+        sim_ids = torch.arange(
+            sim_id_offset + done, sim_id_offset + done + m, dtype=torch.int64, device=device
+        ) & 0xFFFFFFFF  # sim ids are uint32 in the reference
+        counts = _reduce_counts(run_sims(spec, arr, seed_lo, seed_hi, sim_ids, plain=plain))
+        for name, v in counts.items():
+            totals[name] = totals.get(name, 0) + v.cpu().numpy()
+        done += m
+        if progress is not None:
+            progress(done, n_sims)
+        if cancel is not None and cancel():
+            break
+    totals["n_done"] = np.asarray(done)
+    return totals

@@ -1,0 +1,273 @@
+"""Batched OLS over the CRN sample-size grid via prefix sufficient statistics.
+
+Rows are prefix-stable, so X'X, X'y, y'y and sum(y) at grid point g are the
+point-(g-1) statistics plus one row segment's contribution. Two kernels
+carry the arm on the card:
+
+* K2 ``grid_suffstats`` (``csrc/grid_suffstats.cu``): per-segment sums in
+  f64 from the f32 design, the per-cluster n_j, s_j, t_j for the mixed arm,
+  and the cumulative sum over the grid;
+* K3 ``ols_solve`` (``csrc/ols_solve.cu``): per (sim, grid) cell the
+  Cholesky solve, inverse, rss, sigma^2, Wald covariance, overall F and the
+  pivot-ratio convergence flag.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version (``*_plain``, beside it) for CPU tensors. Fits run in f64;
+generation stays f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from . import clusterops, kernels, smallchol, waldstats
+from .spec import SimSpec
+
+EPS_RANK = smallchol.EPS_RANK
+MAX_P = 16  # widest fit the kernels are instantiated for
+MAX_GRID = 64
+
+
+# ---------------------------------------------------------------------------
+# K2: grid (and cluster) sufficient statistics
+# ---------------------------------------------------------------------------
+
+
+def _layout_args(spec: SimSpec, with_clusters: bool):
+    if not with_clusters:
+        return 0, 1, 1
+    c = spec.cluster
+    m = c.n_clusters_at(spec.max_n)
+    return m, int(c.sizing_mode == "fixed_clusters"), max(int(c.sizing_value), 1)
+
+
+def grid_suffstats_plain(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
+                         with_clusters: bool = False) -> Dict[str, torch.Tensor]:
+    """Prefix sufficient statistics per grid point for a batch of sims.
+
+    ``X (sims, max_n, P) f32``, ``y (sims, max_n) f32``. Returns f64
+    ``xtx (sims, G, p, p)``, ``xty (sims, G, p)``, ``yty``, ``ysum (sims,
+    G)`` over the fit columns, and with ``with_clusters`` also ``n_j (sims,
+    G, m)``, ``s (sims, G, m, p)``, ``t (sims, G, m)``.
+    """
+    fit = list(spec.effective_fit_cols)
+    Xf = X[..., fit].to(torch.float64)
+    yf = y.to(torch.float64)
+    m = _layout_args(spec, with_clusters)[0]
+    segs = {k: [] for k in ("xtx", "xty", "yty", "ysum", "n_j", "s", "t")}
+    prev = 0
+    for n in spec.grid:
+        Xs = Xf[:, prev:n]
+        ys = yf[:, prev:n]
+        segs["xtx"].append(torch.einsum("bnp,bnq->bpq", Xs, Xs))
+        segs["xty"].append(torch.einsum("bnp,bn->bp", Xs, ys))
+        segs["yty"].append((ys * ys).sum(-1))
+        segs["ysum"].append(ys.sum(-1))
+        if with_clusters:
+            ones = torch.ones_like(ys)
+            segs["n_j"].append(clusterops.seg_segment(spec, ones, prev, m))
+            segs["s"].append(
+                clusterops.seg_segment(spec, Xs.transpose(-1, -2), prev, m).transpose(-1, -2)
+            )
+            segs["t"].append(clusterops.seg_segment(spec, ys, prev, m))
+        prev = n
+    return {k: torch.cumsum(torch.stack(v, dim=1), dim=1) for k, v in segs.items() if v}
+
+
+_SUFF_ARGS = [
+    ctypes.c_void_p,  # X (sims, max_n, P) f32
+    ctypes.c_void_p,  # y (sims, max_n) f32
+    ctypes.c_int,  # sims
+    ctypes.c_int,  # max_n
+    ctypes.c_int,  # P
+    ctypes.POINTER(ctypes.c_int),  # fit columns
+    ctypes.c_int,  # pf
+    ctypes.POINTER(ctypes.c_int),  # grid
+    ctypes.c_int,  # G
+    ctypes.c_int,  # m (0: no cluster statistics)
+    ctypes.c_int,  # round robin (1) or blocked (0)
+    ctypes.c_int,  # layout period
+    ctypes.c_void_p,  # xtx out (sims, G, pf, pf) f64
+    ctypes.c_void_p,  # xty out (sims, G, pf)
+    ctypes.c_void_p,  # yty out (sims, G)
+    ctypes.c_void_p,  # ysum out (sims, G)
+    ctypes.c_void_p,  # n_j out (sims, G, m) or null
+    ctypes.c_void_p,  # s out (sims, G, m, pf) or null
+    ctypes.c_void_p,  # t out (sims, G, m) or null
+    ctypes.c_void_p,  # cudaStream_t
+]
+
+
+def grid_suffstats_kernel(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
+                          with_clusters: bool = False) -> Dict[str, torch.Tensor]:
+    """Kernel K2: :func:`grid_suffstats_plain` on the card."""
+    fit = list(spec.effective_fit_cols)
+    pf, G = len(fit), spec.n_grid
+    if pf > MAX_P or G > MAX_GRID:
+        raise ValueError(f"grid_suffstats kernel takes p <= {MAX_P}, G <= {MAX_GRID}; got {pf}, {G}")
+    if X.dtype != torch.float32 or y.dtype != torch.float32:
+        raise ValueError("grid_suffstats kernel takes f32 X and y")
+    sims, max_n, P = X.shape
+    if max_n != spec.max_n or y.shape != (sims, max_n):
+        raise ValueError(f"grid_suffstats: X {tuple(X.shape)}, y {tuple(y.shape)} for max_n {spec.max_n}")
+    m, rr, period = _layout_args(spec, with_clusters)
+    kw = dict(dtype=torch.float64, device=X.device)
+    out = {
+        "xtx": torch.empty((sims, G, pf, pf), **kw),
+        "xty": torch.empty((sims, G, pf), **kw),
+        "yty": torch.empty((sims, G), **kw),
+        "ysum": torch.empty((sims, G), **kw),
+    }
+    if with_clusters:
+        out["n_j"] = torch.empty((sims, G, m), **kw)
+        out["s"] = torch.empty((sims, G, m, pf), **kw)
+        out["t"] = torch.empty((sims, G, m), **kw)
+    kernels.require_cuda("grid_suffstats", X, y, *out.values())
+    if sims == 0:
+        return out
+    null = ctypes.c_void_p(0)
+    k = kernels.KERNELS["grid_suffstats"]
+    fn = k.fn("mcp_grid_suffstats", _SUFF_ARGS)
+    k.check(
+        fn(
+            kernels.ptr(X), kernels.ptr(y), sims, max_n, P,
+            (ctypes.c_int * pf)(*fit), pf, (ctypes.c_int * G)(*spec.grid), G,
+            m, rr, period,
+            kernels.ptr(out["xtx"]), kernels.ptr(out["xty"]),
+            kernels.ptr(out["yty"]), kernels.ptr(out["ysum"]),
+            kernels.ptr(out["n_j"]) if with_clusters else null,
+            kernels.ptr(out["s"]) if with_clusters else null,
+            kernels.ptr(out["t"]) if with_clusters else null,
+            kernels.stream_of(X),
+        )
+    )
+    return out
+
+
+def grid_suffstats(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
+                   with_clusters: bool = False) -> Dict[str, torch.Tensor]:
+    """K2 for CUDA tensors, the plain version for CPU tensors."""
+    if X.is_cuda:
+        return grid_suffstats_kernel(spec, X.contiguous(), y.contiguous(), with_clusters)
+    if X.device.type != "cpu":
+        raise ValueError(f"grid_suffstats: no kernel for device {X.device}")
+    return grid_suffstats_plain(spec, X, y, with_clusters)
+
+
+# ---------------------------------------------------------------------------
+# K3: the per-cell OLS solve
+# ---------------------------------------------------------------------------
+
+
+def ols_solve_plain(xtx, xty, yty, ysum, ns):
+    """Per-cell OLS from prefix statistics. ``xtx (..., G, p, p)``, ``xty
+    (..., G, p)``, ``yty``/``ysum (..., G)``, ``ns (G,)`` f64 row counts.
+
+    Returns ``beta (..., G, p)``, ``cov (..., G, p, p)`` (sigma^2 (X'X)^-1),
+    ``overall (..., G)`` (the F statistic) and ``converged (..., G)``.
+    """
+    p = xtx.shape[-1]
+    chol = smallchol.chol(xtx)
+    beta = smallchol.cho_solve(chol, xty)
+    inv = smallchol.cho_inverse(chol)
+    rss = yty - (beta * xty).sum(-1)
+    p_eff = float(p)
+    sigma2 = rss / torch.clamp(ns - p_eff, min=1.0)
+    cov = sigma2[..., None, None] * inv
+    tss = yty - ysum * ysum / ns
+    overall = ((tss - rss) / max(p_eff - 1.0, 1.0)) / sigma2
+    diag = torch.diagonal(chol, dim1=-2, dim2=-1)
+    converged = (
+        torch.isfinite(sigma2)
+        & (sigma2 > 0.0)
+        & torch.isfinite(diag).all(-1)
+        & (diag > 0.0).all(-1)
+        & (diag.amin(-1) >= EPS_RANK * diag.amax(-1))
+    )
+    return beta, cov, overall, converged
+
+
+_SOLVE_ARGS = [
+    ctypes.c_void_p,  # xtx (B, p, p) f64
+    ctypes.c_void_p,  # xty (B, p)
+    ctypes.c_void_p,  # yty (B,)
+    ctypes.c_void_p,  # ysum (B,)
+    ctypes.c_void_p,  # ns (G,) f64; cell b uses ns[b % G]
+    ctypes.c_int,  # B
+    ctypes.c_int,  # G
+    ctypes.c_int,  # p
+    ctypes.c_double,  # eps_rank
+    ctypes.c_void_p,  # beta out (B, p)
+    ctypes.c_void_p,  # cov out (B, p, p)
+    ctypes.c_void_p,  # overall out (B,)
+    ctypes.c_void_p,  # converged out (B,) uint8
+    ctypes.c_void_p,  # cudaStream_t
+]
+
+
+def ols_solve_kernel(xtx, xty, yty, ysum, ns):
+    """Kernel K3: :func:`ols_solve_plain` on the card, one thread per cell."""
+    p, G = xtx.shape[-1], xtx.shape[-3]
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"ols_solve kernel takes 1 <= p <= {MAX_P}, got {p}")
+    lead = xtx.shape[:-2]
+    xtx, xty, yty, ysum, ns = (
+        v.to(torch.float64).contiguous() for v in (xtx, xty, yty, ysum, ns)
+    )
+    if ns.shape != (G,) or xty.shape != lead + (p,) or yty.shape != lead or ysum.shape != lead:
+        raise ValueError("ols_solve: inconsistent shapes")
+    B = yty.numel()
+    beta = torch.empty(lead + (p,), dtype=torch.float64, device=xtx.device)
+    cov = torch.empty(lead + (p, p), dtype=torch.float64, device=xtx.device)
+    overall = torch.empty(lead, dtype=torch.float64, device=xtx.device)
+    conv = torch.empty(lead, dtype=torch.uint8, device=xtx.device)
+    kernels.require_cuda("ols_solve", xtx, xty, yty, ysum, ns, beta, cov, overall, conv)
+    if B:
+        k = kernels.KERNELS["ols_solve"]
+        fn = k.fn("mcp_ols_solve", _SOLVE_ARGS)
+        k.check(
+            fn(
+                kernels.ptr(xtx), kernels.ptr(xty), kernels.ptr(yty), kernels.ptr(ysum),
+                kernels.ptr(ns), B, G, p, EPS_RANK,
+                kernels.ptr(beta), kernels.ptr(cov), kernels.ptr(overall), kernels.ptr(conv),
+                kernels.stream_of(xtx),
+            )
+        )
+    return beta, cov, overall, conv.bool()
+
+
+def ols_solve(xtx, xty, yty, ysum, ns):
+    """K3 for CUDA tensors, the plain version for CPU tensors."""
+    if xtx.is_cuda:
+        return ols_solve_kernel(xtx, xty, yty, ysum, ns)
+    if xtx.device.type != "cpu":
+        raise ValueError(f"ols_solve: no kernel for device {xtx.device}")
+    return ols_solve_plain(xtx, xty, yty, ysum, ns)
+
+
+# ---------------------------------------------------------------------------
+# The arm
+# ---------------------------------------------------------------------------
+
+
+def ols_grid_stats(spec: SimSpec, X: torch.Tensor, y: torch.Tensor, *,
+                   plain: bool = False) -> Dict[str, torch.Tensor]:
+    """All OLS statistics for a batch of sims across the grid: ``t2 (sims,
+    G, k)``, ``overall (sims, G)``, ``converged (sims, G)``.
+
+    ``plain=True`` runs the plain PyTorch versions on any device (used to
+    time and check K2 and K3 against them).
+    """
+    suff = (grid_suffstats_plain if plain else grid_suffstats)(spec, X, y)
+    ns = torch.as_tensor(spec.grid, dtype=torch.float64, device=X.device)
+    beta, cov, overall, converged = (ols_solve_plain if plain else ols_solve)(
+        suff["xtx"], suff["xty"], suff["yty"], suff["ysum"], ns
+    )
+    return {
+        "t2": waldstats.t2_targets(spec, beta, cov),
+        "overall": overall,
+        "converged": converged,
+    }

@@ -1,0 +1,107 @@
+"""Small batched Cholesky algebra, unrolled over a static p.
+
+The plain PyTorch versions of the reference's ``smallchol`` scalar unroll
+(``mcpower_tpu/engine/smallchol.py:34-393``): every function takes
+``(..., p, p)`` / ``(..., p)`` tensors with any leading batch axes and
+performs the same operations in the same order (the factor multiplies by
+the reciprocal pivot; the solves divide by it). On the card these run inside
+kernels K3 and K4, whose device twins live in ``csrc/smallchol.cuh``; here
+they serve CPU tensors, the tests and the plain timings.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Pivot-ratio rank rule min(diag L) >= EPS_RANK * max(diag L) (the
+# reference's value and rationale, smallchol.py:328-336).
+EPS_RANK = 1e-6
+
+
+def chol(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky of (..., p, p); a zero or negative pivot gives
+    inf/nan, which callers detect through finiteness checks."""
+    p = A.shape[-1]
+    L = [[None] * p for _ in range(p)]
+    for j in range(p):
+        d = A[..., j, j]
+        for k in range(j):
+            d = d - L[j][k] * L[j][k]
+        L[j][j] = torch.sqrt(d)
+        inv_d = 1.0 / L[j][j]
+        for i in range(j + 1, p):
+            s = A[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s * inv_d
+    zero = torch.zeros_like(A[..., 0, 0])
+    return torch.stack(
+        [torch.stack([L[i][j] if j <= i else zero for j in range(p)], dim=-1) for i in range(p)],
+        dim=-2,
+    )
+
+
+def solve_lower(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve L y = b (forward substitution), b (..., p)."""
+    p = L.shape[-1]
+    y = []
+    for i in range(p):
+        s = b[..., i]
+        for k in range(i):
+            s = s - L[..., i, k] * y[k]
+        y.append(s / L[..., i, i])
+    return torch.stack(y, dim=-1)
+
+
+def solve_upper_t(L: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Solve L^T x = y (back substitution with the lower factor)."""
+    p = L.shape[-1]
+    x = [None] * p
+    for i in reversed(range(p)):
+        s = y[..., i]
+        for k in range(i + 1, p):
+            s = s - L[..., k, i] * x[k]
+        x[i] = s / L[..., i, i]
+    return torch.stack(x, dim=-1)
+
+
+def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b given A = L L^T."""
+    return solve_upper_t(L, solve_lower(L, b))
+
+
+def cho_inverse(L: torch.Tensor) -> torch.Tensor:
+    """Full inverse of A = L L^T: p solves against the identity's columns."""
+    p = L.shape[-1]
+    eye = torch.eye(p, dtype=L.dtype, device=L.device)
+    cols = [cho_solve(L, eye[j].expand(*L.shape[:-2], p)) for j in range(p)]
+    return torch.stack(cols, dim=-1)
+
+
+def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """log|A| = 2 sum log diag(L)."""
+    return 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+
+
+def chol_rank_ok(L: torch.Tensor, eps_rank: float = EPS_RANK) -> torch.Tensor:
+    """Finite positive pivots and min(diag) >= eps_rank * max(diag)."""
+    d = torch.diagonal(L, dim1=-2, dim2=-1)
+    return (
+        (torch.isfinite(d) & (d > 0.0)).all(-1)
+        & (d.amin(-1) >= eps_rank * d.amax(-1))
+    )
+
+
+def colsum(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., n, p) x (..., n) -> (..., p): contraction over rows."""
+    return (X * v[..., :, None]).sum(-2)
+
+
+def wouter(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """(..., m) weights x (..., m, p) -> (..., p, p): sum_m (c_m s_m) s_m'."""
+    return ((c[..., :, None, None] * s[..., :, :, None]) * s[..., :, None, :]).sum(-3)
+
+
+def wvec(c: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(..., m), (..., m, p), (..., m) -> (..., p): sum_m (c_m s_m) t_m."""
+    return (c[..., :, None] * s * t[..., :, None]).sum(-2)
