@@ -9,17 +9,27 @@ Phases, each fatal on failure (exit code != 0, no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build kernels K1-K4 from ``mcpower_tpu_torch/csrc`` (one nvcc per
-   source, all started together) and print their register and spill use;
+   source, all started together) and print their register and spill use,
+   per instantiation of p for K2 and K4;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (10,000 sims; the LMM's N = 200, p = 3, m = 20, G = 1
-   and the curve design's p = 7, G = 8);
+   and the curve design's p = 7, G = 8), and off the path at two cluster
+   layouts, K2 at a design tall enough for row chunks that cut a segment and
+   a cluster and at p = 9 (two statistic groups), and K4 at m = 7 and
+   m = 150;
 4. drive the main path through ``lower`` and ``run_batch(device="cuda")``:
    the 10,000-replicate random-intercept LMM headline (base seed 2137), the
    OLS arm and the 8-point power curve, with every kernel's launch count set
    to 0 before and read after; then check 1,024-sim counts against golden
    counts of the JAX reference (at most one flip per entry);
-5. time each kernel and each arm, through the kernels and through the plain
-   versions on the card;
+5. time each kernel (K2 at all three arms' shapes) on the device, from
+   torch.profiler's kernel events, and per call through its wrapper (CUDA
+   events, launch overhead included), each call on inputs that are not in
+   L2, beside its plain version, its bound
+   (the larger of bytes over the memory rate and operations over the peak
+   rate for their type) and, for K2, one ``torch.bmm`` that computes the
+   same statistics at the OLS shape; then each arm's wall, and a profile
+   of each arm (wall median of 7 calls, busy share, largest device items);
 6. print the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -34,6 +44,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -82,6 +93,27 @@ LAYOUT_CHECKS = {
         cluster=dict(sizing_mode="fixed_size", sizing_value=10, tau_squared=0.25),
     ),
 }
+
+# Off the main path, held against K2's plain version in phase 3 only. K2
+# stages a design taller than one stage in row chunks (csrc/grid_suffstats.cu,
+# chunk_rows_for): the tall blocked LMM (N = 400, 40 clusters of 10) in
+# chunks of 256 rows, which cut the segment [150, 400) and cluster 25; the
+# p = 9 LMM, whose 56 global statistics K2 splits over two warps per sim, in
+# chunks of 100 rows, which cut the segment [60, 200).
+K2_CHECKS = {
+    "lmm_blocked_tall": dict(LAYOUT_CHECKS["lmm_blocked_2grid"], grid=[150, 400]),
+    "wide_p9": dict(
+        LAYOUT_CHECKS["lmm_round_robin_2grid"],
+        grid=[60, 200],
+        var_types=["normal"] * 8,
+        corr=np.eye(8).tolist(),
+        effects=[0.0] + [0.1] * 8,
+        target_cols=list(range(1, 9)),
+    ),
+}
+# K4 cluster counts off the path: fewer clusters than lanes x registers,
+# and more than 32 lanes hold (p = 3), so some come from memory.
+K4_SYNTHETIC_M = (7, 150)
 
 # Counts of the JAX reference (mcpower_tpu.engine.batch.run_batch) at
 # GOLDEN_SIMS sims, base seed SEED; tests/test_torch_batch.py recomputes
@@ -143,6 +175,24 @@ K3_REL = 1e-10  # f64 solve, same operation order except sums
 K4_REL = 1e-7  # 20-step search whose last steps are decided by rounding
 NORMAL_MAX_ULP = 0  # K1 and the plain fill share CUDA's logf: bit-identical
 
+# H100 SXM peaks (NVIDIA's data sheet; the f64 and int32 rates are 132 SMs x
+# 64 lanes x 1.98 GHz, one instruction per lane and clock).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+F64_INSTR_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# Instruction counts of the f64 pieces that are not single instructions
+# (CUDA's f64 division, square root, and log, log1p or exp), and per-item
+# counts of K1 (Philox4x32-10: 10 rounds of 2 mul.hi, 2 mul.lo, 4 xor and 2
+# key adds per 4 words; the Acklam ppf: a log, a sqrt and ~20 multiply-adds
+# per normal). Estimates.
+F64_DIV_INSTR = 10
+F64_SQRT_INSTR = 10
+F64_LOG_INSTR = 20
+PHILOX_INT_OPS_PER_WORD = 25
+PPF_F32_OPS_PER_NORMAL = 30
+REML_EVALS = 24  # 1 + 20 Brent steps, the interior and gamma = 0 probes, the final fit
+
 KERNEL_META = {
     "philox_fill": ("mcpower_tpu_torch/csrc/philox_fill.cu", "benchmarks/pallas_datagen.py:78"),
     "grid_suffstats": ("mcpower_tpu_torch/csrc/grid_suffstats.cu", "mcpower_tpu/engine/olsfit.py:41"),
@@ -153,7 +203,7 @@ KERNEL_META = {
 
 def lower_design(lower_mod, cluster_cls, name: str):
     """``lower_mod.lower`` on design ``name``; works for either package."""
-    kw = dict({**DESIGNS, **LAYOUT_CHECKS}[name])
+    kw = dict({**DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS}[name])
     for key in ("corr", "effects"):
         if key in kw:
             kw[key] = np.asarray(kw[key], dtype=np.float64)
@@ -171,6 +221,52 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def synthetic_reml_inputs(torch, cells: int, m: int, rows_per_cluster: int, seed: int, dev):
+    """K4's inputs for ``cells`` random-intercept datasets of m round-robin
+    clusters (p = 3, tau^2 = 0.25), made on the CPU from ``seed``: ``(n_j, s,
+    t, xtx, xty, yty, ns)`` with one grid point."""
+    g = torch.Generator().manual_seed(seed)
+    n = m * rows_per_cluster
+    X = torch.randn(cells, n, 3, generator=g, dtype=torch.float64)
+    X[..., 0] = 1.0
+    ids = torch.arange(n) % m
+    u = 0.5 * torch.randn(cells, m, generator=g, dtype=torch.float64)
+    y = X @ torch.tensor([0.0, 0.3, 0.2], dtype=torch.float64) + u[:, ids]
+    y = y + torch.randn(cells, n, generator=g, dtype=torch.float64)
+    onehot = torch.nn.functional.one_hot(ids, m).to(torch.float64)
+    out = (
+        onehot.sum(0).expand(cells, m).contiguous(),
+        torch.einsum("nm,cnp->cmp", onehot, X),
+        torch.einsum("nm,cn->cm", onehot, y),
+        X.transpose(1, 2) @ X,
+        torch.einsum("cnp,cn->cp", X, y),
+        (y * y).sum(-1),
+    )
+    out = tuple(v[:, None].to(dev) for v in out)
+    return out + (torch.tensor([float(n)], dtype=torch.float64, device=dev),)
+
+
+def pin_margins(torch, mixedfit, args, cells) -> list:
+    """dev_zero - dev_interior of the plain search at the given cells, to
+    set beside the 1e-10 margin of the low pin when K4's flags differ."""
+    n_j, s, t, xtx, xty, yty, ns = args
+    p = xtx.shape[-1]
+    pick = lambda v, k: v.reshape(-1, *v.shape[v.dim() - k:])[cells]  # noqa: E731
+    nj_c, s_c, t_c, xtx_c, xty_c = pick(n_j, 1), pick(s, 2), pick(t, 1), pick(xtx, 2), pick(xty, 1)
+    yty_c = yty.reshape(-1)[cells]
+    n_c = ns.expand_as(yty).reshape(-1)[cells]
+
+    def dev_at(lg):
+        gamma = torch.exp(lg).to(yty_c.device).expand_as(yty_c)
+        return mixedfit._reml_quantities(gamma, nj_c, s_c, t_c, xtx_c, xty_c, yty_c, n_c, p)[0]
+
+    lg_hat, _, _ = mixedfit._brent_minimize(
+        mixedfit.LOG_GAMMA_LO, mixedfit.LOG_GAMMA_HI, (),
+        ((mixedfit.BRENT_ITERS, lambda lg, aux: (dev_at(lg), aux)),))
+    zero = dev_at(torch.tensor(mixedfit.LOG_GAMMA_LO, dtype=torch.float64))
+    return (zero - dev_at(lg_hat)).tolist()
+
+
 def rel_err(a, b) -> float:
     a = a.double()
     b = b.double()
@@ -178,21 +274,171 @@ def rel_err(a, b) -> float:
     return (a - b).abs().max().item() / (scale if scale > 0 else 1.0)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events, after
-    one warm-up call."""
+L2_BYTES = 50 * 2 ** 20  # H100 SXM
+MAX_COPIES = 24
+
+
+def input_copies(args) -> list:
+    """``args`` and copies of it with its tensors cloned: enough copies
+    (at most MAX_COPIES) that together they exceed twice the L2, so a call
+    on the next copy finds its inputs in device memory, not in L2."""
     import torch
 
-    fn()
+    size = nbytes(*(a for a in args if torch.is_tensor(a)))
+    n = min(max(1, -(-2 * L2_BYTES // size)), MAX_COPIES) if size else 1
+    clone = lambda: tuple(a.clone() if torch.is_tensor(a) else a for a in args)  # noqa: E731
+    return [tuple(args)] + [clone() for _ in range(n - 1)]
+
+
+def _warm_then_flush(fn, copies) -> None:
+    """One warm-up call, then a write of twice the L2, so the timed calls
+    start with none of their inputs in L2."""
+    import torch
+
+    fn(*copies[0])
+    torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda").zero_()
     torch.cuda.synchronize()
+
+
+def cuda_ms(fn, copies, reps: int) -> float:
+    """Mean time of ``fn`` over ``reps`` calls, one copy of its inputs after
+    another, by CUDA events around the calls (the host's launch overhead
+    included)."""
+    import torch
+
+    _warm_then_flush(fn, copies)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        fn(*copies[i % len(copies)])
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: Dict[str, float]) -> Tuple[float, str]:
+    """(least ms, what binds): bytes over the memory rate against each
+    operation count over its peak rate."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S}
+    rates = {"f64": F64_INSTR_PER_S, "f32": F32_OPS_PER_S, "int32": INT32_OPS_PER_S}
+    for kind, n in ops.items():
+        times[kind] = n / rates[kind]
+    worst = max(times, key=times.get)
+    return times[worst] * 1e3, "bytes" if worst == "bytes" else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(v.numel() * v.element_size() for v in tensors)
+
+
+def k2_bound(spec, X, y, out) -> Tuple[float, str]:
+    pf = len(spec.effective_fit_cols)
+    sims, max_n, _ = X.shape
+    fma = sims * max_n * (pf * (pf + 1) // 2 + pf + 2)
+    if "n_j" in out:
+        fma += sims * max_n * (pf + 1)
+    return bound(nbytes(X, y, *out.values()), {"f64": fma})
+
+
+def k4_bound(args, outs) -> Tuple[float, str]:
+    """Per deviance evaluation of a cell: c_j and log1p(gamma n_j) once per
+    run of equal n_j (the values repeat with n_j), the multiply-adds of
+    every cluster, then exp(log gamma), the p x p Cholesky and solves, and
+    p + 1 logs."""
+    n_j, p = args[0], args[3].shape[-1]
+    m, cells = n_j.shape[-1], n_j[..., 0].numel()
+    runs = cells + int((n_j[..., 1:] != n_j[..., :-1]).sum())
+    per_cluster = p * (p + 1) + 3 * p + 4
+    per_cell = (F64_LOG_INSTR + p * F64_SQRT_INSTR + (3 * p + 1) * F64_DIV_INSTR
+                + (p + 1) * F64_LOG_INSTR + p ** 3)
+    instr = REML_EVALS * (runs * (F64_DIV_INSTR + F64_LOG_INSTR + 3)
+                          + cells * (m * per_cluster + per_cell))
+    return bound(nbytes(*args, *outs), {"f64": instr})
+
+
+def device_ms(fn, copies, reps: int, kernel: str = "") -> float:
+    """Mean device time per call of ``fn``, one copy of its inputs after
+    another: the CUDA kernels it launches (those whose name contains
+    ``kernel``, or all), summed from torch.profiler's device events. Gaps
+    between kernels, where the device waits for the host, are not
+    counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _warm_then_flush(fn, copies)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(*copies[i % len(copies)])
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name)
+    check(us > 0, f"the profiler saw no device time for {kernel or 'the plain version'}")
+    return us / reps / 1e3
+
+
+PROFILE_REPS = 7
+
+
+def profile_arm(run) -> Dict:
+    """Wall of ``PROFILE_REPS`` calls of ``run`` (host clock; each call ends
+    with the counts on the host), then one call under torch.profiler: the
+    summed device time of its kernels, their count and the largest by
+    name (ms)."""
+    import statistics
+    from collections import defaultdict
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(PROFILE_REPS):
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name: Dict[str, float] = defaultdict(float)
+    launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.split(r"[(<]", e.name.replace("(anonymous namespace)::", ""))[0]
+            by_name[name[:48]] += e.time_range.elapsed_us() / 1e3
+            launches += 1
+    check(launches > 0, "the profiler saw no device time in an arm")
+    return dict(median_ms=statistics.median(walls), min_ms=min(walls), max_ms=max(walls),
+                device_ms=sum(by_name.values()), launches=launches,
+                items=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+
+
+def _ptxas_by_p(log: str) -> Dict[int, Dict[str, int]]:
+    """Registers and spill-store bytes of each kernel instantiation, keyed
+    by its template p (``...kernelILi<p>E...`` in the mangled name)."""
+    found: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            found.setdefault(cur, {})["spill"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found.setdefault(cur, {})["regs"] = int(m.group(1))
+            cur = None
+    by_p = {}
+    for name, v in found.items():
+        m = re.search(r"kernelILi(\d+)E", name)
+        if m and "regs" in v:
+            by_p[int(m.group(1))] = v
+    return by_p
 
 
 def _ptxas_summary(log: str) -> str:
@@ -231,9 +477,14 @@ def main() -> int:
     # --- phase 2: build ---
     took = kernels.build_all()
     for name, k in kernels.KERNELS.items():
+        log = k.log_path.read_text() if k.log_path.exists() else ""
         print(f"built {name}: {took[name]:.1f} s after start; "
-              f"{_ptxas_summary(k.log_path.read_text()) if k.log_path.exists() else 'cached'}",
-              flush=True)
+              f"{_ptxas_summary(log) if log else 'cached'}", flush=True)
+        if name in ("grid_suffstats", "reml_intercept") and log:
+            by_p = _ptxas_by_p(log)
+            print(f"  ptxas {name} by p: " + ", ".join(
+                f"p={q}: {v['regs']} registers, {v.get('spill', 0)} B spill stores"
+                for q, v in sorted(by_p.items())), flush=True)
 
     # --- phase 3: each kernel against its plain version ---
     specs = {name: lower_design(lower, ClusterStatic, name) for name in DESIGNS}
@@ -266,9 +517,15 @@ def main() -> int:
         X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0, sim_ids,
                                            plain=True)
         lmm_cases.append((name, spec_, X_, y_))
+    k2_cases = [c + (True,) for c in lmm_cases]
+    k2_cases += [("ols", ols, Xo, yo, False), ("curve", curve, Xc, yc, False)]
+    for name in K2_CHECKS:  # off the path
+        spec_, arr_ = lower_design(lower, ClusterStatic, name)
+        X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
+                                           sim_ids[:GOLDEN_SIMS], plain=True)
+        k2_cases.append((name, spec_, X_, y_, True))
     k2_err = 0.0
-    for tag, spec_, X_, y_, clus in ([c + (True,) for c in lmm_cases]
-                                     + [("ols", ols, Xo, yo, False), ("curve", curve, Xc, yc, False)]):
+    for tag, spec_, X_, y_, clus in k2_cases:
         got = olsfit.grid_suffstats_kernel(spec_, X_, y_, with_clusters=clus)
         want = olsfit.grid_suffstats_plain(spec_, X_, y_, with_clusters=clus)
         check(set(got) == set(want), f"K2 outputs {sorted(got)} != {sorted(want)}")
@@ -296,28 +553,40 @@ def main() -> int:
     args_c = args  # the curve's cells, the larger p, for the timings
     records["ols_solve"] = {"max_abs_err": k3_err}
 
-    k4_err = 0.0
+    k4_cases = []
     for tag, spec_, X_, y_ in lmm_cases:
         suff = olsfit.grid_suffstats_plain(spec_, X_, y_, with_clusters=True)
         ns = torch.as_tensor(spec_.grid, dtype=torch.float64, device=dev)
-        args = (suff["n_j"], suff["s"], suff["t"], suff["xtx"], suff["xty"], suff["yty"], ns)
+        k4_cases.append((tag, spec_, (suff["n_j"], suff["s"], suff["t"], suff["xtx"],
+                                      suff["xty"], suff["yty"], ns)))
+    for i, m in enumerate(K4_SYNTHETIC_M):  # off the path
+        k4_cases.append((f"synthetic m={m}", lmm, synthetic_reml_inputs(
+            torch, GOLDEN_SIMS, m, 4 if m > 32 else 8, SEED + i, dev)))
+    k4_err = 0.0
+    for tag, spec_, args in k4_cases:
         got = mixedfit.reml_intercept_kernel(*args)
         want = mixedfit.reml_intercept_plain(*args)
         for i, flag in ((2, "converged"), (3, "boundary"), (5, "boundary_hi")):
-            n_diff = (got[i] != want[i]).sum().item()
+            diff = (got[i] != want[i]).reshape(-1)
+            n_diff = diff.sum().item()
+            if n_diff:
+                cells = diff.nonzero().reshape(-1)[:8]
+                print(f"K4 {tag}: {flag} differs at cells {cells.tolist()}; plain dev_zero - "
+                      f"dev_interior there {pin_margins(torch, mixedfit, args, cells)} "
+                      f"against the 1e-10 pin margin", flush=True)
             check(n_diff == 0, f"K4 {tag}: {flag} flags differ in {n_diff} cells")
         beta_rel = rel_err(got[0], want[0])
         t2_rel = rel_err(waldstats.t2_targets(spec_, got[0], got[1]),
                          waldstats.t2_targets(spec_, want[0], want[1]))
         tau_rel = rel_err(got[4], want[4])
         k4_err = max(k4_err, max((got[i] - want[i]).abs().max().item() for i in (0, 1, 4)))
-        print(f"K4 reml_intercept {tag} cells {tuple(suff['yty'].shape)} m {suff['n_j'].shape[-1]}: "
+        print(f"K4 reml_intercept {tag} cells {tuple(args[5].shape)} m {args[0].shape[-1]}: "
               f"beta rel {beta_rel:.3e}, t2 rel {t2_rel:.3e}, tau2 rel {tau_rel:.3e}, flags "
               f"identical (boundary {int(got[3].sum())}, converged {int(got[2].sum())})", flush=True)
         check(max(beta_rel, t2_rel) <= K4_REL,
               f"K4 {tag}: rel err {max(beta_rel, t2_rel):.3e} > {K4_REL}")
         if tag == "lmm":
-            args_l, cells_l = args, tuple(suff["yty"].shape)  # the main path's, for the timings
+            args_l, cells_l = args, tuple(args[5].shape)  # the main path's, for the timings
     records["reml_intercept"] = {"max_abs_err": k4_err}
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -369,36 +638,69 @@ def main() -> int:
 
     # --- phase 5: timings at the main path's shapes ---
     reps = 20
-    timing = {
-        "philox_fill": (
-            lambda: rng.fill_streams_kernel(SEED, 0, sim_ids, plan, rng.MODE_NORMAL),
-            lambda: rng.fill_streams_plain(SEED, 0, sim_ids, plan, rng.MODE_NORMAL),
-        ),
-        "grid_suffstats": (
-            lambda: olsfit.grid_suffstats_kernel(lmm, X, y, with_clusters=True),
-            lambda: olsfit.grid_suffstats_plain(lmm, X, y, with_clusters=True),
-        ),
-        "ols_solve": (
-            lambda: olsfit.ols_solve_kernel(*args_c),
-            lambda: olsfit.ols_solve_plain(*args_c),
-        ),
-        "reml_intercept": (
-            lambda: mixedfit.reml_intercept_kernel(*args_l),
-            lambda: mixedfit.reml_intercept_plain(*args_l),
-        ),
-    }
-    shapes = {
-        "philox_fill": f"{N_SIMS} sims x {len(plan)} streams x {lmm.max_n} rows",
-        "grid_suffstats": f"LMM X {tuple(X.shape)}, m 20, G 1",
-        "ols_solve": f"curve cells {tuple(args_c[2].shape)}, p {curve.n_predictors}",
-        "reml_intercept": f"LMM cells {cells_l}, p 3, m 20",
-    }
-    for name, (fk, fp) in timing.items():
-        plain_ms = cuda_ms(fp, 3)
-        ms = cuda_ms(fk, reps)
-        plain_ms = (plain_ms + cuda_ms(fp, 3)) / 2.0
-        records[name].update(ms=ms, plain_ms=plain_ms)
-        print(f"time {name} ({shapes[name]}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    # K2's yardstick: one batched Gram of the f64 [X | y] at the OLS shape,
+    # whose column 0 is the intercept, so it holds xtx, xty, yty and ysum.
+    # The upcast happens here, outside the timed window.
+    A = torch.cat([Xo[..., list(ols.effective_fit_cols)], yo[..., None]], dim=-1).to(torch.float64)
+    gram = torch.bmm(A.transpose(1, 2), A)
+    ref = olsfit.grid_suffstats_plain(ols, Xo, yo)
+    pf_o = len(ols.effective_fit_cols)
+    lib_rel = max(rel_err(gram[:, :pf_o, :pf_o], ref["xtx"][:, 0]),
+                  rel_err(gram[:, :pf_o, pf_o], ref["xty"][:, 0]),
+                  rel_err(gram[:, pf_o, pf_o], ref["yty"][:, 0]),
+                  rel_err(gram[:, 0, pf_o], ref["ysum"][:, 0]))
+    print(f"library yardstick torch.bmm of [X | y] {tuple(A.shape)} f64: rel err {lib_rel:.3e} "
+          f"against the plain statistics", flush=True)
+    check(lib_rel <= K2_REL, f"the bmm yardstick differs from the plain K2 by {lib_rel:.3e}")
+
+    k3_out = olsfit.ols_solve_kernel(*args_c)
+    p_c = args_c[0].shape[-1]
+    k3_instr = args_c[2].numel() * (p_c ** 3 // 3 + p_c ** 3 + 3 * p_c * p_c)  # estimate
+
+    def k2(spec_, clus):  # K2's kernel and plain version, taking (X, y)
+        return (lambda X_, y_: olsfit.grid_suffstats_kernel(spec_, X_, y_, with_clusters=clus),
+                lambda X_, y_: olsfit.grid_suffstats_plain(spec_, X_, y_, with_clusters=clus))
+
+    timing = [  # (record, shape, kernel, plain, inputs, (bound ms, bound by), library call)
+        ("philox_fill", f"{N_SIMS} sims x {len(plan)} streams x {lmm.max_n} rows",
+         lambda ids: rng.fill_streams_kernel(SEED, 0, ids, plan, rng.MODE_NORMAL),
+         lambda ids: rng.fill_streams_plain(SEED, 0, ids, plan, rng.MODE_NORMAL), (sim_ids,),
+         bound(nbytes(z_k), {"int32": z_k.numel() * PHILOX_INT_OPS_PER_WORD,
+                             "f32": z_k.numel() * PPF_F32_OPS_PER_NORMAL}), None),
+        ("grid_suffstats lmm", f"LMM X {tuple(X.shape)}, m 20, G 1", *k2(lmm, True), (X, y),
+         k2_bound(lmm, X, y, olsfit.grid_suffstats_kernel(lmm, X, y, with_clusters=True)), None),
+        ("grid_suffstats ols", f"OLS X {tuple(Xo.shape)}, G 1", *k2(ols, False), (Xo, yo),
+         k2_bound(ols, Xo, yo, ref), (lambda A_: torch.bmm(A_.transpose(1, 2), A_), (A,))),
+        ("grid_suffstats curve", f"curve X {tuple(Xc.shape)}, G 8", *k2(curve, False), (Xc, yc),
+         k2_bound(curve, Xc, yc, olsfit.grid_suffstats_kernel(curve, Xc, yc)), None),
+        ("ols_solve", f"curve cells {tuple(args_c[2].shape)}, p {p_c}",
+         olsfit.ols_solve_kernel, olsfit.ols_solve_plain, args_c,
+         bound(nbytes(*args_c, *k3_out), {"f64": k3_instr}), None),
+        ("reml_intercept", f"LMM cells {cells_l}, p 3, m 20",
+         mixedfit.reml_intercept_kernel, mixedfit.reml_intercept_plain, args_l,
+         k4_bound(args_l, mixedfit.reml_intercept_kernel(*args_l)), None),
+    ]
+    timed = {}
+    for key, shape, fk, fp, inputs, (bound_ms, bound_by), lib in timing:
+        kname = key.split()[0] + "_kernel"  # the CUDA function's name
+        copies = input_copies(inputs)
+        plain_ms = device_ms(fp, copies, 3)
+        ms = device_ms(fk, copies, reps, kname)
+        plain_ms = (plain_ms + device_ms(fp, copies, 3)) / 2.0
+        call_ms = cuda_ms(fk, copies, reps)
+        library_ms = device_ms(lib[0], input_copies(lib[1]), reps) if lib is not None else None
+        timed[key] = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms, call_ms=call_ms)
+        print(f"time {key} ({shape}): kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per "
+              f"call with the wrapper), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {bound_ms / ms:.1%} of bound"
+              + (f", library {library_ms:.4f} ms" if library_ms is not None else ""), flush=True)
+    for name in ("philox_fill", "ols_solve", "reml_intercept"):
+        records[name].update(timed[name])
+    # K2's line is the OLS shape, the one where a single library call computes
+    # the same function; by_arm holds every arm's shape
+    records["grid_suffstats"].update(timed["grid_suffstats ols"], by_arm={
+        arm: timed[f"grid_suffstats {arm}"] for arm in ("lmm", "ols", "curve")})
 
     for name in DESIGNS:
         spec_, arr_ = specs[name]
@@ -411,14 +713,24 @@ def main() -> int:
         print(f"arm {name} ({N_SIMS} sims, wall): kernels {arm_s[name] * 1e3:.1f} ms and "
               f"{again_s * 1e3:.1f} ms, plain {plain_s * 1e3:.1f} ms", flush=True)
 
+    for name in DESIGNS:  # where the time goes: wall spread, busy share, device items
+        spec_, arr_ = specs[name]
+        prof = profile_arm(lambda: batch.run_batch(spec_, arr_, N_SIMS, SEED, chunk_size=N_SIMS,
+                                                   device=dev))
+        items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
+        print(f"profile {name} ({N_SIMS} sims): wall median {prof['median_ms']:.3f} ms (range "
+              f"{prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {PROFILE_REPS} calls), device kernel "
+              f"time {prof['device_ms']:.3f} ms, busy {prof['device_ms'] / prof['median_ms']:.1%} "
+              f"of the median wall, {prof['launches']} kernels; largest device items (ms): "
+              f"{items}", flush=True)
+
     # --- phase 6: results ---
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records[name]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "launches": launches[name], **r,
         })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

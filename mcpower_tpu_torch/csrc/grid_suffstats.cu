@@ -11,133 +11,432 @@
 // grid (statistic at g = statistic at g-1 + segment g, as the reference's
 // cumsum of per-segment sums).
 //
-// What bounds it on H100: memory reads and f64 adds. Each sim's design is
-// read once from device memory (2.4 KB at the main path's N = 200, p = 3;
-// 14 KB for the 7-column, N = 500 curve design), and each statistic is a
-// sequential f64 sum over rows, so the kernel moves ~30 MB at 10,000 sims
-// and is bounded by the latency of those sums rather than by the 3.35 TB/s
-// of device memory.
+// What bounds it on H100: device memory. Each sim's X and y are read once
+// (3.2 KB for the LMM's N = 200, P = 3; 16 KB for the 7-column, N = 500
+// curve design) and the statistics written once; at the curve shape that is
+// ~197 MB against ~0.19 G f64 multiply-adds, so bytes bound it (~59 us at
+// 3.35 TB/s against ~11 us of f64 work). The f64 tensor cores (DMMA) would
+// only speed up the part that is not the limit, so the design does not use
+// them.
 //
-// What the design does about it: one block per sim, one thread per output
-// statistic (pf(pf+1)/2 cross products, pf X'y entries, y'y, sum y, and
-// m (pf + 2) cluster sums), each walking only the rows it needs; the sim's
-// rows are re-read from L1 by the block's threads, so device memory sees
-// each byte once. The grid cumsum happens in the thread that owns the
-// statistic, so no second pass or atomics are needed. The cluster layout is
-// static iota math (round-robin id = row % m, blocked id = row / cs), so a
-// cluster's rows are a stride or a range, never a gather.
+// What the design does about it:
+// - One warp per block, persistent over groups of four sims (grid = SMs x
+//   resident blocks); eight lanes work on each sim of a group. The warp
+//   stages its group's X and y rows in shared memory with cp.async (16-byte
+//   copies where the layout is 16-byte aligned) into a two-stage ring, so
+//   the next group's copy is in flight while this group is summed. Designs
+//   too tall for one stage are staged in row chunks, whose length the
+//   launcher picks to end on grid points where it can (chunk_rows_for).
+// - Work is split over rows, not statistics: each lane takes every 8th row
+//   of a grid segment, converts its row to f64 once and accumulates all the
+//   statistics its warp owns in registers (for p <= 7 all 37 or fewer; for
+//   wider fits the statistics split into groups of at most 40, one warp per
+//   group, each staging the sims itself and reading them from L2).
+// - Per segment the eight lanes' partial sums combine by a reduce-scatter
+//   butterfly of warp shuffles (each level halves what a lane holds), so the
+//   combine costs about one shuffle per statistic, shared by the four sims
+//   of the warp, in a fixed order: no atomics, the same result on every run.
+//   The lane that ends up owning a statistic carries its cumulative sum over
+//   the grid.
+// - Cluster sums come from the staged rows, one lane per cluster: in the
+//   round-robin layout row r belongs to cluster r % m, in the blocked
+//   layout to r / cs; a cluster's rows in a segment are a stride or a range,
+//   never a gather. Row counts n_j are exact integer counts.
 
 #include "common.cuh"
 
 #define MCP_MAX_P 16
 #define MCP_MAX_GRID 64
 
+namespace {
+
+constexpr int WARP = 32;
+constexpr int SIM_LANES = 8;  // lanes on one sim
+constexpr int SIM_LEVELS = 3;  // log2(SIM_LANES)
+constexpr int SIMS_PER_WARP = WARP / SIM_LANES;
+constexpr int MAX_STATS_PER_WARP = 40;
+constexpr int MAX_SMEM_BYTES = 227 * 1024;
+// Each sim's share of a stage holds at most this many bytes of X and y rows:
+// small stages keep many warps resident.
+constexpr int STAGE_BYTES_PER_SIM = 4 * 1024;
+
 struct Layout {
     int fit[MCP_MAX_P];
     int grid[MCP_MAX_GRID];
 };
 
-__global__ void grid_suffstats_kernel(const float* __restrict__ X, const float* __restrict__ y,
-                                      int max_n, int P, Layout lay, int pf, int G, int m,
-                                      int round_robin, int period, double* __restrict__ xtx,
-                                      double* __restrict__ xty, double* __restrict__ yty,
-                                      double* __restrict__ ysum, double* __restrict__ nj,
-                                      double* __restrict__ s, double* __restrict__ t) {
-    const int sim = blockIdx.x;
-    const float* Xs = X + (long long)sim * max_n * P;
-    const float* ys = y + (long long)sim * max_n;
-    const int n_pair = pf * (pf + 1) / 2;
-    const int n_global = n_pair + pf + 2;
-    const int n_items = n_global + m * (pf + 2);
+struct Args {
+    const float* X;
+    const float* y;
+    int sims, max_n, P, G, m, round_robin, period, chunk_rows, vec16;
+    double *xtx, *xty, *yty, *ysum, *nj, *s, *t;
+};
 
-    for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
-        double cum = 0.0;
-        int prev = 0;
-        if (item < n_pair) {
-            // cross product (i, j), i <= j, pairs enumerated row by row
-            int i = 0, rem = item;
-            while (rem >= pf - i) {
-                rem -= pf - i;
-                ++i;
-            }
-            const int j = i + rem;
-            const int ci = lay.fit[i], cj = lay.fit[j];
-            for (int g = 0; g < G; ++g) {
-                const int n = lay.grid[g];
-                double seg = 0.0;
-                for (int r = prev; r < n; ++r)
-                    seg += (double)Xs[(long long)r * P + ci] * (double)Xs[(long long)r * P + cj];
-                cum += seg;
-                double* o = xtx + ((long long)sim * G + g) * pf * pf;
-                o[i * pf + j] = cum;
-                o[j * pf + i] = cum;
-                prev = n;
-            }
-        } else if (item < n_pair + pf) {
-            const int k = item - n_pair;
-            const int ck = lay.fit[k];
-            for (int g = 0; g < G; ++g) {
-                const int n = lay.grid[g];
-                double seg = 0.0;
-                for (int r = prev; r < n; ++r)
-                    seg += (double)Xs[(long long)r * P + ck] * (double)ys[r];
-                cum += seg;
-                xty[((long long)sim * G + g) * pf + k] = cum;
-                prev = n;
-            }
-        } else if (item < n_global) {
-            const bool square = item == n_pair + pf;
-            for (int g = 0; g < G; ++g) {
-                const int n = lay.grid[g];
-                double seg = 0.0;
-                for (int r = prev; r < n; ++r) {
-                    const double v = (double)ys[r];
-                    seg += square ? v * v : v;
-                }
-                cum += seg;
-                (square ? yty : ysum)[(long long)sim * G + g] = cum;
-                prev = n;
-            }
+__host__ __device__ constexpr int n_global(int pf) { return pf * (pf + 1) / 2 + pf + 2; }
+
+// Warps (statistic groups) per sim group: the fewest, a power of two, that
+// keep each warp's share at or below MAX_STATS_PER_WARP.
+__host__ __device__ constexpr int n_groups(int pf) {
+    int g = 1;
+    while ((n_global(pf) + g - 1) / g > MAX_STATS_PER_WARP) g *= 2;
+    return g;
+}
+
+__host__ __device__ constexpr int per_group(int pf) {
+    return (n_global(pf) + n_groups(pf) - 1) / n_groups(pf);
+}
+
+// What one lane holds after `levels` halvings of c values.
+__host__ __device__ constexpr int halved(int c, int levels) {
+    return levels == 0 ? c : halved((c + 1) / 2, levels - 1);
+}
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// Shared-memory floats of one sim's X rows and y in a stage.
+__host__ __device__ constexpr int x_floats(int rows, int P) { return round4(rows * P); }
+__host__ __device__ constexpr int stage_floats(int rows, int P) {
+    return SIMS_PER_WARP * (x_floats(rows, P) + round4(rows));
+}
+
+__host__ __device__ constexpr int sim_stage_bytes(int rows, int P) {
+    return (int)sizeof(float) * (x_floats(rows, P) + round4(rows));
+}
+
+// Rows of X and y staged at a time: all max_n when one sim's rows fit
+// STAGE_BYTES_PER_SIM, else a multiple of 4 (so every chunk stays 16-byte
+// aligned) between half and all of what fits, chosen to cut the grid
+// segments into the fewest pieces (each piece costs one warp reduction),
+// the larger on a tie.
+int chunk_rows_for(int max_n, int P, const int* grid, int G) {
+    if (sim_stage_bytes(max_n, P) <= STAGE_BYTES_PER_SIM) return max_n;
+    int most = STAGE_BYTES_PER_SIM / ((int)sizeof(float) * (P + 1)) / 4 * 4;
+    while (most > 4 && sim_stage_bytes(most, P) > STAGE_BYTES_PER_SIM) most -= 4;
+    most = most > 4 ? most : 4;
+    int best = 0, best_pieces = 0;
+    for (int rows = (most / 2 / 4 * 4 > 4 ? most / 2 / 4 * 4 : 4); rows <= most; rows += 4) {
+        int pieces = 0;
+        for (int r = rows; r < max_n; r += rows) {
+            bool on_grid = false;
+            for (int g = 0; g < G && !on_grid; ++g) on_grid = grid[g] == r;
+            pieces += on_grid ? 0 : 1;
+        }
+        if (best == 0 || pieces <= best_pieces) {
+            best = rows;
+            best_pieces = pieces;
+        }
+    }
+    return best;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_wait_prior() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Copy n floats, all lanes of the warp together.
+__device__ __forceinline__ void warp_copy(float* dst, const float* src, int n, bool vec16,
+                                          int lane) {
+    int done = 0;
+    if (vec16) {
+        const int n4 = n >> 2;
+        for (int i = lane; i < n4; i += WARP) cp_async16(dst + 4 * i, src + 4 * i);
+        done = n4 << 2;
+    }
+    for (int i = done + lane; i < n; i += WARP) cp_async4(dst + i, src + i);
+}
+
+// Stage rows [r0, r0 + chunk_rows) of the sims of group `group`: slot k's X
+// rows at k * x_floats, then every slot's y.
+__device__ __forceinline__ void stage_chunk(const Args& a, float* stage, long long group, int r0,
+                                            int lane) {
+    const int rows = min(a.chunk_rows, a.max_n - r0);
+    const int xf = x_floats(a.chunk_rows, a.P);
+    for (int k = 0; k < SIMS_PER_WARP; ++k) {
+        const long long sim = group * SIMS_PER_WARP + k;
+        if (sim >= a.sims) break;
+        warp_copy(stage + k * xf, a.X + (sim * a.max_n + r0) * (long long)a.P, rows * a.P,
+                  a.vec16, lane);
+        warp_copy(stage + SIMS_PER_WARP * xf + k * round4(a.chunk_rows),
+                  a.y + sim * a.max_n + r0, rows, a.vec16, lane);
+    }
+}
+
+// Reduce-scatter of C values over each sim's SIM_LANES lanes: at level l a
+// lane exchanges half of what it holds with the lane (SIM_LANES / 2) >> l
+// away and keeps the sum of the other half. Afterwards a[0 .. own_size) hold
+// the sim's sums of the values starting at own_base (see own_range).
+template <int N, int C, int LEVEL>
+__device__ __forceinline__ void reduce_scatter(double (&a)[N], int sl) {
+    if constexpr (LEVEL < SIM_LEVELS) {
+        constexpr int H = (C + 1) / 2;
+        const bool up = (sl >> (SIM_LEVELS - 1 - LEVEL)) & 1;
+#pragma unroll
+        for (int i = 0; i < H; ++i) {
+            const double lo = a[i];
+            const double hi = (i + H < C) ? a[(i + H < C) ? i + H : i] : 0.0;
+            const double send = up ? lo : hi;
+            const double keep = up ? hi : lo;
+            a[i] = keep + __shfl_xor_sync(0xffffffffu, send, (SIM_LANES / 2) >> LEVEL);
+        }
+        reduce_scatter<N, H, LEVEL + 1>(a, sl);
+    }
+}
+
+// The values lane `sl` of a sim holds after reduce_scatter of c values:
+// indices [base, base + size). A half may reach past its block (2h > c);
+// those slots hold zeros and belong to no one.
+__device__ __forceinline__ void own_range(int c, int sl, int& base, int& size) {
+    base = 0;
+    size = c;
+    for (int l = 0; l < SIM_LEVELS; ++l) {
+        const int h = (c + 1) / 2;
+        if ((sl >> (SIM_LEVELS - 1 - l)) & 1) {
+            base += h;
+            size = max(size - h, 0);
         } else {
-            // cluster statistic: c = cluster, k < pf column sum, k == pf
-            // outcome sum, k == pf + 1 row count
-            const int ci = item - n_global;
-            const int c = ci / (pf + 2);
-            const int k = ci % (pf + 2);
-            for (int g = 0; g < G; ++g) {
-                const int n = lay.grid[g];
-                int r0, r1, step;
-                if (round_robin) {
-                    r0 = prev + ((c - prev % period) % period + period) % period;
-                    r1 = n;
-                    step = period;
-                } else {
-                    r0 = max(prev, c * period);
-                    r1 = min(n, (c + 1) * period);
-                    step = 1;
-                }
-                double seg = 0.0;
-                for (int r = r0; r < r1; r += step) {
-                    if (k < pf)
-                        seg += (double)Xs[(long long)r * P + lay.fit[k]];
-                    else if (k == pf)
-                        seg += (double)ys[r];
-                    else
-                        seg += 1.0;
-                }
-                cum += seg;
-                const long long cell = (long long)sim * G + g;
-                if (k < pf)
-                    s[(cell * m + c) * pf + k] = cum;
-                else if (k == pf)
-                    t[cell * m + c] = cum;
-                else
-                    nj[cell * m + c] = cum;
-                prev = n;
+            size = min(size, h);
+        }
+        c = h;
+    }
+}
+
+// Where global statistic `id` of a cell goes, packed in one int: bits 0-2
+// the output (0 none, 1 X'X, 2 X'y, 3 y'y, 4 sum y), bits 3-10 and 11-18 its
+// offsets in the cell (X'X is written on both sides of the diagonal).
+// Statistics run: cross products (i, j), i <= j, row by row; then X'y; then
+// y'y; then sum y. A lane works these out once per task, so finishing a
+// segment is only stores.
+template <int PF>
+__device__ __forceinline__ int target_of(int id) {
+    constexpr int n_pair = PF * (PF + 1) / 2;
+    if (id < n_pair) {
+        int i = 0, rem = id;
+        while (rem >= PF - i) {
+            rem -= PF - i;
+            ++i;
+        }
+        const int j = i + rem;
+        return 1 | ((i * PF + j) << 3) | ((j * PF + i) << 11);
+    }
+    if (id < n_pair + PF) return 2 | ((id - n_pair) << 3) | ((id - n_pair) << 11);
+    return id == n_pair + PF ? 3 : 4;
+}
+
+template <int PF>
+__device__ __forceinline__ void store(const Args& a, int target, long long cell, double v) {
+    const int o1 = (target >> 3) & 0xFF, o2 = (target >> 11) & 0xFF;
+    switch (target & 7) {
+        case 1:
+            a.xtx[cell * PF * PF + o1] = v;
+            if (o2 != o1) a.xtx[cell * PF * PF + o2] = v;
+            break;
+        case 2: a.xty[cell * PF + o1] = v; break;
+        case 3: a.yty[cell] = v; break;
+        case 4: a.ysum[cell] = v; break;
+        default: break;
+    }
+}
+
+// Cluster sums of rows [r, e) (inside the staged chunk starting at r0) for
+// grid cell `cell`, lane `sl` of the sim taking clusters sl, sl + 8, ...;
+// `first` marks the segment's first piece, which starts from the previous
+// grid point's sums (or zero at g = 0).
+template <int PF>
+__device__ __forceinline__ void cluster_piece(const Args& a, const Layout& lay, const float* Xs,
+                                              const float* ys, int r0, int r, int e,
+                                              long long cell, bool first, bool has_prev,
+                                              int sl) {
+    for (int c = sl; c < a.m; c += SIM_LANES) {
+        int lo, hi, step;
+        if (a.round_robin) {
+            lo = r + ((c - r % a.period) % a.period + a.period) % a.period;
+            hi = e;
+            step = a.period;
+        } else {
+            lo = max(r, c * a.period);
+            hi = min(e, (c + 1) * a.period);
+            step = 1;
+        }
+        double sx[PF], st = 0.0;
+#pragma unroll
+        for (int k = 0; k < PF; ++k) sx[k] = 0.0;
+        int count = 0;
+        for (int row = lo; row < hi; row += step) {
+            const float* xr = Xs + (row - r0) * a.P;
+#pragma unroll
+            for (int k = 0; k < PF; ++k) sx[k] += (double)xr[lay.fit[k]];
+            st += (double)ys[row - r0];
+            ++count;
+        }
+        const long long o = cell * a.m + c;
+        const long long base = first ? (has_prev ? o - a.m : -1) : o;
+        a.nj[o] = (base >= 0 ? a.nj[base] : 0.0) + (double)count;
+        a.t[o] = (base >= 0 ? a.t[base] : 0.0) + st;
+#pragma unroll
+        for (int k = 0; k < PF; ++k) a.s[o * PF + k] = (base >= 0 ? a.s[base * PF + k] : 0.0) + sx[k];
+    }
+}
+
+template <int PF>
+__global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, const Layout lay) {
+    constexpr int NG = n_groups(PF);
+    constexpr int K = per_group(PF);
+    constexpr int NGLOB = n_global(PF);
+    constexpr int OWN = halved(K, SIM_LEVELS);
+    extern __shared__ __align__(16) float smem[];
+    const int lane = threadIdx.x;
+    const int slot = lane / SIM_LANES;  // this lane's sim within the group
+    const int sl = lane % SIM_LANES;
+    const int xf = x_floats(a.chunk_rows, a.P);
+    const int sf = stage_floats(a.chunk_rows, a.P);
+    const int n_chunks = (a.max_n + a.chunk_rows - 1) / a.chunk_rows;
+    const long long n_tasks =
+        (((long long)a.sims + SIMS_PER_WARP - 1) / SIMS_PER_WARP) * NG;
+    int base, own_size;
+    own_range(K, sl, base, own_size);
+
+    int buf = 0;
+    long long task = blockIdx.x;
+    if (task < n_tasks) stage_chunk(a, smem, task / NG, 0, lane);
+    cp_commit();
+    for (; task < n_tasks; task += gridDim.x) {
+        const long long sim = (task / NG) * SIMS_PER_WARP + slot;
+        const bool valid = sim < a.sims;  // the last group may be short
+        const int g = (NG == 1) ? 0 : (int)(task % NG);
+        const bool clusters = valid && a.m > 0 && g == 0;
+        double cum[OWN], seg[OWN];
+        int target[OWN];
+#pragma unroll
+        for (int q = 0; q < OWN; ++q) {
+            cum[q] = seg[q] = 0.0;
+            const int id = g * K + base + q;
+            target[q] = (valid && q < own_size && id < NGLOB) ? target_of<PF>(id) : 0;
+        }
+
+        int gi = 0;  // current grid segment [seg_lo, lay.grid[gi])
+        int seg_lo = 0;
+        // A segment is finished: add it to the running sums and write the
+        // cell; an empty segment repeats the previous grid point.
+        auto finish = [&](bool empty) {
+            const long long cell = sim * a.G + gi;
+#pragma unroll
+            for (int q = 0; q < OWN; ++q) {
+                cum[q] += seg[q];
+                seg[q] = 0.0;
+                store<PF>(a, target[q], cell, cum[q]);
             }
+            if (clusters && empty)
+                cluster_piece<PF>(a, lay, nullptr, nullptr, 0, 0, 0, cell, true, gi > 0, sl);
+            seg_lo = lay.grid[gi];
+            ++gi;
+        };
+        while (gi < a.G && lay.grid[gi] == 0) finish(true);
+
+        for (int k = 0; k < n_chunks; ++k) {
+            // prefetch the warp's next chunk (this group's, or its next group's)
+            long long next_task = task;
+            int next_k = k + 1;
+            if (next_k == n_chunks) {
+                next_task = task + gridDim.x;
+                next_k = 0;
+            }
+            if (next_task < n_tasks)
+                stage_chunk(a, smem + (buf ^ 1) * sf, next_task / NG, next_k * a.chunk_rows,
+                            lane);
+            cp_commit();
+            cp_wait_prior();
+            __syncwarp();
+
+            const float* Xs = smem + buf * sf + slot * xf;
+            const float* ys = smem + buf * sf + SIMS_PER_WARP * xf + slot * round4(a.chunk_rows);
+            const int r0 = k * a.chunk_rows;
+            const int r1 = min(a.max_n, r0 + a.chunk_rows);
+            int r = r0;
+            while (r < r1 && gi < a.G) {
+                const int n = lay.grid[gi];
+                const int e = min(n, r1);
+                double acc[K];
+#pragma unroll
+                for (int i = 0; i < K; ++i) acc[i] = 0.0;
+                for (int row = r + sl; valid && row < e; row += SIM_LANES) {
+                    const float* xr = Xs + (row - r0) * a.P;
+                    double v[PF + 1];
+#pragma unroll
+                    for (int i = 0; i < PF; ++i) v[i] = (double)xr[lay.fit[i]];
+                    v[PF] = (double)ys[row - r0];
+                    int sid = 0;  // static after unrolling
+#pragma unroll
+                    for (int i = 0; i < PF; ++i) {
+#pragma unroll
+                        for (int j = i; j < PF; ++j) {
+                            if (sid / K == g) acc[sid % K] += v[i] * v[j];
+                            ++sid;
+                        }
+                    }
+#pragma unroll
+                    for (int i = 0; i < PF; ++i) {
+                        if (sid / K == g) acc[sid % K] += v[i] * v[PF];
+                        ++sid;
+                    }
+                    if (sid / K == g) acc[sid % K] += v[PF] * v[PF];
+                    ++sid;
+                    if (sid / K == g) acc[sid % K] += v[PF];
+                }
+                reduce_scatter<K, K, 0>(acc, sl);
+#pragma unroll
+                for (int q = 0; q < OWN; ++q) seg[q] += acc[q];
+                if (clusters)
+                    cluster_piece<PF>(a, lay, Xs, ys, r0, r, e, sim * a.G + gi, r == seg_lo,
+                                      gi > 0, sl);
+                r = e;
+                if (r == n) {
+                    finish(false);
+                    while (gi < a.G && lay.grid[gi] == seg_lo) finish(true);
+                }
+            }
+            __syncwarp();  // every lane is done with this stage before it is refilled
+            buf ^= 1;
         }
     }
 }
+
+template <int PF>
+int launch(const Args& a, const Layout& lay, cudaStream_t stream) {
+    const size_t smem = 2 * sizeof(float) * (size_t)stage_floats(a.chunk_rows, a.P);
+    if (smem > (size_t)MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+    auto kernel = grid_suffstats_kernel<PF>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WARP, smem)) !=
+        cudaSuccess)
+        return (int)err;
+    if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+    const long long tasks =
+        (((long long)a.sims + SIMS_PER_WARP - 1) / SIMS_PER_WARP) * n_groups(PF);
+    const long long resident = (long long)sms * per_sm;
+    const unsigned blocks = (unsigned)(tasks < resident ? tasks : resident);
+    kernel<<<blocks, WARP, smem, stream>>>(a, lay);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // fit: pf column indices of X; grid: G ascending row counts (last == max_n),
 // both host memory. m = 0 computes no cluster statistics (nj, s, t may then
@@ -146,8 +445,9 @@ extern "C" int mcp_grid_suffstats(const void* X, const void* y, int sims, int ma
                                   const int* fit, int pf, const int* grid, int G, int m,
                                   int round_robin, int period, void* xtx, void* xty, void* yty,
                                   void* ysum, void* nj, void* s, void* t, void* stream) {
-    if (sims <= 0 || pf <= 0 || pf > MCP_MAX_P || G <= 0 || G > MCP_MAX_GRID || m < 0 ||
-        period <= 0 || (m > 0 && (nj == nullptr || s == nullptr || t == nullptr)))
+    if (sims <= 0 || max_n <= 0 || P <= 0 || pf <= 0 || pf > MCP_MAX_P || G <= 0 ||
+        G > MCP_MAX_GRID || m < 0 || period <= 0 ||
+        (m > 0 && (nj == nullptr || s == nullptr || t == nullptr)))
         return (int)cudaErrorInvalidValue;
     Layout lay;
     for (int i = 0; i < pf; ++i) {
@@ -158,9 +458,26 @@ extern "C" int mcp_grid_suffstats(const void* X, const void* y, int sims, int ma
         if (grid[g] < (g ? grid[g - 1] : 0) || grid[g] > max_n) return (int)cudaErrorInvalidValue;
         lay.grid[g] = grid[g];
     }
-    grid_suffstats_kernel<<<sims, 128, 0, (cudaStream_t)stream>>>(
-        (const float*)X, (const float*)y, max_n, P, lay, pf, G, m, round_robin, period,
-        (double*)xtx, (double*)xty, (double*)yty, (double*)ysum, (double*)nj, (double*)s,
-        (double*)t);
-    return (int)cudaGetLastError();
+    if (grid[G - 1] != max_n) return (int)cudaErrorInvalidValue;
+    Args a;
+    a.X = (const float*)X;
+    a.y = (const float*)y;
+    a.sims = sims;
+    a.max_n = max_n;
+    a.P = P;
+    a.G = G;
+    a.m = m;
+    a.round_robin = round_robin;
+    a.period = period;
+    a.chunk_rows = chunk_rows_for(max_n, P, lay.grid, G);
+    a.vec16 = ((uintptr_t)X % 16 == 0) && ((uintptr_t)y % 16 == 0) && (max_n * P) % 4 == 0 &&
+              max_n % 4 == 0;
+    a.xtx = (double*)xtx;
+    a.xty = (double*)xty;
+    a.yty = (double*)yty;
+    a.ysum = (double*)ysum;
+    a.nj = (double*)nj;
+    a.s = (double*)s;
+    a.t = (double*)t;
+    MCP_DISPATCH_P(pf, launch, a, lay, (cudaStream_t)stream)
 }

@@ -15,22 +15,43 @@
 //      sigma^2 (X'V0^-1 X)^-1, tau^2 = gamma_hat sigma^2, and converged =
 //      finite deviance and beta, sigma^2 > 0, chol_rank_ok.
 //
-// What bounds it on H100: the sequential dependency chain of one cell.
-// 22 deviance evaluations each walk the m cluster statistics (m (p^2 + p +
-// 2) f64 multiply-adds) and factor a p x p matrix; at the main path's
-// 10,000 cells of m = 20, p = 3 that is ~0.1 GFLOP of f64 in all, far below
-// the card's f64 peak, and only 10,000 threads are in flight on 132 SMs.
-// The kernel is latency- and occupancy-bound, not bandwidth-bound: each
-// cell reads (p + 2) m + p^2 + p + 1 doubles from K2's output (~1 KB) and
-// re-reads them from L1 on every evaluation.
+// What bounds it on H100: the dependency chain of one cell. Each of the 24
+// deviance evaluations walks the m cluster statistics (one f64 division,
+// one log1p and p^2 / 2 + 2p + 2 multiply-adds per cluster) and then
+// factors a p x p matrix, solves with it and takes p + 1 logs, each step
+// waiting on the last. At the main path's 10,000 cells of m = 20, p = 3 the
+// f64 work is ~0.19 G instructions (~11 us at the card's f64 rate, counted
+// as chip_smoke.py counts it) against ~3 us for the ~10 MB it reads and
+// writes, so operations bound it on paper; in practice a cell's 24
+// evaluations cannot overlap, and the lanes of a group each repeat the
+// p x p work. One thread per cell gave only 10,000 threads, 79 blocks of
+// 128 on 132 SMs, 4 warps on each busy SM.
 //
-// What the design does about it: one thread per cell keeps the whole search
-// (bracket, three best points, step lengths) in registers with no
-// synchronisation or shared memory; p is a template constant so the p x p
-// algebra unrolls with static indices (smallchol.cuh); the cluster loop
-// streams n_j, s_j, t_j through L1. Built with --fmad=false so the
-// deviance follows the plain version's operation order and the pins, which
-// hinge on 1e-10 deviance gaps, agree with it.
+// What the design does about it:
+// - A group of L lanes per cell (L a power of two chosen by the launcher
+//   from m and p, lanes_for; 4 at m = 20), so the main path puts ~1,250
+//   warps on all SMs and each lane walks a quarter of the clusters. L stays
+//   small (at most MAX_LANES) because every lane of the group repeats the
+//   cell's serial p x p work.
+// - Each lane loads its clusters j = lane, lane + L, ... (up to
+//   clusters_per_lane<P>() of them, 4 for p <= 4) into registers once and
+//   keeps them for all 24 evaluations; clusters beyond that are read from
+//   memory on each evaluation, so any m >= 1 is taken.
+// - The division and log1p of a cluster depend on gamma and n_j alone; a
+//   lane recomputes them only when n_j changes from its previous cluster,
+//   so a balanced layout pays one of each per lane and evaluation. The
+//   values are the same bits as recomputing them.
+// - Per evaluation each lane forms its partial W, V, Y and sum log1p(gamma
+//   n_j), and the group adds them with an xor butterfly of __shfl_xor_sync.
+//   Addition is commutative, so every lane then holds bit-identical sums and
+//   runs the same p x p Cholesky and the same lane-select Brent steps: no
+//   divergence inside the group. The lanes share out the writes of beta and
+//   cov; lane 0 writes tau^2 and the flags.
+// - p is a template constant so the p x p algebra unrolls with static
+//   indices (smallchol.cuh). Built with --fmad=false: each cluster term
+//   follows the plain version's operation order, only the order of the sum
+//   over clusters differs (a tree, not a sequence), so the pins, which hinge
+//   on 1e-10 deviance gaps, agree with it.
 
 #include "common.cuh"
 #include "smallchol.cuh"
@@ -45,22 +66,82 @@ constexpr int BRENT_ITERS = 20;
 constexpr double CGOLD = 0.3819660112501051;
 constexpr double BRENT_TOL = 1e-9;
 
+constexpr int MAX_LANES = 4;
+
+// Registers held per lane for its own clusters; wider fits hold fewer.
+template <int P>
+__host__ __device__ constexpr int clusters_per_lane() {
+    return P <= 4 ? 4 : (P <= 6 ? 2 : 1);
+}
+
+// Lanes per cell: the smallest power of two whose lanes hold all m clusters
+// in registers, at most MAX_LANES; past that the kernel reads the remaining
+// clusters from memory.
+template <int P>
+int lanes_for(int m) {
+    const int need = (m + clusters_per_lane<P>() - 1) / clusters_per_lane<P>();
+    int lanes = 1;
+    while (lanes < need && lanes < MAX_LANES) lanes *= 2;
+    return lanes;
+}
+
 template <int P>
 struct Cell {
-    const double* nj;  // (m,)
-    const double* s;   // (m, P)
-    const double* t;   // (m,)
-    int m;
+    static constexpr int CPL = clusters_per_lane<P>();
+    // this lane's clusters j = lane + q L, q < CPL, in registers (count
+    // `own`); clusters from L * CPL on are read from memory
+    double nj[CPL], t[CPL], s[CPL][P];
+    int own;
+    const double* nj_g;  // (m,)
+    const double* s_g;   // (m, P)
+    const double* t_g;   // (m,)
+    int m, lane, L;
+    unsigned mask;  // the group's lanes
     double xtx[P * P];
     double xty[P];
     double yty;
     double n;
 };
 
+// The per-cluster factors c_j = gamma / (1 + gamma n_j) and log1p(gamma n_j)
+// depend on n_j alone: a lane keeps the last pair and recomputes only when
+// n_j changes, which in a balanced layout (every n_j equal) is once per
+// evaluation. The values are the same bits either way.
+struct ClusterFactors {
+    double nj = -1.0;  // no row count is negative
+    double cj = 0.0, l1p = 0.0;
+    __device__ __forceinline__ void at(double gamma, double n) {
+        if (n != nj) {
+            nj = n;
+            cj = gamma / (1.0 + gamma * n);
+            l1p = log1p(gamma * n);
+        }
+    }
+};
+
+// One cluster's terms, in the plain version's operation order.
+template <int P>
+__device__ __forceinline__ void cluster_terms(double gamma, double nj, const double* sj,
+                                              double tj, ClusterFactors& f, double* W, double* V,
+                                              double& Y, double& logdet_v) {
+    f.at(gamma, nj);
+    const double cj = f.cj;
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+        const double cs = cj * sj[a];
+#pragma unroll
+        for (int b = 0; b <= a; ++b) W[a * P + b] = W[a * P + b] + cs * sj[b];
+        V[a] = V[a] + cs * tj;
+    }
+    Y = Y + (cj * tj) * tj;
+    logdet_v = logdet_v + f.l1p;
+}
+
 // Profile-REML pieces at gamma; fills L, beta, sigma2 and returns the
-// deviance. Same operations, in the same order, as the plain
-// mixedfit._reml_quantities: the cluster sums are formed first and then
-// subtracted from X'X, X'y, y'y.
+// deviance, the same on every lane of the group. Same operations, in the
+// same order, as the plain mixedfit._reml_quantities except for the order
+// of the sum over clusters: the cluster sums are formed first (per lane,
+// then over the group) and then subtracted from X'X, X'y, y'y.
 template <int P>
 __device__ double reml_quantities(double gamma, const Cell<P>& c, double* L, double* beta,
                                   double& sigma2) {
@@ -70,22 +151,26 @@ __device__ double reml_quantities(double gamma, const Cell<P>& c, double* L, dou
 #pragma unroll
     for (int i = 0; i < P; ++i) V[i] = 0.0;
     double Y = 0.0, logdet_v = 0.0;
-    for (int j = 0; j < c.m; ++j) {
-        const double nj = c.nj[j];
-        const double cj = gamma / (1.0 + gamma * nj);
-        const double tj = c.t[j];
+    ClusterFactors f;
+#pragma unroll
+    for (int q = 0; q < Cell<P>::CPL; ++q)
+        if (q < c.own) cluster_terms<P>(gamma, c.nj[q], c.s[q], c.t[q], f, W, V, Y, logdet_v);
+    for (int j = c.lane + Cell<P>::CPL * c.L; j < c.m; j += c.L) {
         double sj[P];
 #pragma unroll
-        for (int a = 0; a < P; ++a) sj[a] = c.s[j * P + a];
+        for (int a = 0; a < P; ++a) sj[a] = c.s_g[j * P + a];
+        cluster_terms<P>(gamma, c.nj_g[j], sj, c.t_g[j], f, W, V, Y, logdet_v);
+    }
+    for (int off = c.L >> 1; off > 0; off >>= 1) {
 #pragma unroll
         for (int a = 0; a < P; ++a) {
-            const double cs = cj * sj[a];
 #pragma unroll
-            for (int b = 0; b <= a; ++b) W[a * P + b] = W[a * P + b] + cs * sj[b];
-            V[a] = V[a] + cs * tj;
+            for (int b = 0; b <= a; ++b)
+                W[a * P + b] = W[a * P + b] + __shfl_xor_sync(c.mask, W[a * P + b], off);
+            V[a] = V[a] + __shfl_xor_sync(c.mask, V[a], off);
         }
-        Y = Y + (cj * tj) * tj;
-        logdet_v = logdet_v + log1p(gamma * nj);
+        Y = Y + __shfl_xor_sync(c.mask, Y, off);
+        logdet_v = logdet_v + __shfl_xor_sync(c.mask, logdet_v, off);
     }
     double A[P * P], axy[P];
 #pragma unroll
@@ -112,8 +197,9 @@ __device__ __forceinline__ double dev_at(double log_gamma, const Cell<P>& c) {
     return reml_quantities<P>(exp(log_gamma), c, L, beta, sigma2);
 }
 
-// The reference's lane-select Brent, one lane: every candidate is computed
-// and then selected, so the step sequence matches the plain version's.
+// The reference's lane-select Brent, run alike by every lane of the group:
+// every candidate is computed and then selected, so the step sequence
+// matches the plain version's.
 template <int P>
 __device__ double brent_log_gamma(const Cell<P>& c) {
     double a = LOG_GAMMA_LO, b = LOG_GAMMA_HI;
@@ -173,22 +259,38 @@ __global__ void reml_intercept_kernel(const double* __restrict__ nj, const doubl
                                       const double* __restrict__ xtx,
                                       const double* __restrict__ xty,
                                       const double* __restrict__ yty,
-                                      const double* __restrict__ ns, int B, int G, int m,
+                                      const double* __restrict__ ns, int B, int G, int m, int L,
                                       double eps_rank, double* __restrict__ beta_out,
                                       double* __restrict__ cov_out,
                                       double* __restrict__ tau2_out,
                                       uint8_t* __restrict__ flags_out) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
+    const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long b = gid / L;
+    if (b >= B) return;  // whole groups leave together
     Cell<P> c;
-    c.nj = nj + (long long)b * m;
-    c.s = s + (long long)b * m * P;
-    c.t = t + (long long)b * m;
+    c.lane = (int)(gid % L);
+    const int warp_lane = threadIdx.x & 31;
+    c.mask = (L == 32) ? 0xffffffffu : (((1u << L) - 1u) << (warp_lane & ~(L - 1)));
+    c.L = L;
     c.m = m;
+    c.nj_g = nj + b * m;
+    c.s_g = s + b * m * P;
+    c.t_g = t + b * m;
+    c.own = 0;
 #pragma unroll
-    for (int i = 0; i < P * P; ++i) c.xtx[i] = xtx[(long long)b * P * P + i];
+    for (int q = 0; q < Cell<P>::CPL; ++q) {
+        const int j = c.lane + q * L;
+        const bool have = j < m;
+        c.own += have ? 1 : 0;
+        c.nj[q] = have ? c.nj_g[j] : 0.0;
+        c.t[q] = have ? c.t_g[j] : 0.0;
 #pragma unroll
-    for (int i = 0; i < P; ++i) c.xty[i] = xty[(long long)b * P + i];
+        for (int a = 0; a < P; ++a) c.s[q][a] = have ? c.s_g[j * P + a] : 0.0;
+    }
+#pragma unroll
+    for (int i = 0; i < P * P; ++i) c.xtx[i] = xtx[b * P * P + i];
+#pragma unroll
+    for (int i = 0; i < P; ++i) c.xty[i] = xty[b * P + i];
     c.yty = yty[b];
     c.n = ns[b % G];
 
@@ -199,19 +301,24 @@ __global__ void reml_intercept_kernel(const double* __restrict__ nj, const doubl
     const bool boundary_hi = !boundary && (lg_hat > BOUNDARY_LOG_GAMMA_HI);
     const double gamma_hat = boundary ? 0.0 : exp(lg_hat);
 
-    double L[P * P], beta[P], sigma2;
-    const double dev = reml_quantities<P>(gamma_hat, c, L, beta, sigma2);
+    double Lc[P * P], beta[P], sigma2;
+    const double dev = reml_quantities<P>(gamma_hat, c, Lc, beta, sigma2);
     bool beta_ok = true;
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-        beta_out[(long long)b * P + i] = beta[i];
+        if (i % L == c.lane) beta_out[b * P + i] = beta[i];
         beta_ok = beta_ok && isfinite(beta[i]);
     }
-    mcp::cho_inverse_scaled<P>(L, sigma2, cov_out + (long long)b * P * P);
-    tau2_out[b] = gamma_hat * sigma2;
-    const bool converged =
-        isfinite(dev) && beta_ok && (sigma2 > 0.0) && mcp::chol_rank_ok<P>(L, eps_rank);
-    flags_out[b] = (uint8_t)((converged ? 1 : 0) | (boundary ? 2 : 0) | (boundary_hi ? 4 : 0));
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+        if (j % L == c.lane) mcp::cho_inverse_column_scaled<P>(Lc, j, sigma2, cov_out + b * P * P);
+    if (c.lane == 0) {
+        tau2_out[b] = gamma_hat * sigma2;
+        const bool converged =
+            isfinite(dev) && beta_ok && (sigma2 > 0.0) && mcp::chol_rank_ok<P>(Lc, eps_rank);
+        flags_out[b] =
+            (uint8_t)((converged ? 1 : 0) | (boundary ? 2 : 0) | (boundary_hi ? 4 : 0));
+    }
 }
 
 template <int P>
@@ -219,11 +326,12 @@ int launch(const double* nj, const double* s, const double* t, const double* xtx
            const double* xty, const double* yty, const double* ns, int B, int G, int m,
            double eps_rank, double* beta, double* cov, double* tau2, uint8_t* flags,
            cudaStream_t stream) {
+    const int L = lanes_for<P>(m);
     const int threads = 128;
-    const unsigned blocks = mcp_blocks(B, threads);
+    const unsigned blocks = mcp_blocks((long long)B * L, threads);
     if (blocks == 0) return (int)cudaErrorInvalidConfiguration;
-    reml_intercept_kernel<P><<<blocks, threads, 0, stream>>>(nj, s, t, xtx, xty, yty, ns, B, G,
-                                                             m, eps_rank, beta, cov, tau2, flags);
+    reml_intercept_kernel<P><<<blocks, threads, 0, stream>>>(
+        nj, s, t, xtx, xty, yty, ns, B, G, m, L, eps_rank, beta, cov, tau2, flags);
     return (int)cudaGetLastError();
 }
 

@@ -70,20 +70,25 @@ __device__ __forceinline__ void cho_solve(const double* L, const double* b, doub
     solve_upper_t<P>(L, y, x);
 }
 
-// inv = (L L^T)^-1, column j the solve against e_j; writes
+// Column j of inv = (L L^T)^-1, the solve against e_j; writes
 // out[i * P + j] = scale * inv[i][j].
+template <int P>
+__device__ __forceinline__ void cho_inverse_column_scaled(const double* L, int j, double scale,
+                                                          double* out) {
+    double e[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) e[i] = (i == j) ? 1.0 : 0.0;
+    double col[P];
+    cho_solve<P>(L, e, col);
+#pragma unroll
+    for (int i = 0; i < P; ++i) out[i * P + j] = scale * col[i];
+}
+
+// Every column of the scaled inverse.
 template <int P>
 __device__ __forceinline__ void cho_inverse_scaled(const double* L, double scale, double* out) {
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-        double e[P];
-#pragma unroll
-        for (int i = 0; i < P; ++i) e[i] = (i == j) ? 1.0 : 0.0;
-        double col[P];
-        cho_solve<P>(L, e, col);
-#pragma unroll
-        for (int i = 0; i < P; ++i) out[i * P + j] = scale * col[i];
-    }
+    for (int j = 0; j < P; ++j) cho_inverse_column_scaled<P>(L, j, scale, out);
 }
 
 // log|A| = 2 sum log diag(L).
@@ -111,27 +116,3 @@ __device__ __forceinline__ bool chol_rank_ok(const double* L, double eps_rank) {
 }
 
 }  // namespace mcp
-
-// Dispatch a runtime p in [1, 16] to a template instantiation:
-// MCP_DISPATCH_P(p, FN, args...) calls FN<P>(args...) and returns its
-// result, or cudaErrorInvalidValue for a p outside the range.
-#define MCP_DISPATCH_P(p, FN, ...)                          \
-    switch (p) {                                            \
-        case 1: return FN<1>(__VA_ARGS__);                  \
-        case 2: return FN<2>(__VA_ARGS__);                  \
-        case 3: return FN<3>(__VA_ARGS__);                  \
-        case 4: return FN<4>(__VA_ARGS__);                  \
-        case 5: return FN<5>(__VA_ARGS__);                  \
-        case 6: return FN<6>(__VA_ARGS__);                  \
-        case 7: return FN<7>(__VA_ARGS__);                  \
-        case 8: return FN<8>(__VA_ARGS__);                  \
-        case 9: return FN<9>(__VA_ARGS__);                  \
-        case 10: return FN<10>(__VA_ARGS__);                \
-        case 11: return FN<11>(__VA_ARGS__);                \
-        case 12: return FN<12>(__VA_ARGS__);                \
-        case 13: return FN<13>(__VA_ARGS__);                \
-        case 14: return FN<14>(__VA_ARGS__);                \
-        case 15: return FN<15>(__VA_ARGS__);                \
-        case 16: return FN<16>(__VA_ARGS__);                \
-        default: return (int)cudaErrorInvalidValue;         \
-    }

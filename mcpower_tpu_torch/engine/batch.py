@@ -100,10 +100,13 @@ def run_batch(
     chunk_size: Optional[int] = None,
     progress: Optional[Callable[[int, int], None]] = None,
     cancel: Optional[Callable[[], bool]] = None,
-    device="cpu",
+    device="cuda",
     plain: bool = False,
 ) -> Dict[str, np.ndarray]:
     """Run ``n_sims`` simulations on ``device`` and return host count arrays.
+
+    The default is the CUDA card; with none present the call raises rather
+    than run elsewhere. ``device="cpu"`` runs the plain PyTorch versions.
 
     ``arrays`` is the dict ``lower.lower`` returns (numpy, or tensors).
     ``progress(done, total)`` is called between chunks; ``cancel()``
@@ -115,7 +118,7 @@ def run_batch(
     datagen.check_supported(spec)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_batch: device='cuda' but no CUDA device is available")
+        raise RuntimeError(f"run_batch: device={str(device)!r} but no CUDA device is available")
     arr = datagen.to_device(arrays, device)
     seed_lo, seed_hi = _split_seed(base_seed)
 

@@ -16,9 +16,9 @@ gamma = 0 probe decides the low pin, log gamma > 6.5 the high pin, and the
 final fit gives beta, cov = sigma^2 (X'V0^-1 X)^-1 and tau^2.
 
 On the card the whole per-cell fit is kernel K4 (``csrc/reml_intercept.cu``,
-one thread per (sim, grid) cell). :func:`reml_intercept_plain` is its plain
-PyTorch version, written with the sim and grid axes as batch axes and the
-reference's branch-free lane selects.
+a group of lanes per (sim, grid) cell). :func:`reml_intercept_plain` is its
+plain PyTorch version, written with the sim and grid axes as batch axes and
+the reference's branch-free lane selects.
 """
 
 from __future__ import annotations
@@ -185,8 +185,8 @@ _REML_ARGS = [
 
 
 def reml_intercept_kernel(n_j, s, t, xtx, xty, yty, ns):
-    """Kernel K4: :func:`reml_intercept_plain` on the card, one thread per
-    (sim, grid) cell with the search state in registers."""
+    """Kernel K4: :func:`reml_intercept_plain` on the card, a group of
+    lanes per (sim, grid) cell."""
     p, m, G = xtx.shape[-1], n_j.shape[-1], xtx.shape[-3]
     if not 1 <= p <= MAX_P:
         raise ValueError(f"reml_intercept kernel takes 1 <= p <= {MAX_P}, got {p}")

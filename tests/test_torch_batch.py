@@ -70,7 +70,7 @@ def _assert_counts_equal(got, want, tau2_rel=TAU2_REL):
 def test_run_batch_equals_the_reference(designs, name):
     (ref_spec, ref_arr), (spec, arr) = designs[name]
     want = ref_batch.run_batch(ref_spec, ref_arr, SIMS, chip_smoke.SEED, chunk_size=SIMS)
-    got = batch.run_batch(spec, arr, SIMS, chip_smoke.SEED, chunk_size=SIMS)
+    got = batch.run_batch(spec, arr, SIMS, chip_smoke.SEED, chunk_size=SIMS, device="cpu")
     _assert_counts_equal(got, want)
 
 
@@ -81,25 +81,26 @@ def test_golden_counts_of_chip_smoke_are_the_references(designs, name):
     want = ref_batch.run_batch(ref_spec, ref_arr, n, chip_smoke.SEED, chunk_size=SIMS)
     _assert_counts_equal(chip_smoke.GOLDEN[name], want, tau2_rel=1e-12)
     # the port's plain path reproduces them on the CPU
-    got = batch.run_batch(spec, arr, n, chip_smoke.SEED, chunk_size=4 * SIMS)
+    got = batch.run_batch(spec, arr, n, chip_smoke.SEED, chunk_size=4 * SIMS, device="cpu")
     _assert_counts_equal(got, want)
 
 
 def test_chunking_progress_and_cancel(designs):
     _, (spec, arr) = designs["lmm_headline"]
-    whole = batch.run_batch(spec, arr, SIMS, 7, chunk_size=SIMS)
+    whole = batch.run_batch(spec, arr, SIMS, 7, chunk_size=SIMS, device="cpu")
     seen = []
-    ragged = batch.run_batch(spec, arr, SIMS, 7, chunk_size=24,
+    ragged = batch.run_batch(spec, arr, SIMS, 7, chunk_size=24, device="cpu",
                              progress=lambda done, total: seen.append((done, total)))
     _assert_counts_equal(ragged, whole, tau2_rel=1e-12)
     assert seen == [(24, SIMS), (48, SIMS), (64, SIMS)]
     # sim ids, not positions, address the draws: an offset batch is the tail
-    head = batch.run_batch(spec, arr, 40, 7, chunk_size=40)
-    tail = batch.run_batch(spec, arr, 24, 7, sim_id_offset=40)
+    head = batch.run_batch(spec, arr, 40, 7, chunk_size=40, device="cpu")
+    tail = batch.run_batch(spec, arr, 24, 7, sim_id_offset=40, device="cpu")
     for key in whole:
         if key != "tau2_hat":
             np.testing.assert_array_equal(np.asarray(head[key]) + tail[key], whole[key])
-    stopped = batch.run_batch(spec, arr, SIMS, 7, chunk_size=24, cancel=lambda: True)
+    stopped = batch.run_batch(spec, arr, SIMS, 7, chunk_size=24, cancel=lambda: True,
+                              device="cpu")
     assert int(stopped["n_done"]) == 24
 
 
@@ -131,6 +132,13 @@ def test_specs_outside_the_slice_raise(name):
     kw.update(UNSUPPORTED[name])
     spec, arr = lower.lower(**kw)
     with pytest.raises(NotImplementedError, match="not ported yet"):
+        batch.run_batch(spec, arr, 8, 1)
+
+
+def test_run_batch_defaults_to_the_card_and_raises_without_one(designs, monkeypatch):
+    _, (spec, arr) = designs["ols_10k"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         batch.run_batch(spec, arr, 8, 1)
 
 

@@ -182,7 +182,8 @@ def test_smallchol_matches_the_reference(p):
 
 
 # ---------------------------------------------------------------------------
-# B3: the static-layout cluster sums K2 is held against
+# B3: the static-layout cluster sums K2 is held against, and K2's plain
+# version on the designs chip_smoke.py checks the kernel at
 # ---------------------------------------------------------------------------
 
 
@@ -208,6 +209,39 @@ def test_clusterops_match_the_reference(mode, value):
     v = x[:, :m]
     np.testing.assert_array_equal(clusterops.per_row(spec, torch.tensor(v), 40).numpy(),
                                   np.asarray(ref_clusterops.per_row(ref_spec, jnp.asarray(v), 40)))
+
+
+K2_CHECKED = sorted({**chip_smoke.DESIGNS, **chip_smoke.LAYOUT_CHECKS, **chip_smoke.K2_CHECKS})
+
+
+@pytest.mark.parametrize("name", K2_CHECKED)
+def test_grid_suffstats_plain_on_the_designs_k2_is_checked_at(name):
+    """K2's plain version, which chip_smoke.py holds the kernel against on
+    the card, equals prefix sums written out in numpy on every design of
+    that check: each grid point's sums over its first n rows, and the
+    cluster sums over the layout's ids (round robin i % m, blocked i // cs)."""
+    spec, _ = chip_smoke.lower_design(lower, ClusterStatic, name)
+    rs = np.random.RandomState(5)
+    X = rs.standard_normal((3, spec.max_n, spec.n_predictors)).astype(np.float32)
+    y = rs.standard_normal((3, spec.max_n)).astype(np.float32)
+    c = spec.cluster
+    got = olsfit.grid_suffstats_plain(spec, torch.tensor(X), torch.tensor(y),
+                                      with_clusters=c is not None)
+    Xf, yf = X[..., list(spec.effective_fit_cols)].astype(np.float64), y.astype(np.float64)
+    for g, n in enumerate(spec.grid):
+        Xn, yn = Xf[:, :n], yf[:, :n]
+        want = {"xtx": np.einsum("bnp,bnq->bpq", Xn, Xn), "xty": np.einsum("bnp,bn->bp", Xn, yn),
+                "yty": (yn * yn).sum(-1), "ysum": yn.sum(-1)}
+        if c is not None:
+            m, size = c.n_clusters_at(spec.max_n), int(c.sizing_value)
+            ids = np.arange(n) % m if c.sizing_mode == "fixed_clusters" else np.arange(n) // size
+            onehot = (ids[:, None] == np.arange(m)).astype(np.float64)
+            want.update(n_j=np.broadcast_to(onehot.sum(0), (3, m)),
+                        s=np.einsum("bnp,nm->bmp", Xn, onehot), t=yn @ onehot)
+        assert set(got) == set(want)
+        for key, v in want.items():
+            np.testing.assert_allclose(got[key][:, g].numpy(), v, rtol=1e-12, atol=1e-12,
+                                       err_msg=f"{key} at n={n}")
 
 
 # ---------------------------------------------------------------------------
