@@ -47,11 +47,14 @@ def _nvcc() -> str:
 
 
 class Kernel:
-    """One CUDA source, its shared library and its launch count."""
+    """One CUDA source, its shared library and its launch count. ``csrc`` is
+    the directory of the source and its headers (another tree's, to build
+    that tree's kernel beside this one's)."""
 
-    def __init__(self, name: str, source: str, flags: Iterable[str] = ()):
+    def __init__(self, name: str, source: str, flags: Iterable[str] = (), csrc: Path = CSRC):
         self.name = name
         self.source = source
+        self.csrc = Path(csrc)
         self.flags = list(flags)
         self.launches = 0
         self._lib: Optional[ctypes.CDLL] = None
@@ -59,7 +62,7 @@ class Kernel:
 
     def _digest(self) -> str:
         h = hashlib.sha256()
-        for path in [CSRC / self.source] + sorted(CSRC.glob("*.cuh")):
+        for path in [self.csrc / self.source] + sorted(self.csrc.glob("*.cuh")):
             h.update(path.name.encode())
             h.update(path.read_bytes())
         h.update(" ".join(ARCH_FLAGS + BASE_FLAGS + self.flags).encode())
@@ -85,7 +88,7 @@ class Kernel:
             + ARCH_FLAGS
             + BASE_FLAGS
             + self.flags
-            + ["-I", str(CSRC), "-o", str(self._tmp_path), str(CSRC / self.source)]
+            + ["-I", str(self.csrc), "-o", str(self._tmp_path), str(self.csrc / self.source)]
         )
 
     def start_build(self) -> Optional[subprocess.Popen]:

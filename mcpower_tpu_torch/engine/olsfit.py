@@ -209,7 +209,7 @@ _SOLVE_ARGS = [
 
 
 def ols_solve_kernel(xtx, xty, yty, ysum, ns):
-    """Kernel K3: :func:`ols_solve_plain` on the card, one thread per cell."""
+    """Kernel K3: :func:`ols_solve_plain` on the card, a group of lanes per cell."""
     p, G = xtx.shape[-1], xtx.shape[-3]
     if not 1 <= p <= MAX_P:
         raise ValueError(f"ols_solve kernel takes 1 <= p <= {MAX_P}, got {p}")

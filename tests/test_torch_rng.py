@@ -3,8 +3,9 @@
 Integer streams must be bit-identical: the cipher, the per-sim keys and the
 words of every fill. Normals go through an f32 log in the Acklam tail, where
 PyTorch's CPU log and XLA:CPU's may differ by an ULP or two; the measured
-maximum over the 2,539,520 draws of test_batch_fill_matches_reference_streams
-is 7 ULP (2,091 lanes differ, all tail lanes, |z| > 1.97), pinned here at 8.
+maximum over the 948,344 draws of test_batch_fill_matches_reference_streams
+(at most 317,440 at each table of chip_smoke.K1_CHECKS) is 7 ULP (797 lanes
+differ, all tail lanes, |z| > 1.97), pinned here at 8.
 The reference here is ``norm_ppf_f32`` evaluated operation by operation; its
 fused (jitted) form differs more, see
 test_fill_matches_the_pallas_kernel_in_interpret_mode.
@@ -18,8 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from mcpower_tpu.engine import rng as ref_rng
-from mcpower_tpu_torch.engine import rng
+from mcpower_tpu_torch.engine import datagen, lower, rng
+from mcpower_tpu_torch.engine.spec import ClusterStatic
 
 from test_rng import philox4x32_ref
 
@@ -97,15 +100,30 @@ def test_sim_key_and_fill_raw_bit_identical():
         )
 
 
-def test_batch_fill_matches_reference_streams():
-    """fill_streams (the main path's fill) against the reference's fills
-    under run_one_sim's key (counter (sim, 0, SIMKEY, 0), 64-bit seed)."""
+# Draws per K1_CHECKS table, at most: 512 sims of the LMM plan's 620 rows;
+# the curve's 3,000-row plan gets 105 sims. The plain fill takes ~7 us a
+# draw on the CPU, so this keeps each case near a second.
+FILL_DRAWS = 512 * 620
+FILL_FLAT = 1 << 19  # every table, padded to one size
+
+
+def _fill_sims(plan) -> int:
+    return min(512, FILL_DRAWS // sum(rows for _, _, rows in plan))
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.K1_CHECKS))
+def test_batch_fill_matches_reference_streams(name):
+    """fill_streams (the main path's fill; on the CPU its plain version, which
+    chip_smoke.py holds kernel K1 against on the card) against the
+    reference's fills under run_one_sim's key (counter (sim, 0, SIMKEY, 0),
+    64-bit seed), at every table of chip_smoke.K1_CHECKS: the three arms'
+    stream plans, and rows 13, 3 and 201 at sim ids from 2**31 - 2."""
     import jax
 
-    seed_lo, seed_hi = 2137, 3
-    sims = np.arange(4096, dtype=np.uint32)
-    plan = [(rng.CLASS_XNORM, 0, 200), (rng.CLASS_XNORM, 1, 200),
-            (rng.CLASS_CLUSTER, 0, 20), (rng.CLASS_RESID, 0, 200)]
+    plan, sim0, seed_hi = chip_smoke.k1_table(lower, ClusterStatic, datagen, name)
+    seed_lo = chip_smoke.SEED
+    n_sims = _fill_sims(plan)
+    sims = np.arange(sim0, sim0 + n_sims, dtype=np.uint32)
     words = rng.fill_streams(seed_lo, seed_hi, _t(sims), plan, rng.MODE_WORDS).numpy()
     normals = rng.fill_streams(seed_lo, seed_hi, _t(sims), plan, rng.MODE_NORMAL).numpy()
     unif = rng.fill_streams(seed_lo, seed_hi, _t(sims), plan, rng.MODE_OPEN_UNIFORM).numpy()
@@ -117,19 +135,27 @@ def test_batch_fill_matches_reference_streams():
         )
         return [ref_rng.fill_raw((k0, k1), c, col, 0, rows) for c, col, rows in plan]
 
-    ref_words = jax.jit(jax.vmap(ref_one))(jnp.asarray(sims))
-    max_ulp = 0
+    ref_words = [np.asarray(w) for w in jax.jit(jax.vmap(ref_one))(jnp.asarray(sims))]
+    # The reference's maps op by op (not jitted: see the module docstring),
+    # on all streams at once, padded to one size so each eager op compiles
+    # once per process.
+    flat = np.concatenate([w.ravel() for w in ref_words])
+    assert flat.size <= FILL_FLAT
+    flat = jnp.asarray(np.pad(flat, (0, FILL_FLAT - flat.size)))
+    u_ref = ref_rng.u32_to_open_uniform(flat)
+    u_ref, z_ref = np.asarray(u_ref), np.asarray(ref_rng.norm_ppf_f32(u_ref))
+    off = 0
     for s, (_, _, rows) in enumerate(plan):
-        w = np.asarray(ref_words[s])
-        np.testing.assert_array_equal(words[:, s, :rows], w.astype(np.int64))
-        assert not words[:, s, rows:].any()
-        np.testing.assert_array_equal(unif[:, s, :rows], np.asarray(ref_rng.u32_to_open_uniform(w)))
-        z_ref = np.asarray(ref_rng.norm_ppf_f32(ref_rng.u32_to_open_uniform(jnp.asarray(w))))
-        ulp = _ulp(normals[:, s, :rows], z_ref)
-        max_ulp = max(max_ulp, int(ulp.max()))
+        cut = slice(off, off + n_sims * rows)
+        off = cut.stop
+        np.testing.assert_array_equal(words[:, s, :rows], ref_words[s].astype(np.int64))
+        for got in (words, unif, normals):
+            assert not got[:, s, rows:].any()
+        np.testing.assert_array_equal(unif[:, s, :rows].ravel(), u_ref[cut])
+        ulp = _ulp(normals[:, s, :rows].ravel(), z_ref[cut])
+        assert ulp.max() <= NORMAL_MAX_ULP, ulp.max()
         # every lane that differs is a tail lane (the f32 log)
-        assert np.all(np.abs(z_ref[ulp > 0]) > 1.95)
-    assert max_ulp <= NORMAL_MAX_ULP, max_ulp
+        assert np.all(np.abs(z_ref[cut][ulp > 0]) > 1.95)
 
 
 def test_normal_fill_matches_reference_normal_fill():
