@@ -41,7 +41,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
    are built too, checked against this tree's and timed beside them in
    turns (other, this, this, other); then each arm's wall, and a profile of each arm
    (wall median of 7 calls, busy share, largest device items);
-6. print the ``kernels`` JSON line, then as the last line
+6. drive the four user flows of ``MODEL_FLOWS`` through
+   ``mcpower_tpu_torch.MCPower`` on the card (the random-intercept LMM's
+   and the OLS model's ``find_power`` and ``find_sample_size``, 10,000 sims,
+   base seed 2137), each with every launch count set to 0 before it and
+   read after; check 1,024-sim results against golden values of the JAX
+   reference's ``MCPower`` (at most one flip per count) and their result
+   trees against the plain path's on the CPU; print each flow's wall
+   median (range) of 7 calls, the split into projection, lowering, runner
+   (run_batch inside it) and packaging, the chunk count, the busy share and
+   the same design's one-chunk ``run_batch`` wall;
+7. print the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.
@@ -252,6 +262,262 @@ GOLDEN = {
         "n_done": 1024,
     },
 }
+# The user flows of phase 6: ``MCPower`` built as a user writes it, then one
+# call. The OLS model is the README's first flow with the factor replaced by
+# a normal x3 (factors are ROADMAP A8).
+MODELS = {
+    "lmm": dict(formula="y ~ x1 + x2 + (1|cluster)", family="lme",
+                cluster=dict(tau_squared=0.25, n_clusters=20), types=None,
+                corr="corr(x1, x2)=0.3", effects="x1=0.3, x2=0.2"),
+    "ols": dict(formula="y ~ x1*x2 + x3", family="ols", cluster=None, types="x2=binary",
+                corr="corr(x1, x2)=0.3", effects="x1=0.3, x2=0.25, x1:x2=0.15, x3=0.2"),
+}
+# flow -> (model, method, arguments, the kernels its path must launch)
+MODEL_FLOWS = {
+    "model_lmm_power": ("lmm", "find_power", dict(sample_size=200),
+                        ("philox_fill", "grid_suffstats", "reml_intercept")),
+    "model_ols_power": ("ols", "find_power", dict(sample_size=200, correction="holm"),
+                        ("philox_fill", "grid_suffstats", "ols_solve")),
+    "model_ols_sample_size": ("ols", "find_sample_size", dict(from_size=50, to_size=500),
+                              ("philox_fill", "grid_suffstats", "ols_solve")),
+    "model_lmm_sample_size": ("lmm", "find_sample_size", dict(from_size=100, to_size=400),
+                              ("philox_fill", "grid_suffstats", "reml_intercept")),
+}
+
+
+def build_model(mcpower_cls, model: str):
+    """``MODELS[model]`` as an instance of ``mcpower_cls`` (either package's
+    ``MCPower``)."""
+    c = MODELS[model]
+    m = mcpower_cls(c["formula"], family=c["family"])
+    if c["cluster"]:
+        m.set_cluster("cluster", **c["cluster"])
+    if c["types"]:
+        m.set_variable_type(c["types"])
+    m.set_correlations(c["corr"])
+    m.set_effects(c["effects"])
+    return m
+
+
+def run_flow(mcpower_cls, name: str, n_sims: int, **kw):
+    """One call of flow ``name`` at ``n_sims`` sims, base seed SEED; ``kw``
+    goes to the call (the port's ``device=``)."""
+    model, method, args, _ = MODEL_FLOWS[name]
+    return getattr(build_model(mcpower_cls, model), method)(
+        **args, n_sims=n_sims, seed=SEED, verbose=False, **kw)
+
+
+def flow_summary(res) -> Dict:
+    """The golden values of a flow's result: significant counts per test
+    (uncorrected and corrected), joint and overall counts, the mean tau^2
+    estimate of an LMM, and for a sample-size search the first N reaching
+    the target and the fitted crossing per test."""
+    out = {k: res[k] for k in ("success_counts_uncorrected", "success_counts_corrected",
+                               "joint_counts_uncorrected", "joint_counts_corrected")}
+    if "overall_counts" in res:
+        out["overall_counts"] = res["overall_counts"]
+    mle = res.get("estimator_extras", {}).get("mle", {})
+    if "tau_squared_hat_mean" in mle:
+        out["tau_squared_hat_mean"] = mle["tau_squared_hat_mean"]
+    if "first_achieved" in res:
+        out["first_achieved"] = res["first_achieved"]
+        out["fitted"] = {k: v["n_star"] for k, v in res["fitted"].items()}
+    return out
+
+
+def tree_keys(tree, prefix: str = "") -> set:
+    """Every key path of a nested result dict, as ``a.b.c`` strings."""
+    out = set()
+    for k, v in tree.items():
+        out.add(prefix + str(k))
+        if isinstance(v, dict):
+            out |= tree_keys(v, f"{prefix}{k}.")
+    return out
+
+
+def _leaves(v, keys=()):
+    """``(dict keys on the path, value)`` of every leaf, in key order; list
+    items are leaves of their list's key."""
+    if isinstance(v, dict):
+        return [leaf for k, x in sorted(v.items(), key=lambda kv: str(kv[0]))
+                for leaf in _leaves(x, keys + (str(k),))]
+    if isinstance(v, (list, tuple)):
+        return [leaf for x in v for leaf in _leaves(x, keys)]
+    return [(keys, v)]
+
+
+# Result-tree keys holding counts, and those holding fitted variance
+# estimates (every other number is a function of the counts).
+_COUNT_KEY = re.compile(r"count|histogram|boundary_hits$|^n_sims$")
+_FIT_KEYS = ("tau_estimate", "tau_squared_hat_mean")
+
+
+def compare_trees(name: str, got: Dict, want: Dict, max_flips: int = None,
+                  tau_rel: float = None) -> list:
+    """Hold a whole result tree against another: the same keys at every
+    level, every count within ``max_flips`` (MAX_FLIPS), the fitted variance
+    estimates within ``tau_rel`` (TAU2_REL) relative, and, where every count
+    is equal, every other value equal (numbers to 1e-9 relative): rates,
+    intervals, first N and crossing fits are functions of the counts. Returns
+    the flips found, as text."""
+    max_flips = MAX_FLIPS if max_flips is None else max_flips
+    tau_rel = TAU2_REL if tau_rel is None else tau_rel
+    keys_g, keys_w = tree_keys(got), tree_keys(want)
+    check(keys_g == keys_w, f"{name}: result keys differ: {sorted(keys_g ^ keys_w)}")
+    leaves_g, leaves_w = _leaves(got), _leaves(want)
+    check([k for k, _ in leaves_g] == [k for k, _ in leaves_w], f"{name}: result shapes differ")
+    flips, derived = [], []
+    for (keys, g), (_, w) in zip(leaves_g, leaves_w):
+        path = ".".join(keys)
+        if _COUNT_KEY.search(keys[-1]) and isinstance(w, (int, np.integer)):
+            if g != w:
+                flips.append(f"{path}: {g} vs {w}")
+            check(isinstance(g, (int, np.integer)) and abs(g - w) <= max_flips,
+                  f"{name} {path}: {g} vs {w}")
+        elif keys[-1] in _FIT_KEYS:
+            check(abs(g - w) <= tau_rel * abs(w), f"{name} {path}: {g} vs {w} (> {tau_rel} rel)")
+        else:
+            derived.append((path, g, w))
+    for path, g, w in derived if not flips else ():
+        num = isinstance(w, (float, np.floating)) and not isinstance(w, bool)
+        same = (isinstance(g, (int, float, np.number))
+                and (abs(g - w) <= 1e-9 * abs(w) or (g != g and w != w)) if num else g == w)
+        check(same, f"{name} {path}: {g!r} vs {w!r} with every count equal")
+    return flips
+
+
+@contextmanager
+def stage_clock(model_mod, runner_mod, batch_mod):
+    """Host time of the stages of ``MCPower`` calls made inside the block,
+    by wrapping the functions that bound them: projection
+    (``MCPower._project``), lowering (``contract_to_lowered``), the runner
+    (``runner.find_power`` / ``find_sample_size``), ``run_batch`` inside the
+    runner, and packaging (``MCPower._package``); also the chunks (calls of
+    ``run_sims``) and the lowered scenarios the runner was given. A stage
+    entered inside another (packaging projects again for its warnings)
+    counts to the outer one. ``clock.take()`` returns what was gathered since
+    the last take and starts afresh."""
+    from collections import defaultdict
+
+    state = {"depth": 0}
+
+    class Clock:
+        def __init__(self):
+            self.ms, self.chunks, self.lowered = defaultdict(float), 0, []
+
+        def take(self):
+            got = dict(ms=dict(self.ms), chunks=self.chunks, lowered=self.lowered)
+            self.__init__()
+            return got
+
+    clock = Clock()
+
+    def timed(stage, fn, exclusive=True):
+        def wrapper(*a, **k):
+            outer = state["depth"] == 0 or not exclusive
+            state["depth"] += exclusive
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                state["depth"] -= exclusive
+                if outer:
+                    clock.ms[stage] += (time.perf_counter() - t0) * 1e3
+        return wrapper
+
+    def runner_entry(fn):
+        def wrapper(scenarios, **k):
+            clock.lowered.extend((sc.spec, sc.arrays) for sc in scenarios)
+            return fn(scenarios, **k)
+        return timed("runner", wrapper)
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            clock.chunks += 1
+            return fn(*a, **k)
+        return wrapper
+
+    cls = model_mod.MCPower
+    patches = [
+        (cls, "_project", timed("projection", cls._project)),
+        (model_mod, "contract_to_lowered", timed("lowering", model_mod.contract_to_lowered)),
+        (runner_mod, "find_power", runner_entry(runner_mod.find_power)),
+        (runner_mod, "find_sample_size", runner_entry(runner_mod.find_sample_size)),
+        (cls, "_package", timed("packaging", cls._package)),
+        (batch_mod, "run_batch", timed("run_batch", batch_mod.run_batch, exclusive=False)),
+        (batch_mod, "run_sims", counted(batch_mod.run_sims)),
+    ]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    try:
+        for obj, attr, fn in patches:
+            setattr(obj, attr, fn)
+        yield clock
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+# flow_summary of the JAX reference's MCPower (mcpower_tpu) at GOLDEN_SIMS
+# sims; tests/test_torch_model*.py recompute them so they cannot go stale.
+# model_lmm_power lowers to DESIGNS["lmm_headline"], so its counts are that
+# design's GOLDEN counts.
+MODEL_GOLDEN = {
+    "model_lmm_power": {
+        "success_counts_uncorrected": [[994, 744]], "success_counts_corrected": [[994, 744]],
+        "joint_counts_uncorrected": [719], "joint_counts_corrected": [719],
+        "tau_squared_hat_mean": [0.24906913729523056],
+    },
+    "model_ols_power": {
+        "success_counts_uncorrected": [[847, 412, 816, 169]],
+        "success_counts_corrected": [[707, 266, 656, 91]],
+        "joint_counts_uncorrected": [25], "joint_counts_corrected": [14],
+        "overall_counts": [1024],
+    },
+    "model_ols_sample_size": {
+        "success_counts_uncorrected": [
+            [295, 122, 245, 69], [489, 200, 460, 96], [658, 274, 596, 119], [772, 330, 749, 157],
+            [867, 437, 841, 180], [927, 476, 907, 220], [959, 546, 960, 240], [988, 590, 981, 263],
+            [1006, 632, 992, 302], [1011, 696, 1006, 332], [1015, 734, 1010, 357],
+            [1022, 780, 1016, 368],
+        ],
+        "success_counts_corrected": [
+            [295, 122, 245, 69], [489, 200, 460, 96], [658, 274, 596, 119], [772, 330, 749, 157],
+            [867, 437, 841, 180], [927, 476, 907, 220], [959, 546, 960, 240], [988, 590, 981, 263],
+            [1006, 632, 992, 302], [1011, 696, 1006, 332], [1015, 734, 1010, 357],
+            [1022, 780, 1016, 368],
+        ],
+        "joint_counts_uncorrected": [0, 0, 1, 15, 28, 65, 93, 123, 169, 212, 242, 272],
+        "joint_counts_corrected": [0, 0, 1, 15, 28, 65, 93, 123, 169, 212, 242, 272],
+        "overall_counts": [712, 978, 1017, 1023, 1024, 1024, 1024, 1024, 1024, 1024, 1024, 1024],
+        "first_achieved": {"x1": 214, "x2": None, "x3": 214, "x1:x2": None},
+        "fitted": {"x1": 193.3705263157895, "x2": None, "x3": 204.28478260869568, "x1:x2": None},
+    },
+    "model_lmm_sample_size": {
+        "success_counts_uncorrected": [
+            [799, 434], [863, 512], [919, 572], [963, 640], [975, 685], [994, 744], [1009, 789],
+            [1016, 821], [1019, 873], [1019, 890], [1020, 911], [1023, 934], [1022, 942],
+            [1024, 955], [1024, 970], [1024, 974],
+        ],
+        "success_counts_corrected": [
+            [799, 434], [863, 512], [919, 572], [963, 640], [975, 685], [994, 744], [1009, 789],
+            [1016, 821], [1019, 873], [1019, 890], [1020, 911], [1023, 934], [1022, 942],
+            [1024, 955], [1024, 970], [1024, 974],
+        ],
+        "joint_counts_uncorrected": [306, 399, 493, 588, 643, 719, 775, 814, 868, 885, 907, 933,
+                                     940, 955, 970, 974],
+        "joint_counts_corrected": [306, 399, 493, 588, 643, 719, 775, 814, 868, 885, 907, 933,
+                                   940, 955, 970, 974],
+        "first_achieved": {"x1": 120, "x2": 240},
+        "fitted": {"x1": 106.31250000000001, "x2": 238.87500000000003},
+        "tau_squared_hat_mean": [
+            0.24495677020025403, 0.2457569949777752, 0.24781109063310092, 0.24750927551378282,
+            0.24880732038094378, 0.24906913738841152, 0.24959012015268045, 0.2510582054786648,
+            0.251794966786533, 0.25144136200525086, 0.2517569541315118, 0.2514259410430032,
+            0.25139522030105566, 0.2518699843864873, 0.2510143168313314, 0.25105132132420965,
+        ],
+    },
+}
+
 # The f32 generation path's log may differ by an ULP between XLA:CPU and
 # CUDA, which can move a statistic sitting on its threshold: allow one flip
 # per count entry, and this relative band on the tau^2 sum.
@@ -475,25 +741,47 @@ def k4_bound(args, outs) -> Tuple[float, str]:
     return bound(nbytes(*args, *outs), {"f64": instr})
 
 
+PROFILER_ATTEMPTS = 3
+
+
+def device_events(run, what: str, match: str = "", cpu: bool = False, before=None) -> list:
+    """The CUDA events of ``run()`` under torch.profiler whose name contains
+    ``match`` (``cpu`` traces the host too). A window in which the profiler
+    returned no such event (seen once on an H100, between two windows of the
+    same run that had them) is profiled again, after ``before()``, up to
+    PROFILER_ATTEMPTS times; then the phase fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for attempt in range(1, PROFILER_ATTEMPTS + 1):
+        if before is not None:
+            before()
+        with profile(activities=activities) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and match in e.name]
+        if events:
+            return events
+        print(f"the profiler saw no device time for {what} (attempt {attempt} of "
+              f"{PROFILER_ATTEMPTS})", flush=True)
+    raise SmokeFailure(f"the profiler saw no device time for {what}")
+
+
 def device_ms(fn, copies, reps: int, kernel: str = "") -> float:
     """Mean device time per call of ``fn``, one copy of its inputs after
     another: the CUDA kernels it launches (those whose name contains
     ``kernel``, or all), summed from torch.profiler's device events. Gaps
     between kernels, where the device waits for the host, are not
     counted."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    _warm_then_flush(fn, copies)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def calls():
         for i in range(reps):
             fn(*copies[i % len(copies)])
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name)
-    check(us > 0, f"the profiler saw no device time for {kernel or 'the plain version'}")
-    return us / reps / 1e3
+
+    events = device_events(calls, kernel or "the plain version", kernel,
+                           before=lambda: _warm_then_flush(fn, copies))
+    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
 
 
 class ClockSampler:
@@ -532,35 +820,29 @@ class ClockSampler:
 PROFILE_REPS = 7
 
 
-def profile_arm(run) -> Dict:
+def profile_arm(run, after_each=None) -> Dict:
     """Wall of ``PROFILE_REPS`` calls of ``run`` (host clock; each call ends
     with the counts on the host), then one call under torch.profiler: the
     summed device time of its kernels, their count and the largest by
-    name (ms)."""
+    name (ms). ``after_each()`` is called after each timed call, outside
+    its wall."""
     import statistics
     from collections import defaultdict
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     walls = []
     for _ in range(PROFILE_REPS):
         t0 = time.perf_counter()
         run()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+        if after_each is not None:
+            after_each()
     by_name: Dict[str, float] = defaultdict(float)
     launches = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = re.split(r"[(<]", e.name.replace("(anonymous namespace)::", ""))[0]
-            by_name[name[:48]] += e.time_range.elapsed_us() / 1e3
-            launches += 1
-    check(launches > 0, "the profiler saw no device time in an arm")
-    return dict(median_ms=statistics.median(walls), min_ms=min(walls), max_ms=max(walls),
+    for e in device_events(run, "an arm", cpu=True):
+        name = re.split(r"[(<]", e.name.replace("(anonymous namespace)::", ""))[0]
+        by_name[name[:48]] += e.time_range.elapsed_us() / 1e3
+        launches += 1
+    return dict(median_ms=statistics.median(walls), min_ms=min(walls), max_ms=max(walls), walls=walls,
                 device_ms=sum(by_name.values()), launches=launches,
                 items=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
 
@@ -667,6 +949,97 @@ def _ptxas_summary(log: str) -> str:
     spills = [int(v) for v in re.findall(r"(\d+) bytes spill stores", log)]
     return (f"max registers {max(regs) if regs else 'n/a'}, "
             f"max spill-store bytes {max(spills) if spills else 0}")
+
+
+def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
+    """Phase 6: each of MODEL_FLOWS through ``MCPower`` on the card. Per
+    flow: a first call (the first lowering's scipy tables and the like; the
+    kernels are built by then), the counted call at N_SIMS with every launch
+    count set to 0 before it (each kernel of the flow's path must launch),
+    GOLDEN_SIMS sims against MODEL_GOLDEN and their whole result tree
+    against the plain path's on the CPU (``compare_trees``), then PROFILE_REPS
+    walls with the stage split, the chunk count and the busy share, beside
+    one ``run_batch`` of the same lowered design in one chunk."""
+    import statistics
+
+    from mcpower_tpu_torch import MCPower
+    from mcpower_tpu_torch import model as model_mod
+    from mcpower_tpu_torch.engine import batch, kernels
+    from mcpower_tpu_torch.orchestrator import runner
+
+    dev = "cuda"
+    flows = {}
+    for name, (_, _, _, expect) in MODEL_FLOWS.items():
+        def run(n=N_SIMS, device=dev, name=name):
+            return run_flow(MCPower, name, n, device=device)
+
+        t0 = time.perf_counter()
+        run()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        kernels.reset_counts()
+        with stage_clock(model_mod, runner, batch) as clock:
+            res = run()
+        launched = kernels.counts()
+        lowered = clock.take()["lowered"]
+        print(f"flow {name}: kernel launches {launched}", flush=True)
+        for k in expect:
+            check(launched[k] > 0, f"flow {name}: kernel {k} was not launched")
+        check(res["n_sims"] == N_SIMS, f"flow {name}: n_sims {res['n_sims']}")
+        check(min(res["convergence_rate"]) > 0.9, f"flow {name}: {res['convergence_rate']}")
+        powers = np.asarray(res["powers"]["corrected"], dtype=np.float64)
+        check(powers.shape == (len(res["sample_sizes"]), len(res["target_labels"]))
+              and bool(np.isfinite(powers).all()), f"flow {name}: powers {powers.shape}")
+        res.summary()  # the report renders
+        if name == "model_lmm_power":
+            (s1, a1), (s2, a2) = lowered[0], specs["lmm_headline"]
+            same = s1 == s2 and set(a1) == set(a2) and all(
+                np.asarray(a1[k]).dtype == np.asarray(a2[k]).dtype
+                and np.array_equal(a1[k], a2[k], equal_nan=True) for k in a1)
+            print(f"flow {name} lowers to DESIGNS['lmm_headline']'s spec and arrays: "
+                  f"{'yes, equal' if same else 'no, they differ'}", flush=True)
+
+        card = run(GOLDEN_SIMS)
+        flips = compare_trees(name, flow_summary(card), MODEL_GOLDEN[name])
+        tree_flips = compare_trees(name, card, run(GOLDEN_SIMS, "cpu"))
+        print(f"golden {name} at {GOLDEN_SIMS} sims against the JAX MCPower: "
+              f"{'identical' if not flips else 'flips ' + '; '.join(flips)}; whole result tree "
+              f"({len(tree_keys(card))} keys) against the plain path's on the CPU: "
+              f"{'identical' if not tree_flips else 'flips ' + '; '.join(tree_flips)}", flush=True)
+
+        splits = []
+        with stage_clock(model_mod, runner, batch) as clock:
+            prof = profile_arm(run, after_each=lambda: splits.append(clock.take()))
+        split = {st: statistics.median(s["ms"].get(st, 0.0) for s in splits)
+                 for st in ("projection", "lowering", "runner", "run_batch", "packaging")}
+        split["other"] = statistics.median(
+            w - sum(s["ms"].get(st, 0.0) for st in ("projection", "lowering", "runner",
+                                                    "packaging"))
+            for w, s in zip(prof["walls"], splits))
+        chunks = splits[0]["chunks"]
+        spec_, arr_ = lowered[0]
+        one = profile_arm(lambda: batch.run_batch(spec_, arr_, N_SIMS, SEED, chunk_size=N_SIMS,
+                                                  device=dev))
+        busy = prof["device_ms"] / prof["median_ms"]
+        flows[name] = dict(
+            wall_median_ms=prof["median_ms"], wall_min_ms=prof["min_ms"],
+            wall_max_ms=prof["max_ms"], split_ms=split, chunks=chunks,
+            device_ms=prof["device_ms"], device_kernels=prof["launches"], busy=busy,
+            one_chunk_run_batch_ms=dict(median=one["median_ms"], min=one["min_ms"],
+                                        max=one["max_ms"], busy=one["device_ms"] / one["median_ms"]),
+            first_call_ms=first_ms, launches=launched, golden_flips=flips)
+        items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
+        print(f"flow {name} ({N_SIMS} sims; {smi}): wall median {prof['median_ms']:.3f} ms "
+              f"(range {prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {PROFILE_REPS} calls); split "
+              f"(medians, ms): projection {split['projection']:.3f}, lowering "
+              f"{split['lowering']:.3f}, runner {split['runner']:.3f} (run_batch inside it "
+              f"{split['run_batch']:.3f}), packaging {split['packaging']:.3f}, other "
+              f"{split['other']:.3f}; {chunks} chunks; device kernel time "
+              f"{prof['device_ms']:.3f} ms in {prof['launches']} kernels, busy {busy:.1%} of the "
+              f"median wall; the same design's run_batch in one chunk: median "
+              f"{one['median_ms']:.3f} ms (range {one['min_ms']:.3f}-{one['max_ms']:.3f}), busy "
+              f"{one['device_ms'] / one['median_ms']:.1%}; first call {first_ms:.1f} ms; largest "
+              f"device items (ms): {items}", flush=True)
+    return flows
 
 
 def main(argv=None) -> int:
@@ -1068,13 +1441,18 @@ def main(argv=None) -> int:
               f"of the median wall, {prof['launches']} kernels; largest device items (ms): "
               f"{items}", flush=True)
 
-    # --- phase 6: results ---
+    # --- phase 6: the user flows through MCPower ---
+    print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    flows = run_user_flows(smi, specs)
+
+    # --- phase 7: results ---
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records[name]
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], **r,
+            "launches_by_flow": {f: v["launches"][name] for f, v in flows.items()},
         })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

@@ -154,9 +154,14 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
 def test_the_port_imports_neither_jax_nor_the_reference():
     code = (
         "import sys, importlib, pkgutil\n"
-        "import mcpower_tpu_torch, mcpower_tpu_torch.engine as e\n"
-        "for m in pkgutil.iter_modules(e.__path__):\n"
-        "    importlib.import_module('mcpower_tpu_torch.engine.' + m.name)\n"
+        "import mcpower_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'mcpower_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for part in ('model', 'orchestrator.runner', 'specbuilder.project', 'contract.wire',\n"
+        "             'output.report', 'engine.adapter', 'engine.batch'):\n"
+        "    assert 'mcpower_tpu_torch.' + part in names, part\n"
+        "assert p.MCPower.__module__ == 'mcpower_tpu_torch.model'\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'mcpower_tpu'))\n"
         "assert not bad, bad\n"

@@ -1,0 +1,180 @@
+"""The port's copy of the host layers (spec builder, contract, orchestrator
+helpers, adapter) against the JAX reference's on the same inputs, with no
+simulation: formula parsing, sample-size grids, crossing fits, contract
+validation, ``MCPower.to_simulation_spec`` and the lowering of a reference
+contract carried across as JSON."""
+
+import copy
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import mcpower_tpu  # noqa: F401  (x64 on, as the reference runs)
+from mcpower_tpu import MCPower as RefMCPower
+from mcpower_tpu.contract import types as ref_types, validate as ref_validate
+from mcpower_tpu.engine import adapter as ref_adapter
+from mcpower_tpu.orchestrator import crossing as ref_crossing, grid as ref_grid
+from mcpower_tpu.specbuilder import formula as ref_formula
+from mcpower_tpu_torch import MCPower
+from mcpower_tpu_torch.contract import types, validate
+from mcpower_tpu_torch.engine import adapter, carry, lower
+from mcpower_tpu_torch.engine.spec import ClusterStatic, ExtraGroupingStatic
+from mcpower_tpu_torch.orchestrator import crossing, grid
+from mcpower_tpu_torch.specbuilder import formula
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402
+
+FIXTURES = REPO / "tests" / "fixtures" / "formula-fixtures"
+FORMULAS = [c["formula"] for c in json.loads((FIXTURES / "cases.json").read_text())["cases"]]
+FORMULAS += [c["formula"] for c in json.loads((FIXTURES / "canonical-suite.json").read_text())["cases"]]
+
+
+def _parsed(mod, text):
+    try:
+        p = mod.parse_formula(text)
+    except mod.FormulaError as e:
+        return ("error", str(e))
+    return (p.dependent, p.predictors, p.terms, [r.to_dict() for r in p.random_effects])
+
+
+def test_parse_formula_matches_the_reference():
+    assert len(FORMULAS) > 28
+    for text in FORMULAS:
+        assert _parsed(formula, text) == _parsed(ref_formula, text), text
+
+
+@pytest.mark.parametrize("case", [
+    dict(args=(30, 200, "auto", "linear"), cluster=None),
+    dict(args=(50, 500, 25, "linear"), cluster=None),
+    dict(args=(20, 2000, "auto", "log"), cluster=None),
+    dict(args=(20, 2000, 6, "log"), cluster=None),
+    dict(args=(100, 400, "auto", "linear"), cluster=("fixed_clusters", 20)),
+    dict(args=(55, 333, "auto", "linear"), cluster=("fixed_size", 8)),
+    dict(args=(60, 900, "auto", "log"), cluster=("fixed_clusters", 15)),
+    dict(args=(10, 90, "auto", "linear"), cluster=("fixed_clusters", 30)),
+], ids=["linear", "linear_by", "log", "log_by", "atom_clusters", "atom_size", "atom_log",
+        "atom_collapsed"])
+def test_build_grid_matches_the_reference(case):
+    cl = ClusterStatic(*case["cluster"], 0.25) if case["cluster"] else None
+    if case["cluster"] and case["cluster"][0] == "fixed_clusters" and case["args"][3] == "log":
+        cl = ClusterStatic(*case["cluster"], 0.25, extra_groupings=(
+            ExtraGroupingStatic("crossed", 2, 0.1),))
+
+    def run(mod):
+        atom, hard_min = mod.cluster_atom(cl), mod.hard_min_n(cl)
+        try:
+            return atom, hard_min, mod.build_grid(*case["args"], atom, hard_min)
+        except ValueError as e:
+            return atom, hard_min, str(e)
+
+    assert run(grid) == run(ref_grid)
+    for n in (37, 200, 219):
+        try:
+            want = ref_grid.snap_single_n(cl, n)
+        except ValueError as e:
+            with pytest.raises(ValueError, match=str(e)):
+                grid.snap_single_n(cl, n)
+            continue
+        assert grid.snap_single_n(cl, n) == want
+
+
+N_SIMS = 200
+SERIES = {
+    "monotone": [20, 60, 110, 150, 175, 190, 196],
+    "non_monotone": [20, 150, 60, 160, 90, 190, 196],
+    "flat_blocks": [40, 90, 90, 90, 170, 170, 199],
+    "not_reached": [10, 30, 50, 70, 90, 110, 130],
+    "at_or_below_min": [170, 180, 190, 195, 198, 199, 200],
+}
+
+
+@pytest.mark.parametrize("name", list(SERIES))
+def test_fit_crossing_and_pava_match_the_reference(name):
+    ns = [50, 100, 150, 200, 250, 300, 350]
+    counts = SERIES[name]
+    for atom in (1, 10):
+        got = crossing.fit_crossing(ns, counts, N_SIMS, 80.0, atom).to_dict()
+        assert got == ref_crossing.fit_crossing(ns, counts, N_SIMS, 80.0, atom).to_dict()
+    rates = np.asarray(counts) / N_SIMS
+    np.testing.assert_array_equal(crossing.pava(rates), ref_crossing.pava(rates))
+    fitted = crossing.pava(rates)
+    assert np.all(np.diff(fitted) >= 0)
+
+
+def _model(mcpower_cls, model):
+    return chip_smoke.build_model(mcpower_cls, model)
+
+
+@pytest.mark.parametrize("model", ["lmm", "ols"])
+def test_to_simulation_spec_matches_the_reference(model):
+    assert _model(MCPower, model).to_simulation_spec() == _model(
+        RefMCPower, model).to_simulation_spec()
+
+
+def _broken(d, how):
+    d = copy.deepcopy(d)
+    if how == "coefficients":
+        d["outcome"]["coefficients"] = d["outcome"]["coefficients"][:-1]
+    elif how == "target_range":
+        d["test"]["targets"] = [["marginal", 99]]
+    elif how == "intercept_target":
+        d["test"]["targets"] = [["marginal", 0]]
+    elif how == "alpha":
+        d["test"]["alpha"] = 1.5
+    elif how == "correction":
+        d["test"]["correction"] = "bogus"
+    elif how == "correlations":
+        d["generation"]["correlations"] = [[1.0, 1.2], [1.2, 1.0]]
+    elif how == "column":
+        d["design"] = d["design"] + [["direct", 42]]
+        d["outcome"]["coefficients"] = d["outcome"]["coefficients"] + [0.1]
+    return d
+
+
+@pytest.mark.parametrize("how", ["coefficients", "target_range", "intercept_target", "alpha",
+                                 "correction", "correlations", "column"])
+def test_validate_messages_match_the_reference(how):
+    d = _broken(_model(RefMCPower, "lmm").to_simulation_spec(), how)
+    with pytest.raises(ref_validate.ContractError) as want:
+        ref_validate.validate(ref_types.SimulationContract.from_dict(d))
+    with pytest.raises(validate.ContractError) as got:
+        validate.validate(types.SimulationContract.from_dict(d))
+    assert (got.value.invariant, str(got.value)) == (want.value.invariant, str(want.value))
+
+
+def _assert_lowered_equal(got, want):
+    (s1, a1), (s2, a2) = got, want
+    assert dataclasses.asdict(s1) == dataclasses.asdict(s2)
+    assert set(a1) == set(a2)
+    for k in a1:
+        x, y = np.asarray(a1[k]), np.asarray(a2[k])
+        assert x.dtype == y.dtype, k
+        np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+@pytest.mark.parametrize("model,grid_ns", [("lmm", [200]), ("ols", [200]),
+                                           ("ols", [50, 100, 250, 500]),
+                                           ("lmm", [100, 200, 400])])
+def test_a_reference_contract_carried_across_lowers_the_same(model, grid_ns):
+    ref_c = ref_types.SimulationContract.from_dict(_model(RefMCPower, model).to_simulation_spec())
+    want = carry.from_reference(*ref_adapter.contract_to_lowered(ref_c, grid_ns))
+    ours = types.SimulationContract.from_json(ref_c.to_json())
+    _assert_lowered_equal(adapter.contract_to_lowered(ours, grid_ns), want)
+
+
+def test_the_lmm_flow_lowers_to_the_headline_design():
+    """``model_lmm_power`` of chip_smoke lowers to DESIGNS['lmm_headline'],
+    in the port and, carried across, in the reference."""
+    m = _model(MCPower, "lmm")
+    c = types.SimulationContract.from_dict(m.to_simulation_spec())
+    want = chip_smoke.lower_design(lower, ClusterStatic, "lmm_headline")
+    _assert_lowered_equal(adapter.contract_to_lowered(c, [200]), want)
+    ref_c = ref_types.SimulationContract.from_dict(_model(RefMCPower, "lmm").to_simulation_spec())
+    _assert_lowered_equal(carry.from_reference(*ref_adapter.contract_to_lowered(ref_c, [200])),
+                          want)
