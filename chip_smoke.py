@@ -11,48 +11,60 @@ Run from the repository root with no arguments:
 Phases, each fatal on failure (exit code != 0, no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build kernels K1-K4 from ``mcpower_tpu_torch/csrc`` (one nvcc per
-   source, all started together) and print their register and spill use,
-   per instantiation (of p for K2-K4, of mode and store width for K1), and
-   the static SASS instruction count of K1 and K3 (``cuobjdump``);
+2. build kernels K1-K4, K6 and K8 from ``mcpower_tpu_torch/csrc`` (one nvcc
+   per source, all started together) and print their register and spill
+   use, per instantiation (of p for K2-K4 and K6, of mode and store width
+   for K1), and the static SASS instruction count of K1 and K3
+   (``cuobjdump``);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (10,000 sims; the LMM's N = 200, p = 3, m = 20, G = 1
-   and the curve design's p = 7, G = 8), and off the path: K1 in all three
-   modes at every table of ``K1_CHECKS`` (the arms' stream plans and a
-   ragged plan at sim ids across 2**31), K2 at two cluster layouts, a
-   design tall enough for row chunks that cut a segment and a cluster and
-   at p = 9 (two statistic groups), K3 at every case of ``K3_CHECKS`` (p =
-   1, p = 16, rank-deficient cells and pivot ratios on both sides of
-   EPS_RANK), and K4 at both layouts, m = 7 and m = 150;
+   main path's shapes (10,000 sims; the LMM's N = 200, p = 3, m = 20, G = 1,
+   the curve design's p = 7, G = 8 and the GLM arm's N = 300, p = 4), and
+   off the path: K1 in all three modes at every table of ``K1_CHECKS`` (the
+   arms' stream plans and a ragged plan at sim ids across 2**31), K2 at two
+   cluster layouts, a 91-point grid, a design tall enough for row chunks
+   that cut a segment and a cluster and at p = 9 (two statistic groups), K3
+   at every case of ``K3_CHECKS`` (p = 1, p = 16, rank-deficient cells and
+   pivot ratios on both sides of EPS_RANK), K4 at both layouts, m = 7 and
+   m = 150, K6 at every case of ``K6_CHECKS`` (probit, Poisson, the cold
+   start, a 12-point grid, a pinned column, p = 1 and p = 16, separated and
+   rank-deficient cells) and K8 on synthetic rows (rates up to 20, above 20
+   and 0, uniforms at the clamp) and on the Poisson design's rows;
 4. drive the main path through ``lower`` and ``run_batch(device="cuda")``:
    the 10,000-replicate random-intercept LMM headline (base seed 2137), the
-   OLS arm and the 8-point power curve, with every kernel's launch count set
-   to 0 before and read after; then check 1,024-sim counts against golden
-   counts of the JAX reference (at most one flip per entry);
-5. time each kernel (K1 and K2 at all three arms' shapes, K3 at the OLS
-   and curve shapes) on the device, from
+   OLS arm, the 8-point power curve and the GLM arm (logit, Bonferroni),
+   with every kernel's launch count set to 0 before each arm and read after
+   (the GLM arm must launch K1 twice and K6 once); then check 1,024-sim
+   counts against golden counts of the JAX reference (at most one flip per
+   entry);
+5. time each kernel (K1 and K2 at the LMM, OLS and curve arms' shapes, K3
+   at the OLS and curve shapes, K4 at the LMM's, K6 at the GLM arm's, K8 at
+   a launch of the Poisson flow) on the device, from
    torch.profiler's kernel events, and per call through its wrapper (CUDA
    events, launch overhead included), each call on inputs that are not in
    L2, beside its plain version, its bound
    (the larger of bytes over the memory rate and operations over the peak
-   rate for their type) and, for K2, one ``torch.bmm`` that computes the
+   rate for their type; K6's counts the steps its cells ran, from the
+   kernel's step counter) and, for K2, one ``torch.bmm`` that computes the
    same statistics at the OLS shape; with ``--compare LABEL=DIR`` (another
    ``csrc`` directory, such as the parent commit's; repeatable) its K1 and K3
    are built too, checked against this tree's and timed beside them in
    turns (other, this, this, other); then each arm's wall, and a profile of each arm
    (wall median of 7 calls, busy share, largest device items);
-6. drive the four user flows of ``MODEL_FLOWS`` through
+6. drive the seven user flows of ``MODEL_FLOWS`` through
    ``mcpower_tpu_torch.MCPower`` on the card (the random-intercept LMM's
-   and the OLS model's ``find_power`` and ``find_sample_size``, 10,000 sims,
-   base seed 2137), each with every launch count set to 0 before it and
-   read after; check 1,024-sim results against golden values of the JAX
-   reference's ``MCPower`` (at most one flip per count) and their result
-   trees against the plain path's on the CPU; print each flow's wall
-   median (range) of 7 calls, the split into projection, lowering, runner
-   (run_batch inside it) and packaging, the chunk count, the busy share and
-   the same design's one-chunk ``run_batch`` wall;
-7. print the ``kernels`` JSON line, then as the last line
-   ``{"ok": true, "device": {...}}``.
+   and the OLS model's ``find_power`` and ``find_sample_size``, the logit
+   model's ``find_power`` and ``find_sample_size`` and the Poisson model's
+   ``find_power``; 10,000 sims, base seed 2137), each with every launch
+   count set to 0 before it and read after; check 1,024-sim results against
+   golden values of the JAX reference's ``MCPower`` (at most one flip per
+   count) and their result trees against the plain path's on the CPU;
+   print each flow's wall median (range) of 7 calls, the split into
+   projection, lowering, runner (run_batch inside it) and packaging, the
+   chunk count, the busy share and the same design's one-chunk
+   ``run_batch`` wall;
+7. print the ``kernels`` JSON line (launches on each kernel's path: the
+   arms' for K1-K4 and K6, the Poisson flow's for K8; and by arm and by
+   flow), then as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.
 """
@@ -105,6 +117,15 @@ DESIGNS = {
         target_cols=[1, 2, 3, 4, 5, 6],
         interactions=[(1, 2)],
     ),
+    "glm_bonferroni_10k": dict(
+        grid=[300],
+        var_types=["normal", "normal", "normal"],
+        effects=[-0.4, 0.3, 0.2, 0.15],
+        target_cols=[1, 2, 3],
+        outcome="binary",
+        estimator="glm",
+        correction="bonferroni",
+    ),
 }
 
 # Cluster layouts the main path does not reach, held against the plain
@@ -118,13 +139,16 @@ LAYOUT_CHECKS = {
     ),
 }
 
-# Off the main path, held against K2's plain version in phase 3 only. K2
+# Off the main path, held against K2's plain version in phase 3 only: the
+# curve design on the 91-point grid find_sample_size(from_size=50,
+# to_size=500, by=5) builds (more points than K2 once took). K2
 # stages a design taller than one stage in row chunks (csrc/grid_suffstats.cu,
 # chunk_rows_for): the tall blocked LMM (N = 400, 40 clusters of 10) in
 # chunks of 256 rows, which cut the segment [150, 400) and cluster 25; the
 # p = 9 LMM, whose 56 global statistics K2 splits over two warps per sim, in
 # chunks of 100 rows, which cut the segment [60, 200).
 K2_CHECKS = {
+    "c1_grid91": dict(DESIGNS["curve_5pred_8grid"], grid=list(range(50, 505, 5))),
     "lmm_blocked_tall": dict(LAYOUT_CHECKS["lmm_blocked_2grid"], grid=[150, 400]),
     "wide_p9": dict(
         LAYOUT_CHECKS["lmm_round_robin_2grid"],
@@ -150,6 +174,7 @@ K1_CHECKS = {
     "lmm_headline": dict(design="lmm_headline"),
     "ols_10k": dict(design="ols_10k"),
     "curve_5pred_8grid": dict(design="curve_5pred_8grid"),
+    "glm_bonferroni_10k": dict(design="glm_bonferroni_10k"),
     "ragged_high_ids": dict(plan=[(0, 3, 13), (3, 0, 3), (1, 0, 201)], sim0=2**31 - 2, seed_hi=3),
 }
 
@@ -215,6 +240,65 @@ def k3_stats(X, y, grid=K3_GRID):
               (yf[:, :n] ** 2).sum(-1), yf[:, :n].sum(-1)) for n in grid]
     return tuple(np.stack(v, axis=1) for v in zip(*stats)) + (np.asarray(grid, np.float64),)
 
+# K6's cases, each held against the plain IRLS (glmfit.glm_irls_plain) on the
+# same f32 X and y: the GLM arm's cells (generated data, 10,000 sims), and
+# off the path GLM designs on generated data (probit, Poisson, the cold
+# start of truth_start=False, a 12-point grid, one pinned column) and
+# synthetic cells on one grid point of 300 rows (p = 1 and p = 16;
+# separated cells, y = 1 exactly where x1 > 0, whose slope runs to
+# BETA_CAP; a rank-deficient last column, a copy of column 1).
+K6_DESIGNS = {
+    "probit": dict(DESIGNS["glm_bonferroni_10k"], link="probit"),
+    "poisson": dict(grid=[150], var_types=["normal", "normal"], effects=[0.6931471805599453, 0.2, 0.15],
+                    target_cols=[1, 2], outcome="count", estimator="glm"),
+    "cold_start": dict(DESIGNS["glm_bonferroni_10k"], truth_start=False),
+    "grid12": dict(DESIGNS["glm_bonferroni_10k"], grid=list(range(25, 325, 25))),
+}
+K6_CHECKS = {
+    "glm_bonferroni_10k": dict(design="glm_bonferroni_10k"),
+    **{name: dict(design=name) for name in K6_DESIGNS},
+    "pinned": dict(design="glm_bonferroni_10k", pin=2),
+    "p1": dict(p=1, kind="free"),
+    "p16": dict(p=16, kind="free"),
+    "separated": dict(p=3, kind="separated"),
+    "rank_deficient": dict(p=4, kind="dependent"),
+}
+K6_ROWS = 300
+
+
+def k6_synthetic(name: str, sims: int, seed: int = SEED):
+    """f32 ``X (sims, 300, p)`` with an intercept column and 0/1 ``y (sims,
+    300)`` for the synthetic K6_CHECKS case ``name``, from ``seed``."""
+    c = K6_CHECKS[name]
+    p, kind = c["p"], c["kind"]
+    rs = np.random.RandomState(seed + 100 * p)
+    X = rs.standard_normal((sims, K6_ROWS, p))
+    X[..., 0] = 1.0
+    if kind == "dependent":
+        X[..., -1] = X[..., 1]
+    eta = X @ np.linspace(0.3, -0.2, p) * (1.0 if p < 16 else 0.5)
+    y = (rs.uniform(size=eta.shape) < 1.0 / (1.0 + np.exp(-eta))).astype(np.float64)
+    if kind == "separated":
+        y = (X[..., 1] > 0).astype(np.float64)
+    return X.astype(np.float32), y.astype(np.float32)
+
+
+# K8's rows: synthetic eta spanning rates up to 20 (the walk), above 20
+# (the normal approximation) and below exp(-104) (a zero rate), each with
+# open uniforms from the whole range, the top ones at the clamp.
+def k8_synthetic(torch, rows: int, seed: int = SEED, dev="cpu"):
+    """``(u, eta)`` f32 of ``rows`` rows from ``seed``."""
+    rs = np.random.RandomState(seed)
+    eta = np.concatenate([rs.uniform(-6.0, np.log(20.0), rows // 2),
+                          rs.uniform(np.log(20.0), 9.0, rows // 4),
+                          rs.uniform(-120.0, -104.0, rows - rows // 2 - rows // 4)])
+    u = (rs.randint(0, 2 ** 32, size=rows).astype(np.float64) + 0.5) / 2.0 ** 32
+    u[::97] = 1.0  # the top open uniforms round to 1.0 in f32
+    u[1::97] = float(np.float32(1.0 - 6e-8))
+    return (torch.as_tensor(u.astype(np.float32), device=dev),
+            torch.as_tensor(eta.astype(np.float32), device=dev))
+
+
 # Counts of the JAX reference (mcpower_tpu.engine.batch.run_batch) at
 # GOLDEN_SIMS sims, base seed SEED; tests/test_torch_batch.py recomputes
 # them so they cannot go stale.
@@ -261,16 +345,31 @@ GOLDEN = {
         ],
         "n_done": 1024,
     },
+    "glm_bonferroni_10k": {
+        "converged": [1024], "glm_baseline": [415.28333333333336],
+        "joint_corr": [16], "joint_unc": [66],
+        "nsig_hist_corr": [[320, 519, 169, 16]], "nsig_hist_unc": [[149, 473, 336, 66]],
+        "sig_corr": [[551, 223, 131]], "sig_unc": [[713, 381, 249]], "singular": [0],
+        "n_done": 1024,
+    },
 }
 # The user flows of phase 6: ``MCPower`` built as a user writes it, then one
 # call. The OLS model is the README's first flow with the factor replaced by
-# a normal x3 (factors are ROADMAP A8).
+# a normal x3 (factors are ROADMAP A8.2). The logit model is the GLM arm
+# (bench.py:116-125) as a user writes it: intercept -0.4 as the baseline
+# probability 1 / (1 + e^0.4). The Poisson model is tests/test_glm.py:133's
+# design with a second predictor, at a baseline rate of 2.
 MODELS = {
     "lmm": dict(formula="y ~ x1 + x2 + (1|cluster)", family="lme",
                 cluster=dict(tau_squared=0.25, n_clusters=20), types=None,
                 corr="corr(x1, x2)=0.3", effects="x1=0.3, x2=0.2"),
     "ols": dict(formula="y ~ x1*x2 + x3", family="ols", cluster=None, types="x2=binary",
                 corr="corr(x1, x2)=0.3", effects="x1=0.3, x2=0.25, x1:x2=0.15, x3=0.2"),
+    "logit": dict(formula="y ~ x1 + x2 + x3", family="logit", cluster=None, types=None,
+                  corr=None, effects="x1=0.3, x2=0.2, x3=0.15",
+                  baseline_probability=1.0 / (1.0 + float(np.exp(0.4)))),
+    "poisson": dict(formula="y ~ x1 + x2", family="poisson", cluster=None, types=None,
+                    corr=None, effects="x1=0.2, x2=0.15", baseline_rate=2.0),
 }
 # flow -> (model, method, arguments, the kernels its path must launch)
 MODEL_FLOWS = {
@@ -282,6 +381,12 @@ MODEL_FLOWS = {
                               ("philox_fill", "grid_suffstats", "ols_solve")),
     "model_lmm_sample_size": ("lmm", "find_sample_size", dict(from_size=100, to_size=400),
                               ("philox_fill", "grid_suffstats", "reml_intercept")),
+    "model_logit_power": ("logit", "find_power", dict(sample_size=300, correction="bonferroni"),
+                          ("philox_fill", "glm_irls")),
+    "model_logit_sample_size": ("logit", "find_sample_size", dict(from_size=100, to_size=600),
+                                ("philox_fill", "glm_irls")),
+    "model_poisson_power": ("poisson", "find_power", dict(sample_size=150),
+                            ("philox_fill", "glm_irls", "poisson_quantile")),
 }
 
 
@@ -294,7 +399,12 @@ def build_model(mcpower_cls, model: str):
         m.set_cluster("cluster", **c["cluster"])
     if c["types"]:
         m.set_variable_type(c["types"])
-    m.set_correlations(c["corr"])
+    if c["corr"]:
+        m.set_correlations(c["corr"])
+    if "baseline_probability" in c:
+        m.set_baseline_probability(c["baseline_probability"])
+    if "baseline_rate" in c:
+        m.set_baseline_rate(c["baseline_rate"])
     m.set_effects(c["effects"])
     return m
 
@@ -516,6 +626,34 @@ MODEL_GOLDEN = {
             0.25139522030105566, 0.2518699843864873, 0.2510143168313314, 0.25105132132420965,
         ],
     },
+    "model_logit_power": {
+        "success_counts_uncorrected": [[713, 381, 249]],
+        "success_counts_corrected": [[551, 223, 131]],
+        "joint_counts_uncorrected": [66], "joint_counts_corrected": [16],
+        "overall_counts": [802],
+    },
+    "model_logit_sample_size": {
+        "success_counts_uncorrected": [
+            [286, 158, 116], [406, 196, 138], [513, 258, 174], [616, 314, 206], [689, 371, 240],
+            [744, 403, 284], [792, 451, 296], [855, 498, 316], [885, 551, 355], [913, 597, 381],
+            [949, 652, 431], [968, 675, 447], [970, 685, 452],
+        ],
+        "success_counts_corrected": [
+            [286, 158, 116], [406, 196, 138], [513, 258, 174], [616, 314, 206], [689, 371, 240],
+            [744, 403, 284], [792, 451, 296], [855, 498, 316], [885, 551, 355], [913, 597, 381],
+            [949, 652, 431], [968, 675, 447], [970, 685, 452],
+        ],
+        "joint_counts_uncorrected": [4, 12, 21, 40, 65, 79, 104, 123, 168, 211, 258, 276, 278],
+        "joint_counts_corrected": [4, 12, 21, 40, 65, 79, 104, 123, 168, 211, 258, 276, 278],
+        "overall_counts": [342, 454, 584, 702, 780, 847, 888, 920, 962, 981, 1005, 1013, 1013],
+        "first_achieved": {"x1": 415, "x2": None, "x3": None},
+        "fitted": {"x1": 389.42857142857144, "x2": None, "x3": None},
+    },
+    "model_poisson_power": {
+        "success_counts_uncorrected": [[962, 766]], "success_counts_corrected": [[962, 766]],
+        "joint_counts_uncorrected": [728], "joint_counts_corrected": [728],
+        "overall_counts": [1001],
+    },
 }
 
 # The f32 generation path's log may differ by an ULP between XLA:CPU and
@@ -529,7 +667,14 @@ TAU2_REL = 2e-3
 K2_REL = 1e-12  # f64 sums in another order
 K3_REL = 1e-10  # f64 solve, same operation order except sums
 K4_REL = 1e-7  # 20-step search whose last steps are decided by rounding
+# The same IRLS steps in the same order and the same libdevice
+# transcendentals: measured bit-identical (0) in beta, cov, dev, dev0 and
+# ybar at every case on the H100; the band leaves room for another toolkit.
+K6_REL = 1e-10
 NORMAL_MAX_ULP = 0  # K1 and the plain fill share CUDA's logf: bit-identical
+# glm_baseline sums the realized outcome means: one flipped row of a 300-row
+# sim moves the 1,024-sim sum by about 1e-5 of itself.
+GLM_BASELINE_REL = 2e-5
 
 # H100 SXM peaks (NVIDIA's data sheet; the f64 and int32 rates are 132 SMs x
 # 64 lanes x 1.98 GHz, one instruction per lane and clock).
@@ -549,23 +694,34 @@ PHILOX_INT_OPS_PER_WORD = 25
 PHILOX_INT_OPS_PER_CIPHER = 4 * PHILOX_INT_OPS_PER_WORD
 PPF_F32_OPS_PER_NORMAL = 30
 REML_EVALS = 24  # 1 + 20 Brent steps, the interior and gamma = 0 probes, the final fit
+F32_EXP_OPS = 20  # an f32 exp or erf, and the link's few other operations, per row
+F64_EXP_INSTR = 20  # CUDA's f64 exp or erf
 
 KERNEL_META = {
     "philox_fill": ("mcpower_tpu_torch/csrc/philox_fill.cu", "benchmarks/pallas_datagen.py:78"),
     "grid_suffstats": ("mcpower_tpu_torch/csrc/grid_suffstats.cu", "mcpower_tpu/engine/olsfit.py:41"),
     "ols_solve": ("mcpower_tpu_torch/csrc/ols_solve.cu", "mcpower_tpu/engine/smallchol.py:34"),
     "reml_intercept": ("mcpower_tpu_torch/csrc/reml_intercept.cu", "mcpower_tpu/engine/mixedfit.py:846"),
+    "glm_irls": ("mcpower_tpu_torch/csrc/glm_irls.cu", "mcpower_tpu/engine/glmfit.py:82"),
+    "poisson_quantile": ("mcpower_tpu_torch/csrc/poisson_quantile.cu",
+                         "mcpower_tpu/engine/datagen.py:217"),
 }
+# Kernels that the arms of DESIGNS launch; K8 draws count outcomes, which
+# only the Poisson flow of phase 6 has.
+ARM_KERNELS = ("philox_fill", "grid_suffstats", "ols_solve", "reml_intercept", "glm_irls")
 
 
 def lower_design(lower_mod, cluster_cls, name: str):
-    """``lower_mod.lower`` on design ``name``; works for either package."""
-    kw = dict({**DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS}[name])
+    """``lower_mod.lower`` on design ``name``; works for either package. A
+    ``truth_start`` entry becomes the scenario's."""
+    kw = dict({**DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS, **K6_DESIGNS}[name])
     for key in ("corr", "effects"):
         if key in kw:
             kw[key] = np.asarray(kw[key], dtype=np.float64)
     if "cluster" in kw:
         kw["cluster"] = cluster_cls(**kw["cluster"])
+    if "truth_start" in kw:
+        kw["scenario"] = lower_mod.ScenarioStatic(truth_start=kw.pop("truth_start"))
     return lower_mod.lower(**kw)
 
 
@@ -739,6 +895,53 @@ def k4_bound(args, outs) -> Tuple[float, str]:
     instr = REML_EVALS * (runs * (F64_DIV_INSTR + F64_LOG_INSTR + 3)
                           + cells * (m * per_cluster + per_cell))
     return bound(nbytes(*args, *outs), {"f64": instr})
+
+
+def k6_bound(args, iters, outs) -> Tuple[float, str]:
+    """The steps the cells ran (``iters (sims, G, 2)`` from the kernel's
+    counter: f32 and f64 steps), each a pass over the cell's rows (eta, the
+    link, X'WX and X'Wz) and a p x p solve, then per cell one final f64
+    pass (X'WX, two deviance terms) with two Cholesky factors and the
+    inverse; bytes of X's fit columns and y up to the last grid point (each
+    read once), beta0, the column mask and every output."""
+    code, X, y, fit, grid, beta0, colmask = args
+    p = len(fit)
+    it = iters.reshape(-1, len(grid), 2).to("cpu").double()
+    ns = it.new_tensor([float(n) for n in grid])
+    row_ops = 2 * p + p * (p + 1) + 3 * p + 6
+    solve = p ** 3 // 3 + 2 * p * p
+    f32 = float((it[..., 0] * ns).sum() * (row_ops + F32_EXP_OPS) + it[..., 0].sum() * solve)
+    f64_row = row_ops + F64_EXP_INSTR + 2 * F64_DIV_INSTR
+    f64 = float((it[..., 1] * ns).sum() * f64_row
+                + it[..., 1].sum() * (solve + p * F64_SQRT_INSTR))
+    cells = it[..., 0].numel()
+    f64 += float(it.shape[0] * ns.sum() * (f64_row + 2 * F64_LOG_INSTR)
+                 + cells * (2 * p ** 3 // 3 + p ** 3 + 2 * p * F64_SQRT_INSTR))
+    read = X.shape[0] * max(grid) * (p + 1) * 4
+    return bound(read + nbytes(beta0, colmask, *outs), {"f32": f32, "f64": f64})
+
+
+def k8_bound(u, eta, y) -> Tuple[float, str]:
+    """Per row an f32 exp; per walk row (0 < lam <= 20) one f64 exp and the
+    steps this run's rows took (y of them: a multiply, a division and an
+    add each); per approximated row the ppf, a sqrt and a floor; bytes of u,
+    eta and y."""
+    lam = eta.double().exp()
+    walk = (lam > 0) & (lam <= 20.0)
+    steps = float(y.double()[walk].sum())
+    f64 = float(walk.sum()) * F64_EXP_INSTR + steps * (F64_DIV_INSTR + 2)
+    f32 = u.numel() * F32_EXP_OPS + float((lam > 20.0).sum()) * (PPF_F32_OPS_PER_NORMAL + 12)
+    return bound(nbytes(u, eta, y), {"f32": f32, "f64": f64})
+
+
+def rel_err_finite(name: str, a, b) -> float:
+    """rel_err over the entries finite in both, after checking that the
+    same entries are finite."""
+    import torch
+
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    check(torch.equal(fa, fb), f"{name}: non-finite entries differ")
+    return rel_err(a[fa], b[fb]) if bool(fa.any()) else 0.0
 
 
 PROFILER_ATTEMPTS = 3
@@ -951,6 +1154,28 @@ def _ptxas_summary(log: str) -> str:
             f"max spill-store bytes {max(spills) if spills else 0}")
 
 
+# Flows whose lowered design is (or is set beside) an arm of DESIGNS.
+FLOW_DESIGNS = {"model_lmm_power": "lmm_headline", "model_logit_power": "glm_bonferroni_10k"}
+
+
+def lowered_differences(got, want) -> list:
+    """The spec fields and array keys in which two lowered designs differ
+    (dtypes included); empty when they are equal."""
+    import dataclasses
+
+    (s1, a1), (s2, a2) = got, want
+    d1, d2 = dataclasses.asdict(s1), dataclasses.asdict(s2)
+    out = [f"spec.{k} ({d1.get(k)!r} vs {d2.get(k)!r})" for k in sorted(set(d1) | set(d2))
+           if d1.get(k) != d2.get(k)]
+    for k in sorted(set(a1) | set(a2)):
+        if k not in a1 or k not in a2:
+            out.append(f"array {k} (only in {'the flow' if k in a1 else 'the design'})")
+        elif not (np.asarray(a1[k]).dtype == np.asarray(a2[k]).dtype
+                  and np.array_equal(a1[k], a2[k], equal_nan=True)):
+            out.append(f"array {k}")
+    return out
+
+
 def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
     """Phase 6: each of MODEL_FLOWS through ``MCPower`` on the card. Per
     flow: a first call (the first lowering's scipy tables and the like; the
@@ -990,13 +1215,11 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
         check(powers.shape == (len(res["sample_sizes"]), len(res["target_labels"]))
               and bool(np.isfinite(powers).all()), f"flow {name}: powers {powers.shape}")
         res.summary()  # the report renders
-        if name == "model_lmm_power":
-            (s1, a1), (s2, a2) = lowered[0], specs["lmm_headline"]
-            same = s1 == s2 and set(a1) == set(a2) and all(
-                np.asarray(a1[k]).dtype == np.asarray(a2[k]).dtype
-                and np.array_equal(a1[k], a2[k], equal_nan=True) for k in a1)
-            print(f"flow {name} lowers to DESIGNS['lmm_headline']'s spec and arrays: "
-                  f"{'yes, equal' if same else 'no, they differ'}", flush=True)
+        if name in FLOW_DESIGNS:
+            differ = lowered_differences(lowered[0], specs[FLOW_DESIGNS[name]])
+            print(f"flow {name} lowers to DESIGNS['{FLOW_DESIGNS[name]}']'s spec and arrays: "
+                  + ("yes, equal" if not differ else "no, they differ in " + ", ".join(differ)),
+                  flush=True)
 
         card = run(GOLDEN_SIMS)
         flips = compare_trees(name, flow_summary(card), MODEL_GOLDEN[name])
@@ -1060,7 +1283,7 @@ def main(argv=None) -> int:
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
     from mcpower_tpu_torch.engine import (
-        batch, datagen, kernels, lower, mixedfit, olsfit, rng, waldstats,
+        batch, datagen, glmfit, kernels, lower, mixedfit, olsfit, rng, waldstats,
     )
     from mcpower_tpu_torch.engine.spec import ClusterStatic
 
@@ -1148,7 +1371,7 @@ def main(argv=None) -> int:
         spec_, arr_ = lower_design(lower, ClusterStatic, name)
         X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
                                            sim_ids[:GOLDEN_SIMS], plain=True)
-        k2_cases.append((name, spec_, X_, y_, True))
+        k2_cases.append((name, spec_, X_, y_, spec_.cluster is not None))
     k2_err = 0.0
     for tag, spec_, X_, y_, clus in k2_cases:
         got = olsfit.grid_suffstats_kernel(spec_, X_, y_, with_clusters=clus)
@@ -1156,7 +1379,8 @@ def main(argv=None) -> int:
         check(set(got) == set(want), f"K2 outputs {sorted(got)} != {sorted(want)}")
         rel = max(rel_err(got[k], want[k]) for k in want)
         k2_err = max(k2_err, max((got[k] - want[k]).abs().max().item() for k in want))
-        print(f"K2 grid_suffstats {tag} X {tuple(X_.shape)}: max rel err {rel:.3e}", flush=True)
+        print(f"K2 grid_suffstats {tag} X {tuple(X_.shape)}, G {spec_.n_grid}: max rel err "
+              f"{rel:.3e}", flush=True)
         check(rel <= K2_REL, f"K2 {tag}: rel err {rel:.3e} > {K2_REL}")
     records["grid_suffstats"] = {"max_abs_err": k2_err}
 
@@ -1233,6 +1457,86 @@ def main(argv=None) -> int:
         if tag == "lmm":
             args_l, cells_l = args, tuple(args[5].shape)  # the main path's, for the timings
     records["reml_intercept"] = {"max_abs_err": k4_err}
+
+    k6_err = 0.0
+    k6_args = {}
+    for name, c in K6_CHECKS.items():
+        if "design" in c:
+            spec_, arr_ = lower_design(lower, ClusterStatic, c["design"])
+            arr_d = datagen.to_device(arr_, dev)
+            n = N_SIMS if name == "glm_bonferroni_10k" else GOLDEN_SIMS
+            X_, y_, _ = datagen.generate_batch(spec_, arr_d, SEED, 0, sim_ids[:n], plain=True)
+            fit, grid = list(spec_.effective_fit_cols), list(spec_.grid)
+            cm = torch.ones((len(grid), len(fit)), dtype=torch.float64, device=dev)
+            if "pin" in c:
+                cm[:, c["pin"]] = 0.0
+            beta0 = glmfit.start_values(spec_, arr_d, y_, cm)
+            code = glmfit.link_code(spec_.outcome, spec_.link)
+        else:
+            X_, y_ = (torch.as_tensor(v, device=dev) for v in k6_synthetic(name, GOLDEN_SIMS))
+            fit, grid = list(range(c["p"])), [K6_ROWS]
+            cm = torch.ones((1, c["p"]), dtype=torch.float64, device=dev)
+            beta0 = torch.zeros((GOLDEN_SIMS, 1, c["p"]), dtype=torch.float64, device=dev)
+            beta0[..., 0] = glmfit.data_intercept("binary", "canonical", y_.double().mean(-1, keepdim=True))
+            code = glmfit.LINK_LOGIT
+        args = (code, X_, y_, fit, grid, beta0, cm)
+        k6_args[name] = args
+        got = glmfit.glm_irls_kernel(*args, iters=True)
+        want = glmfit.glm_irls_plain(*args, iters=True)
+        n_diff = int((got[2] != want[2]).sum())
+        check(n_diff == 0, f"K6 {name}: converged flags differ in {n_diff} cells")
+        ok = want[2]
+        n_ok, cells = int(ok.sum()), ok.numel()
+        at_cap = int((want[0].abs() >= glmfit.BETA_CAP - 1e-6).any(-1).sum())
+        if c.get("kind") == "dependent":
+            check(n_ok == 0, f"K6 {name}: {n_ok} rank-deficient cells converged")
+        elif c.get("kind") == "separated":
+            check(at_cap > 0.5 * cells and n_ok < 0.5 * cells,
+                  f"K6 {name}: {at_cap} of {cells} cells at the cap, {n_ok} converged")
+        else:
+            check(n_ok > 0.9 * cells, f"K6 {name}: only {n_ok} of {cells} converged")
+        if "pin" in c:
+            check(bool((got[0][..., c["pin"]] == 0).all() and (want[0][..., c["pin"]] == 0).all()),
+                  f"K6 {name}: the pinned column's beta is not 0")
+        rels = {k: rel_err_finite(f"K6 {name} {k}", g, w)
+                for k, g, w in zip(("beta", "cov", "dev", "dev0", "ybar"), got[:2] + got[3:6],
+                                   want[:2] + want[3:6])}
+        it_diff = int((got[6] != want[6]).any(-1).sum())
+        k6_err = max(k6_err, max(float((g - w)[torch.isfinite(w)].abs().max())
+                                 for g, w in zip(got[:2] + got[3:6], want[:2] + want[3:6])))
+        steps = got[6].double().mean(dim=tuple(range(got[6].dim() - 1))).tolist()
+        print(f"K6 glm_irls {name} cells {tuple(got[2].shape)} p {len(fit)} link {code}: flags "
+              f"identical ({n_ok} of {cells} converged, {at_cap} at the cap); rel err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+              + f"; mean steps f32 {steps[0]:.2f}, f64 {steps[1]:.2f} (cells whose step counts "
+              f"differ from the plain version's: {it_diff})", flush=True)
+        check(max(rels.values()) <= K6_REL, f"K6 {name}: rel err {max(rels.values()):.3e} > {K6_REL}")
+    records["glm_irls"] = {"max_abs_err": k6_err}
+
+    # K8 on synthetic rows, then on the Poisson design's own rows
+    u8, eta8 = k8_synthetic(torch, 1 << 20, dev=dev)
+    spec_p, arr_p = lower_design(lower, ClusterStatic, "poisson")
+    Xp, _, _ = datagen.generate_batch(spec_p, datagen.to_device(arr_p, dev), SEED, 0,
+                                      sim_ids, plain=True)
+    eta_p = torch.matmul(Xp, datagen.to_device(arr_p, dev)["effects"].float())
+    u_p = rng.fill_streams_plain(SEED, 0, sim_ids, datagen.outcome_plan(spec_p)[1],
+                                 rng.MODE_OPEN_UNIFORM)[:, 0]
+    k8_err = 0.0
+    for tag, u_, eta_ in (("synthetic", u8, eta8), ("poisson design", u_p, eta_p)):
+        got = datagen.poisson_quantile_kernel(u_, eta_)
+        want = datagen.poisson_quantile_plain(u_, eta_)
+        lam = torch.exp(eta_)
+        n_diff = int((got != want).sum())
+        k8_err = max(k8_err, float((got - want).abs().max()))
+        print(f"K8 poisson_quantile {tag} rows {tuple(u_.shape)}: {n_diff} counts differ; rows "
+              f"with 0 < lam <= 20: {int(((lam > 0) & (lam <= 20)).sum())}, lam > 20: "
+              f"{int((lam > 20).sum())}, lam == 0: {int((lam == 0).sum())}, u at the clamp: "
+              f"{int((u_ >= datagen.U_TOP).sum())}; max count {float(want.max()):.0f}", flush=True)
+        check(n_diff == 0, f"K8 {tag}: {n_diff} counts differ from the plain version's")
+    check(bool(((torch.exp(eta8) == 0) & (u8 >= datagen.U_TOP)).any()
+               and ((torch.exp(eta8) > 20) & (u8 >= datagen.U_TOP)).any()),
+          "K8's synthetic rows miss a case")
+    records["poisson_quantile"] = {"max_abs_err": k8_err}
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if opts.checks_only:
@@ -1243,12 +1547,14 @@ def main(argv=None) -> int:
     for name in DESIGNS:  # warm-up at the timed shapes, before counting
         spec_, arr_ = specs[name]
         batch.run_batch(spec_, arr_, N_SIMS, 1, chunk_size=N_SIMS, device=dev)
-    kernels.reset_counts()
+    launches_by_arm = {}
     for name in DESIGNS:
         spec_, arr_ = specs[name]
+        kernels.reset_counts()
         t0 = time.perf_counter()
         counts = batch.run_batch(spec_, arr_, N_SIMS, SEED, chunk_size=N_SIMS, device=dev)
         arm_s[name] = time.perf_counter() - t0
+        launches_by_arm[name] = kernels.counts()
         check(int(counts["n_done"]) == N_SIMS, f"{name}: n_done {counts['n_done']}")
         conv = np.asarray(counts["converged"])
         check(bool((conv > 0.9 * N_SIMS).all()), f"{name}: converged {conv.tolist()}")
@@ -1257,10 +1563,14 @@ def main(argv=None) -> int:
         power = np.asarray(counts["sig_unc"])[-1] / N_SIMS
         print(f"arm {name}: {arm_s[name] * 1e3:.1f} ms for {N_SIMS} sims through the kernels; "
               f"power at N={spec_.max_n}: {np.round(power, 4).tolist()}", flush=True)
-    launches = kernels.counts()
-    print(f"kernel launches on the main path: {launches}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    launches = {k: sum(v[k] for v in launches_by_arm.values()) for k in kernels.KERNELS}
+    print(f"kernel launches on the main path, by arm: {launches_by_arm}", flush=True)
+    for name in ARM_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+    glm_launches = launches_by_arm["glm_bonferroni_10k"]
+    check(glm_launches["philox_fill"] == 2 and glm_launches["glm_irls"] == 1,
+          f"glm_bonferroni_10k: K1 launched {glm_launches['philox_fill']} times (2 expected), "
+          f"K6 {glm_launches['glm_irls']} (1 expected)")
 
     for name in DESIGNS:
         spec_, arr_ = specs[name]
@@ -1270,9 +1580,10 @@ def main(argv=None) -> int:
             got = np.asarray(counts[key])
             want = np.asarray(want)
             check(got.shape == want.shape, f"{name} {key}: shape {got.shape} != {want.shape}")
-            if key == "tau2_hat":
+            if key in ("tau2_hat", "glm_baseline"):
+                band = TAU2_REL if key == "tau2_hat" else GLM_BASELINE_REL
                 rel = float(np.abs(got - want).max() / np.abs(want).max())
-                check(rel <= TAU2_REL, f"{name} tau2_hat rel {rel:.2e} > {TAU2_REL}")
+                check(rel <= band, f"{name} {key} rel {rel:.2e} > {band}")
                 continue
             diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
             if diff.max() > 0:
@@ -1337,6 +1648,20 @@ def main(argv=None) -> int:
     timing.append(("reml_intercept", f"LMM cells {cells_l}, p 3, m 20",
                    mixedfit.reml_intercept_kernel, mixedfit.reml_intercept_plain, args_l,
                    k4_bound(args_l, mixedfit.reml_intercept_kernel(*args_l)), None))
+    # K6 at the GLM arm's cells; its bound counts the steps the cells ran,
+    # read from the kernel's step counter (a call made here, not on the path)
+    args_g = k6_args["glm_bonferroni_10k"]
+    out_g = glmfit.glm_irls_kernel(*args_g, iters=True)
+    timing.append(("glm_irls", f"GLM cells {tuple(out_g[2].shape)}, N 300, p 4, logit",
+                   glmfit.glm_irls_kernel, glmfit.glm_irls_plain, args_g,
+                   k6_bound(args_g, out_g[6], out_g[:6]), None))
+    # K8 at the Poisson flow's launches: MCPower's 10,000 sims in chunks of
+    # FLOW_CHUNK sims, N = 150
+    flow_chunk = N_SIMS // 8
+    u_f, eta_f = u_p[:flow_chunk].contiguous(), eta_p[:flow_chunk].contiguous()
+    timing.append(("poisson_quantile", f"Poisson flow rows ({flow_chunk} sims x 150)",
+                   datagen.poisson_quantile_kernel, datagen.poisson_quantile_plain, (u_f, eta_f),
+                   k8_bound(u_f, eta_f, datagen.poisson_quantile_kernel(u_f, eta_f)), None))
     timed = {}
     with ClockSampler() as clocks:  # a process; ended however the block exits
         for key, shape, fk, fp, inputs, (bound_ms, bound_by), lib in timing:
@@ -1352,7 +1677,8 @@ def main(argv=None) -> int:
             print(f"time {key} ({shape}): kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per "
                   f"call with the wrapper), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}), {bound_ms / ms:.1%} of bound"
-                  + (f", library {library_ms:.4f} ms" if library_ms is not None else ""), flush=True)
+                  + (f", library {library_ms:.4f} ms" if library_ms is not None else
+                     ", library none (no one PyTorch call computes it)"), flush=True)
 
     print(f"clocks during the kernel timings: {clocks.summary()}", flush=True)
 
@@ -1408,7 +1734,8 @@ def main(argv=None) -> int:
                   f"{n1:.4f}, this {n2:.4f}, {lb} {o2:.4f}; speed-up {(o1 + o2) / (n1 + n2):.2f}x",
                   flush=True)
 
-    records["reml_intercept"].update(timed["reml_intercept"])
+    for name in ("reml_intercept", "glm_irls", "poisson_quantile"):
+        records[name].update(timed[name])
     # K1's line is the LMM fill and K3's the curve, the shapes the earlier
     # tables report; K2's the OLS shape, the one where a single library call
     # computes the same function; by_arm holds every arm's shape
@@ -1449,9 +1776,13 @@ def main(argv=None) -> int:
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         r = records[name]
+        # K8's path is the Poisson flow's; every other kernel's the arms'
+        path_launches = (flows["model_poisson_power"]["launches"][name]
+                         if name not in ARM_KERNELS else launches[name])
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], **r,
+            "launches": path_launches, **r,
+            "launches_by_arm": {a: v[name] for a, v in launches_by_arm.items()},
             "launches_by_flow": {f: v["launches"][name] for f, v in flows.items()},
         })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -46,7 +46,6 @@
 #include "common.cuh"
 
 #define MCP_MAX_P 16
-#define MCP_MAX_GRID 64
 
 namespace {
 
@@ -62,12 +61,12 @@ constexpr int STAGE_BYTES_PER_SIM = 4 * 1024;
 
 struct Layout {
     int fit[MCP_MAX_P];
-    int grid[MCP_MAX_GRID];
 };
 
 struct Args {
     const float* X;
     const float* y;
+    const int* grid;  // (G,) ascending row counts, device memory
     int sims, max_n, P, G, m, round_robin, period, chunk_rows, vec16;
     double *xtx, *xty, *yty, *ysum, *nj, *s, *t;
 };
@@ -107,7 +106,8 @@ __host__ __device__ constexpr int sim_stage_bytes(int rows, int P) {
 // STAGE_BYTES_PER_SIM, else a multiple of 4 (so every chunk stays 16-byte
 // aligned) between half and all of what fits, chosen to cut the grid
 // segments into the fewest pieces (each piece costs one warp reduction),
-// the larger on a tie.
+// the larger on a tie. `grid` is the host copy; a cursor walks it beside
+// the chunk boundaries, so a candidate costs O(G + max_n / rows).
 int chunk_rows_for(int max_n, int P, const int* grid, int G) {
     if (sim_stage_bytes(max_n, P) <= STAGE_BYTES_PER_SIM) return max_n;
     int most = STAGE_BYTES_PER_SIM / ((int)sizeof(float) * (P + 1)) / 4 * 4;
@@ -115,11 +115,10 @@ int chunk_rows_for(int max_n, int P, const int* grid, int G) {
     most = most > 4 ? most : 4;
     int best = 0, best_pieces = 0;
     for (int rows = (most / 2 / 4 * 4 > 4 ? most / 2 / 4 * 4 : 4); rows <= most; rows += 4) {
-        int pieces = 0;
+        int pieces = 0, g = 0;
         for (int r = rows; r < max_n; r += rows) {
-            bool on_grid = false;
-            for (int g = 0; g < G && !on_grid; ++g) on_grid = grid[g] == r;
-            pieces += on_grid ? 0 : 1;
+            while (g < G && grid[g] < r) ++g;
+            pieces += (g < G && grid[g] == r) ? 0 : 1;
         }
         if (best == 0 || pieces <= best_pieces) {
             best = rows;
@@ -301,6 +300,11 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
     const int sl = lane % SIM_LANES;
     const int xf = x_floats(a.chunk_rows, a.P);
     const int sf = stage_floats(a.chunk_rows, a.P);
+    // The grid, staged once behind the two stages; the row cursor below
+    // walks it (gi), so G has no bound but shared memory.
+    int* grid = reinterpret_cast<int*>(smem + 2 * sf);
+    for (int i = lane; i < a.G; i += WARP) grid[i] = a.grid[i];
+    __syncwarp();
     const int n_chunks = (a.max_n + a.chunk_rows - 1) / a.chunk_rows;
     const long long n_tasks =
         (((long long)a.sims + SIMS_PER_WARP - 1) / SIMS_PER_WARP) * NG;
@@ -325,7 +329,7 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
             target[q] = (valid && q < own_size && id < NGLOB) ? target_of<PF>(id) : 0;
         }
 
-        int gi = 0;  // current grid segment [seg_lo, lay.grid[gi])
+        int gi = 0;  // current grid segment [seg_lo, grid[gi])
         int seg_lo = 0;
         // A segment is finished: add it to the running sums and write the
         // cell; an empty segment repeats the previous grid point.
@@ -339,10 +343,10 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
             }
             if (clusters && empty)
                 cluster_piece<PF>(a, lay, nullptr, nullptr, 0, 0, 0, cell, true, gi > 0, sl);
-            seg_lo = lay.grid[gi];
+            seg_lo = grid[gi];
             ++gi;
         };
-        while (gi < a.G && lay.grid[gi] == 0) finish(true);
+        while (gi < a.G && grid[gi] == 0) finish(true);
 
         for (int k = 0; k < n_chunks; ++k) {
             // prefetch the warp's next chunk (this group's, or its next group's)
@@ -365,7 +369,7 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
             const int r1 = min(a.max_n, r0 + a.chunk_rows);
             int r = r0;
             while (r < r1 && gi < a.G) {
-                const int n = lay.grid[gi];
+                const int n = grid[gi];
                 const int e = min(n, r1);
                 double acc[K];
 #pragma unroll
@@ -403,7 +407,7 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
                 r = e;
                 if (r == n) {
                     finish(false);
-                    while (gi < a.G && lay.grid[gi] == seg_lo) finish(true);
+                    while (gi < a.G && grid[gi] == seg_lo) finish(true);
                 }
             }
             __syncwarp();  // every lane is done with this stage before it is refilled
@@ -414,7 +418,8 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
 
 template <int PF>
 int launch(const Args& a, const Layout& lay, cudaStream_t stream) {
-    const size_t smem = 2 * sizeof(float) * (size_t)stage_floats(a.chunk_rows, a.P);
+    const size_t smem =
+        2 * sizeof(float) * (size_t)stage_floats(a.chunk_rows, a.P) + sizeof(int) * (size_t)a.G;
     if (smem > (size_t)MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
     auto kernel = grid_suffstats_kernel<PF>;
     cudaError_t err =
@@ -438,15 +443,18 @@ int launch(const Args& a, const Layout& lay, cudaStream_t stream) {
 
 }  // namespace
 
-// fit: pf column indices of X; grid: G ascending row counts (last == max_n),
-// both host memory. m = 0 computes no cluster statistics (nj, s, t may then
-// be null). Returns a cudaError_t.
+// fit: pf column indices of X (host memory); grid: G ascending row counts
+// (last == max_n), in host memory for the checks and the chunk choice and
+// in device memory (grid_dev, the same values) for the kernel. m = 0
+// computes no cluster statistics (nj, s, t may then be null). Returns a
+// cudaError_t.
 extern "C" int mcp_grid_suffstats(const void* X, const void* y, int sims, int max_n, int P,
-                                  const int* fit, int pf, const int* grid, int G, int m,
-                                  int round_robin, int period, void* xtx, void* xty, void* yty,
-                                  void* ysum, void* nj, void* s, void* t, void* stream) {
+                                  const int* fit, int pf, const int* grid, const void* grid_dev,
+                                  int G, int m, int round_robin, int period, void* xtx, void* xty,
+                                  void* yty, void* ysum, void* nj, void* s, void* t,
+                                  void* stream) {
     if (sims <= 0 || max_n <= 0 || P <= 0 || pf <= 0 || pf > MCP_MAX_P || G <= 0 ||
-        G > MCP_MAX_GRID || m < 0 || period <= 0 ||
+        grid_dev == nullptr || m < 0 || period <= 0 ||
         (m > 0 && (nj == nullptr || s == nullptr || t == nullptr)))
         return (int)cudaErrorInvalidValue;
     Layout lay;
@@ -454,14 +462,13 @@ extern "C" int mcp_grid_suffstats(const void* X, const void* y, int sims, int ma
         if (fit[i] < 0 || fit[i] >= P) return (int)cudaErrorInvalidValue;
         lay.fit[i] = fit[i];
     }
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < G; ++g)
         if (grid[g] < (g ? grid[g - 1] : 0) || grid[g] > max_n) return (int)cudaErrorInvalidValue;
-        lay.grid[g] = grid[g];
-    }
     if (grid[G - 1] != max_n) return (int)cudaErrorInvalidValue;
     Args a;
     a.X = (const float*)X;
     a.y = (const float*)y;
+    a.grid = (const int*)grid_dev;
     a.sims = sims;
     a.max_n = max_n;
     a.P = P;
@@ -469,7 +476,7 @@ extern "C" int mcp_grid_suffstats(const void* X, const void* y, int sims, int ma
     a.m = m;
     a.round_robin = round_robin;
     a.period = period;
-    a.chunk_rows = chunk_rows_for(max_n, P, lay.grid, G);
+    a.chunk_rows = chunk_rows_for(max_n, P, grid, G);
     a.vec16 = ((uintptr_t)X % 16 == 0) && ((uintptr_t)y % 16 == 0) && (max_n * P) % 4 == 0 &&
               max_n % 4 == 0;
     a.xtx = (double*)xtx;

@@ -1,4 +1,5 @@
-// Small dense Cholesky algebra for one thread, f64, p a template constant.
+// Small dense Cholesky algebra for one thread, p a template constant, in the
+// scalar type T of the arguments (f64, or f32 for the GLM's f32 phase).
 //
 // Device twins of mcpower_tpu_torch/engine/smallchol.py (itself the plain
 // form of the reference's scalar unroll, mcpower_tpu/engine/smallchol.py
@@ -8,7 +9,8 @@
 // large); with P a template constant every loop below unrolls and every
 // index is static.
 //
-// Kernels K3 (ols_solve.cu) and K4 (reml_intercept.cu) include this file.
+// Kernels K3 (ols_solve.cu), K4 (reml_intercept.cu) and K6 (glm_irls.cu)
+// include this file.
 #pragma once
 
 #include <math.h>
@@ -17,33 +19,33 @@ namespace mcp {
 
 // Lower Cholesky of the lower triangle of A. A zero or negative pivot gives
 // inf/nan; callers detect failure through finiteness and rank checks.
-template <int P>
-__device__ __forceinline__ void chol(const double* A, double* L) {
+template <int P, typename T>
+__device__ __forceinline__ void chol(const T* A, T* L) {
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-        double d = A[j * P + j];
+        T d = A[j * P + j];
 #pragma unroll
         for (int k = 0; k < j; ++k) d = d - L[j * P + k] * L[j * P + k];
         L[j * P + j] = sqrt(d);
-        const double inv_d = 1.0 / L[j * P + j];
+        const T inv_d = T(1) / L[j * P + j];
 #pragma unroll
         for (int i = j + 1; i < P; ++i) {
-            double s = A[i * P + j];
+            T s = A[i * P + j];
 #pragma unroll
             for (int k = 0; k < j; ++k) s = s - L[i * P + k] * L[j * P + k];
             L[i * P + j] = s * inv_d;
         }
 #pragma unroll
-        for (int i = 0; i < j; ++i) L[i * P + j] = 0.0;
+        for (int i = 0; i < j; ++i) L[i * P + j] = T(0);
     }
 }
 
 // Solve L y = b.
-template <int P>
-__device__ __forceinline__ void solve_lower(const double* L, const double* b, double* y) {
+template <int P, typename T>
+__device__ __forceinline__ void solve_lower(const T* L, const T* b, T* y) {
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-        double s = b[i];
+        T s = b[i];
 #pragma unroll
         for (int k = 0; k < i; ++k) s = s - L[i * P + k] * y[k];
         y[i] = s / L[i * P + i];
@@ -51,11 +53,11 @@ __device__ __forceinline__ void solve_lower(const double* L, const double* b, do
 }
 
 // Solve L^T x = y.
-template <int P>
-__device__ __forceinline__ void solve_upper_t(const double* L, const double* y, double* x) {
+template <int P, typename T>
+__device__ __forceinline__ void solve_upper_t(const T* L, const T* y, T* x) {
 #pragma unroll
     for (int i = P - 1; i >= 0; --i) {
-        double s = y[i];
+        T s = y[i];
 #pragma unroll
         for (int k = i + 1; k < P; ++k) s = s - L[k * P + i] * x[k];
         x[i] = s / L[i * P + i];
@@ -63,30 +65,29 @@ __device__ __forceinline__ void solve_upper_t(const double* L, const double* y, 
 }
 
 // Solve (L L^T) x = b.
-template <int P>
-__device__ __forceinline__ void cho_solve(const double* L, const double* b, double* x) {
-    double y[P];
+template <int P, typename T>
+__device__ __forceinline__ void cho_solve(const T* L, const T* b, T* x) {
+    T y[P];
     solve_lower<P>(L, b, y);
     solve_upper_t<P>(L, y, x);
 }
 
 // Column j of inv = (L L^T)^-1, the solve against e_j; writes
 // out[i * P + j] = scale * inv[i][j].
-template <int P>
-__device__ __forceinline__ void cho_inverse_column_scaled(const double* L, int j, double scale,
-                                                          double* out) {
-    double e[P];
+template <int P, typename T>
+__device__ __forceinline__ void cho_inverse_column_scaled(const T* L, int j, T scale, T* out) {
+    T e[P];
 #pragma unroll
-    for (int i = 0; i < P; ++i) e[i] = (i == j) ? 1.0 : 0.0;
-    double col[P];
+    for (int i = 0; i < P; ++i) e[i] = (i == j) ? T(1) : T(0);
+    T col[P];
     cho_solve<P>(L, e, col);
 #pragma unroll
     for (int i = 0; i < P; ++i) out[i * P + j] = scale * col[i];
 }
 
 // Every column of the scaled inverse.
-template <int P>
-__device__ __forceinline__ void cho_inverse_scaled(const double* L, double scale, double* out) {
+template <int P, typename T>
+__device__ __forceinline__ void cho_inverse_scaled(const T* L, T scale, T* out) {
 #pragma unroll
     for (int j = 0; j < P; ++j) cho_inverse_column_scaled<P>(L, j, scale, out);
 }

@@ -3,8 +3,10 @@
 The port of ``mcpower_tpu.engine.batch`` for this slice. Where the reference
 vmaps ``run_one_sim`` over sims inside one jitted program, :func:`run_sims`
 runs each stage once over a chunk of sims with the sim axis written out:
-the Philox fill (K1), the design and outcome, the fit (K2 + K3 for OLS, K2 +
-K4 for the random-intercept LMM), t^2 thresholds and corrections, and the
+the Philox fill (K1; a second fill for a logit or count outcome, whose
+counts go through K8), the design and outcome, the fit (K2 + K3 for OLS, K2
++ K4 for the random-intercept LMM, K6 for an unclustered GLM), t^2
+thresholds and corrections, and the
 reduction of per-sim flags to int32 counts before they leave the device.
 Results depend only on sim ids, never on chunking or the device.
 
@@ -19,7 +21,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import corrections, datagen, mixedfit, olsfit
+from . import corrections, datagen, glmfit, mixedfit, olsfit
 from .spec import SimSpec
 
 
@@ -43,7 +45,9 @@ def run_sims(spec: SimSpec, arr: Dict[str, torch.Tensor], seed_lo: int, seed_hi:
     X, y, _ = datagen.generate_batch(spec, arr, seed_lo, seed_hi, sim_ids, plain=plain)
     if spec.estimator == "ols":
         stats = olsfit.ols_grid_stats(spec, X, y, plain=plain)
-    else:  # "mle" with a cluster: generate_batch has checked the scope
+    elif spec.estimator == "glm":  # unclustered: generate_batch has checked the scope
+        stats = glmfit.glm_grid_stats(spec, arr, X, y, plain=plain)
+    else:  # "mle" with a cluster
         stats = mixedfit.mixed_grid_stats(spec, X, y, plain=plain)
 
     t2 = stats["t2"]  # (sims, G, k)
@@ -66,7 +70,8 @@ def run_sims(spec: SimSpec, arr: Dict[str, torch.Tensor], seed_lo: int, seed_hi:
         out["nsig_hist_unc"] = nsig_unc[..., None] == levels
         out["nsig_hist_corr"] = nsig_corr[..., None] == levels
 
-    for extra in ("boundary_hit", "boundary_hi", "tau2_hat", "pinned_comp"):
+    for extra in ("boundary_hit", "boundary_hi", "singular", "tau2_hat", "glm_baseline",
+                  "pinned_comp"):
         if extra in stats:
             out[extra] = stats[extra]
     # tau2 counts only for converged fits (the host divides by that count)

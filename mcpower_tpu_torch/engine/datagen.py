@@ -4,28 +4,34 @@ The port of ``mcpower_tpu.engine.datagen.generate`` for the designs of this
 slice, with the sim axis written out: one call builds ``X (sims, max_n, P)
 f32``, ``y (sims, max_n) f32`` and the cluster ids for a batch of sims.
 
-Every draw comes from one batched Philox fill (``rng.fill_streams``, kernel
-K1 on the card) over the streams :func:`stream_plan` lists, at the
-reference's addresses, so ``X[:, :N]`` is a nested prefix across the grid
-(common random numbers) and a value never depends on the batch.
+Every draw comes from batched Philox fills (``rng.fill_streams``, kernel K1
+on the card) over the streams :func:`stream_plan` and :func:`outcome_plan`
+list, at the reference's addresses, so ``X[:, :N]`` is a nested prefix
+across the grid (common random numbers) and a value never depends on the
+batch.
 
 The stages follow the reference in order: the static design draw (``L =
 corr_chol``), the f32 mix ``z @ L.T``, the normal/binary marginals, the
-interaction block, ``lp = X @ beta``, the primary random intercept
-(``u = z_c * chol(tau^2 + 1e-12)`` indexed by cluster id) and the normal
-residual. The reference also fills ``df`` chi-square planes for the other
-residual families and discards them in a select; for a statically normal
-residual the port skips them, which leaves every value unchanged.
+interaction block, ``eta = X @ beta``, the primary random intercept
+(``u = z_c * chol(tau^2 + 1e-12)`` indexed by cluster id) and the outcome:
+a normal residual, a binary draw (logit: a top-24-bit uniform of the RESID
+words against ``sigmoid(eta)``; probit: the RESID normal against ``eta``)
+or a Poisson count (the open uniform of the RESID words through
+:func:`poisson_quantile`, kernel K8 on the card). The reference also fills
+``df`` chi-square planes for the other residual families and discards them
+in a select; for a statically normal residual the port skips them, which
+leaves every value unchanged.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from . import marginals, rng
+from . import kernels, marginals, rng
 from .spec import DIST_BINARY, DIST_NORMAL, RESID_NORMAL, SimSpec
 
 
@@ -61,13 +67,16 @@ def unsupported(spec: SimSpec) -> str:
     if spec.estimator == "glm" or spec.outcome != "continuous":
         if spec.cluster is not None:
             return "GLMM fits (ROADMAP A9)"
-        return "GLM fits and binary/count outcomes (ROADMAP A8)"
-    if spec.estimator not in ("ols", "mle"):
+        if spec.estimator != "glm":
+            return f"estimator {spec.estimator!r} with a {spec.outcome} outcome"
+        if spec.outcome not in ("binary", "count"):
+            return f"a GLM of a {spec.outcome} outcome"
+    elif spec.estimator not in ("ols", "mle"):
         return f"estimator {spec.estimator!r}"
     if spec.factor_levels:
-        return "factor predictors (ROADMAP A8)"
+        return "factor predictors (ROADMAP A8.2)"
     if spec.posthoc:
-        return "posthoc contrasts (ROADMAP A8)"
+        return "posthoc contrasts (ROADMAP A8.2)"
     if spec.upload_rows > 0 or spec.bootstrap:
         return "uploaded data (ROADMAP A13)"
     if any(v not in (DIST_NORMAL, DIST_BINARY) for v in spec.var_types):
@@ -86,6 +95,11 @@ def unsupported(spec: SimSpec) -> str:
             return "cluster-level predictor columns (ROADMAP A10)"
     elif spec.estimator == "mle":
         return "the mle estimator without a cluster"
+    # the widths the kernels take: K1's stream table and the fits' p
+    if n_streams(spec) > rng.MAX_STREAMS:
+        return f"more than {rng.MAX_STREAMS} generated streams (ROADMAP A10)"
+    if len(spec.effective_fit_cols) > kernels.MAX_FIT_P:
+        return f"wide fits, p > {kernels.MAX_FIT_P} (ROADMAP A8.2 / B10)"
     return ""
 
 
@@ -101,14 +115,34 @@ def check_supported(spec: SimSpec) -> None:
 
 
 def stream_plan(spec: SimSpec) -> List[Tuple[int, int, int]]:
-    """``(class, column, rows)`` of every stream the generation reads:
-    the latent predictor normals, the primary-intercept draws (column 0 of
-    CLUSTER) and the residual normals (column 0 of RESID)."""
+    """``(class, column, rows)`` of every stream the generation reads as
+    normals: the latent predictor normals, the primary-intercept draws
+    (column 0 of CLUSTER) and, for a continuous or probit outcome, the
+    residual normals (column 0 of RESID)."""
     plan = [(rng.CLASS_XNORM, j, spec.max_n) for j in range(spec.n_cont)]
     if spec.cluster is not None:
         plan.append((rng.CLASS_CLUSTER, 0, spec.cluster.n_clusters_at(spec.max_n)))
-    plan.append((rng.CLASS_RESID, 0, spec.max_n))
+    if outcome_plan(spec) is None:
+        plan.append((rng.CLASS_RESID, 0, spec.max_n))
     return plan
+
+
+def outcome_plan(spec: SimSpec):
+    """``(mode, streams)`` of the second fill a logit or count outcome reads
+    (K1 fills one mode per launch): the RESID words of a logit draw, the
+    RESID open uniforms of a count draw; None when the outcome reads the
+    residual normals of :func:`stream_plan`."""
+    resid = [(rng.CLASS_RESID, 0, spec.max_n)]
+    if spec.outcome == "binary" and spec.link != "probit":
+        return rng.MODE_WORDS, resid
+    if spec.outcome == "count":
+        return rng.MODE_OPEN_UNIFORM, resid
+    return None
+
+
+def n_streams(spec: SimSpec) -> int:
+    """Streams the generation fills, over both fills."""
+    return len(stream_plan(spec)) + (outcome_plan(spec) is not None)
 
 
 def cluster_ids(spec: SimSpec, device=None) -> torch.Tensor:
@@ -132,13 +166,94 @@ def re_chol_intercept(tau0_sq: float) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Count outcomes: kernel K8 and its plain version
+# ---------------------------------------------------------------------------
+
+U_TOP = float(np.float32(1.0 - 6e-8))  # the clamp of the count draw's uniform
+POISSON_WALK_MAX_LAM = 20.0
+POISSON_WALK_STEPS = 200
+
+
+def poisson_quantile_plain(u: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
+    """Poisson inverse CDF at the open uniform ``u`` (f32) with rate
+    ``exp(eta)`` (f32), as the reference's ``_poisson_quantile`` (datagen.py
+    :217) with its caller's clamp and rate (:654-665).
+
+    ``u`` is clamped at 1 - 6e-8. Rates up to 20 walk the f64 cumulative PMF,
+    at most 200 steps; a lane stops once its CDF reaches ``u``, which is where
+    the reference's batch-wide loop stops changing it. Above 20 the normal
+    approximation ``floor(lam + z sqrt(lam) + 0.5)``, floored at 0, with ``z``
+    the f32 Acklam ppf of ``u``. A zero rate (``eta`` below about -104) gives
+    0. Returns f32 counts.
+    """
+    u = torch.clamp(u.to(torch.float32), max=U_TOP)
+    lam = torch.exp(eta.to(torch.float32))
+    u64, lam64 = u.double(), lam.double()
+    p = torch.exp(-lam64)
+    cdf = p
+    y = torch.zeros_like(u)
+    walk = lam64 <= POISSON_WALK_MAX_LAM
+    k = 0
+    while k < POISSON_WALK_STEPS and bool(((cdf < u64) & walk).any()):
+        # a tensor divisor: torch divides by a Python number through its
+        # reciprocal, K8 (and the reference) by IEEE division
+        p = p * lam64 / torch.full_like(p, float(k + 1))
+        y = torch.where(cdf < u64, y + 1.0, y)
+        cdf = cdf + p
+        k += 1
+    z = rng.norm_ppf_f32(u)
+    y_norm = torch.clamp(torch.floor(lam + z * torch.sqrt(lam) + 0.5), min=0.0)
+    y = torch.where(lam <= POISSON_WALK_MAX_LAM, y, y_norm)
+    return torch.where(lam > 0.0, y, torch.zeros_like(y))
+
+
+_POISSON_ARGS = [
+    ctypes.c_void_p,  # u (n,) f32 open uniforms
+    ctypes.c_void_p,  # eta (n,) f32
+    ctypes.c_longlong,  # n
+    ctypes.c_void_p,  # y out (n,) f32
+    ctypes.c_void_p,  # cudaStream_t
+]
+
+
+def poisson_quantile_kernel(u: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
+    """Kernel K8 (``csrc/poisson_quantile.cu``): the same counts on the
+    card, one thread per row."""
+    if u.dtype != torch.float32 or eta.dtype != torch.float32 or u.shape != eta.shape:
+        raise ValueError(f"poisson_quantile kernel takes f32 u and eta of one shape, got "
+                         f"{u.dtype} {tuple(u.shape)} and {eta.dtype} {tuple(eta.shape)}")
+    u, eta = u.contiguous(), eta.contiguous()
+    y = torch.empty_like(u)
+    kernels.require_cuda("poisson_quantile", u, eta, y)
+    if u.numel():
+        k = kernels.KERNELS["poisson_quantile"]
+        fn = k.fn("mcp_poisson_quantile", _POISSON_ARGS)
+        k.check(fn(kernels.ptr(u), kernels.ptr(eta), u.numel(), kernels.ptr(y),
+                   kernels.stream_of(u)))
+    return y
+
+
+def poisson_quantile(u: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
+    """K8 for CUDA tensors, the plain version for CPU tensors."""
+    if u.is_cuda:
+        return poisson_quantile_kernel(u, eta)
+    if u.device.type != "cpu":
+        raise ValueError(f"poisson_quantile: no kernel for device {u.device}")
+    return poisson_quantile_plain(u, eta)
+
+
+# ---------------------------------------------------------------------------
 # Main entry
 # ---------------------------------------------------------------------------
 
 
-def generate_from_normals(spec: SimSpec, arr: Dict[str, torch.Tensor], Z: torch.Tensor):
+def generate_from_normals(spec: SimSpec, arr: Dict[str, torch.Tensor], Z: torch.Tensor,
+                          resid: torch.Tensor = None, *, plain: bool = False):
     """``(X, y, ids)`` from the filled normals ``Z (sims, n_streams, rows)``
-    laid out as :func:`stream_plan` says."""
+    laid out as :func:`stream_plan` says and, for a logit or count outcome,
+    the second fill's plane ``resid (sims, max_n)`` (:func:`outcome_plan`:
+    words, or open uniforms). ``plain=True`` draws counts through the plain
+    version of K8 on any device."""
     max_n = spec.max_n
     sims = Z.shape[0]
     device = Z.device
@@ -170,7 +285,15 @@ def generate_from_normals(spec: SimSpec, arr: Dict[str, torch.Tensor], Z: torch.
         eta = lp + u[:, ids.long()]
     else:
         eta = lp
-    y = eta + Z[:, s_resid, :max_n]
+    one, zero = torch.ones_like(eta), torch.zeros_like(eta)
+    if spec.outcome == "continuous":
+        y = eta + Z[:, s_resid, :max_n]
+    elif spec.outcome == "binary" and spec.link == "probit":
+        y = torch.where(Z[:, s_resid, :max_n] < eta, one, zero)
+    elif spec.outcome == "binary":
+        y = torch.where(rng.u32_to_uniform(resid) < torch.sigmoid(eta), one, zero)
+    else:  # count
+        y = (poisson_quantile_plain if plain else poisson_quantile)(resid, eta)
     return X, y, ids.unsqueeze(0).expand(sims, max_n)
 
 
@@ -183,11 +306,16 @@ def generate_batch(spec: SimSpec, arr: Dict[str, torch.Tensor], seed_lo: int, se
                    sim_ids: torch.Tensor, *, plain: bool = False):
     """``X (sims, max_n, P) f32``, ``y (sims, max_n) f32``, ``ids (sims,
     max_n) int32`` for the sims ``sim_ids`` (int64, on the run's device).
+    y is the continuous outcome, or 0/1 or counts as f32.
 
-    ``plain=True`` fills through the plain PyTorch Philox on any device
-    (used to time and check kernel K1 against it).
+    ``plain=True`` runs the plain PyTorch Philox fill and Poisson quantile
+    on any device (used to time and check kernels K1 and K8 against them).
     """
     check_supported(spec)
     fill = rng.fill_streams_plain if plain else rng.fill_streams
     Z = fill(seed_lo, seed_hi, sim_ids, stream_plan(spec), rng.MODE_NORMAL)
-    return generate_from_normals(spec, arr, Z)
+    second = outcome_plan(spec)
+    resid = None
+    if second is not None:
+        resid = fill(seed_lo, seed_hi, sim_ids, second[1], second[0])[:, 0]
+    return generate_from_normals(spec, arr, Z, resid, plain=plain)

@@ -35,6 +35,9 @@ BUILD_DIR = Path(
     )
 )
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# Widest fit the fit kernels (K2, K3, K4, K6) are instantiated for
+# (MCP_DISPATCH_P in csrc/common.cuh); datagen.unsupported stops wider ones.
+MAX_FIT_P = 16
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
@@ -147,6 +150,8 @@ KERNELS: Dict[str, Kernel] = {
     # contraction, so flags that hinge on 1e-10 deviance gaps agree.
     "ols_solve": Kernel("ols_solve", "ols_solve.cu", ["--fmad=false"]),
     "reml_intercept": Kernel("reml_intercept", "reml_intercept.cu", ["--fmad=false"]),
+    "glm_irls": Kernel("glm_irls", "glm_irls.cu", ["--fmad=false"]),
+    "poisson_quantile": Kernel("poisson_quantile", "poisson_quantile.cu", ["--fmad=false"]),
 }
 
 

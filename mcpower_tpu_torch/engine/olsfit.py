@@ -27,8 +27,7 @@ from . import clusterops, kernels, smallchol, waldstats
 from .spec import SimSpec
 
 EPS_RANK = smallchol.EPS_RANK
-MAX_P = 16  # widest fit the kernels are instantiated for
-MAX_GRID = 64
+MAX_P = kernels.MAX_FIT_P
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +84,8 @@ _SUFF_ARGS = [
     ctypes.c_int,  # P
     ctypes.POINTER(ctypes.c_int),  # fit columns
     ctypes.c_int,  # pf
-    ctypes.POINTER(ctypes.c_int),  # grid
+    ctypes.POINTER(ctypes.c_int),  # grid (host, for the checks and the row chunks)
+    ctypes.c_void_p,  # grid (G,) int32 (device, for the kernel)
     ctypes.c_int,  # G
     ctypes.c_int,  # m (0: no cluster statistics)
     ctypes.c_int,  # round robin (1) or blocked (0)
@@ -106,8 +106,8 @@ def grid_suffstats_kernel(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
     """Kernel K2: :func:`grid_suffstats_plain` on the card."""
     fit = list(spec.effective_fit_cols)
     pf, G = len(fit), spec.n_grid
-    if pf > MAX_P or G > MAX_GRID:
-        raise ValueError(f"grid_suffstats kernel takes p <= {MAX_P}, G <= {MAX_GRID}; got {pf}, {G}")
+    if pf > MAX_P:
+        raise ValueError(f"grid_suffstats kernel takes p <= {MAX_P}, got {pf}")
     if X.dtype != torch.float32 or y.dtype != torch.float32:
         raise ValueError("grid_suffstats kernel takes f32 X and y")
     sims, max_n, P = X.shape
@@ -125,7 +125,8 @@ def grid_suffstats_kernel(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
         out["n_j"] = torch.empty((sims, G, m), **kw)
         out["s"] = torch.empty((sims, G, m, pf), **kw)
         out["t"] = torch.empty((sims, G, m), **kw)
-    kernels.require_cuda("grid_suffstats", X, y, *out.values())
+    grid_t = torch.tensor(spec.grid, dtype=torch.int32, device=X.device)
+    kernels.require_cuda("grid_suffstats", X, y, grid_t, *out.values())
     if sims == 0:
         return out
     null = ctypes.c_void_p(0)
@@ -134,7 +135,7 @@ def grid_suffstats_kernel(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
     k.check(
         fn(
             kernels.ptr(X), kernels.ptr(y), sims, max_n, P,
-            (ctypes.c_int * pf)(*fit), pf, (ctypes.c_int * G)(*spec.grid), G,
+            (ctypes.c_int * pf)(*fit), pf, (ctypes.c_int * G)(*spec.grid), kernels.ptr(grid_t), G,
             m, rr, period,
             kernels.ptr(out["xtx"]), kernels.ptr(out["xty"]),
             kernels.ptr(out["yty"]), kernels.ptr(out["ysum"]),

@@ -4,9 +4,10 @@ The plain PyTorch versions of the reference's ``smallchol`` scalar unroll
 (``mcpower_tpu/engine/smallchol.py:34-393``): every function takes
 ``(..., p, p)`` / ``(..., p)`` tensors with any leading batch axes and
 performs the same operations in the same order (the factor multiplies by
-the reciprocal pivot; the solves divide by it). On the card these run inside
-kernels K3 and K4, whose device twins live in ``csrc/smallchol.cuh``; here
-they serve CPU tensors, the tests and the plain timings.
+the reciprocal pivot; the solves divide by it). Each works in its inputs'
+dtype, so the GLM's f32 phase runs in f32. On the card these run inside
+kernels K3, K4 and K6, whose device twins live in ``csrc/smallchol.cuh``;
+here they serve CPU tensors, the tests and the plain timings.
 """
 
 from __future__ import annotations
@@ -90,6 +91,49 @@ def chol_rank_ok(L: torch.Tensor, eps_rank: float = EPS_RANK) -> torch.Tensor:
         (torch.isfinite(d) & (d > 0.0)).all(-1)
         & (d.amin(-1) >= eps_rank * d.amax(-1))
     )
+
+
+# The row contractions of the GLM IRLS (the reference's rowmv and crossprod,
+# smallchol.py:365-380) in kernel K6's order, so that K6 and its plain
+# version agree bit for bit: 32 lanes each add every 32nd row to a zero in
+# turn, then the lanes combine by the butterfly of __shfl_xor at distances
+# 16, 8, 4, 2, 1.
+LANES = 32
+
+
+def lane_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, a multiple of LANES rows, in K6's order."""
+    v = t.reshape(*t.shape[:-1], -1, LANES)
+    acc = torch.zeros_like(v[..., 0, :])
+    for r in range(v.shape[-2]):
+        acc = acc + v[..., r, :]
+    half = LANES // 2
+    while half:
+        acc = acc[..., :half] + acc[..., half:2 * half]
+        half //= 2
+    return acc[..., 0]
+
+
+def rowmv(X: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., n, p) x (..., p) -> (..., n): per-row dot, the columns added in
+    turn to a zero."""
+    out = torch.zeros_like(X[..., 0])
+    for k in range(X.shape[-1]):
+        out = out + X[..., k] * b[..., k:k + 1]
+    return out
+
+
+def crossprod(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., n, p) with row weights (..., n) -> (..., p, p): X' diag(w) X,
+    entry (i, j), i >= j, the lane_sum of (x_i w) x_j over rows, mirrored
+    (the Cholesky reads the lower triangle). n is a multiple of LANES."""
+    p = X.shape[-1]
+    xw = X * w[..., None]
+    A = X.new_zeros(X.shape[:-2] + (p, p))
+    for i in range(p):
+        for j in range(i + 1):
+            A[..., i, j] = A[..., j, i] = lane_sum(xw[..., i] * X[..., j])
+    return A
 
 
 def colsum(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

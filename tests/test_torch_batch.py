@@ -62,6 +62,10 @@ def _assert_counts_equal(got, want, tau2_rel=TAU2_REL):
         assert g.shape == w.shape, key
         if key == "tau2_hat":
             np.testing.assert_allclose(g, w, rtol=tau2_rel, err_msg=key)
+        elif key == "glm_baseline":
+            # f64 sums of the same per-sim outcome means in another order
+            # (measured 1.4e-16 relative at 1,024 sims)
+            np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=key)
         else:
             np.testing.assert_array_equal(g, w, err_msg=key)
 
@@ -109,7 +113,7 @@ def _lmm(**cluster):
 
 
 UNSUPPORTED = {
-    "glm": dict(outcome="binary", estimator="glm"),
+    "glm": dict(outcome="binary", estimator="glm", factor_levels=[3], effects=np.zeros(5)),
     "glmm": dict(outcome="binary", estimator="glm",
                  cluster=ClusterStatic("fixed_clusters", 20, 0.25)),
     "slopes": _lmm(slopes=(SlopeStatic(1, 0.1, 0.0),)),

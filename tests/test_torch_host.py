@@ -1,8 +1,11 @@
 """The port's copy of the host layers (spec builder, contract, orchestrator
 helpers, adapter) against the JAX reference's on the same inputs, with no
-simulation: formula parsing, sample-size grids, crossing fits, contract
-validation, ``MCPower.to_simulation_spec`` and the lowering of a reference
-contract carried across as JSON."""
+simulation but one: formula parsing, sample-size grids, crossing fits,
+contract validation, ``MCPower.to_simulation_spec`` and the lowering of a
+reference contract carried across as JSON (OLS, LMM, logit and Poisson);
+then the width limits of the kernels (ROADMAP C1): a 91-point grid runs, at
+4 sims against the reference, and designs wider than the kernels fail in the
+preflight."""
 
 import copy
 import dataclasses
@@ -17,11 +20,14 @@ import mcpower_tpu  # noqa: F401  (x64 on, as the reference runs)
 from mcpower_tpu import MCPower as RefMCPower
 from mcpower_tpu.contract import types as ref_types, validate as ref_validate
 from mcpower_tpu.engine import adapter as ref_adapter
+from mcpower_tpu.engine import batch as ref_batch
+from mcpower_tpu.engine import lower as ref_lower
 from mcpower_tpu.orchestrator import crossing as ref_crossing, grid as ref_grid
+from mcpower_tpu.engine.spec import ClusterStatic as RefCluster
 from mcpower_tpu.specbuilder import formula as ref_formula
 from mcpower_tpu_torch import MCPower
 from mcpower_tpu_torch.contract import types, validate
-from mcpower_tpu_torch.engine import adapter, carry, lower
+from mcpower_tpu_torch.engine import adapter, batch, carry, datagen, lower
 from mcpower_tpu_torch.engine.spec import ClusterStatic, ExtraGroupingStatic
 from mcpower_tpu_torch.orchestrator import crossing, grid
 from mcpower_tpu_torch.specbuilder import formula
@@ -111,7 +117,7 @@ def _model(mcpower_cls, model):
     return chip_smoke.build_model(mcpower_cls, model)
 
 
-@pytest.mark.parametrize("model", ["lmm", "ols"])
+@pytest.mark.parametrize("model", ["lmm", "ols", "logit", "poisson"])
 def test_to_simulation_spec_matches_the_reference(model):
     assert _model(MCPower, model).to_simulation_spec() == _model(
         RefMCPower, model).to_simulation_spec()
@@ -160,7 +166,9 @@ def _assert_lowered_equal(got, want):
 
 @pytest.mark.parametrize("model,grid_ns", [("lmm", [200]), ("ols", [200]),
                                            ("ols", [50, 100, 250, 500]),
-                                           ("lmm", [100, 200, 400])])
+                                           ("lmm", [100, 200, 400]),
+                                           ("logit", [300]), ("logit", [100, 350, 600]),
+                                           ("poisson", [150])])
 def test_a_reference_contract_carried_across_lowers_the_same(model, grid_ns):
     ref_c = ref_types.SimulationContract.from_dict(_model(RefMCPower, model).to_simulation_spec())
     want = carry.from_reference(*ref_adapter.contract_to_lowered(ref_c, grid_ns))
@@ -178,3 +186,47 @@ def test_the_lmm_flow_lowers_to_the_headline_design():
     ref_c = ref_types.SimulationContract.from_dict(_model(RefMCPower, "lmm").to_simulation_spec())
     _assert_lowered_equal(carry.from_reference(*ref_adapter.contract_to_lowered(ref_c, [200])),
                           want)
+
+
+def test_the_logit_flow_lowers_to_the_glm_arm_but_for_the_overall_test():
+    """``model_logit_power`` of chip_smoke lowers to DESIGNS['glm_bonferroni_10k']
+    except that MCPower reports the LRT overall test (report_overall and its
+    crit row), its intercept, log(p / (1 - p)) of the baseline probability
+    1 / (1 + e^0.4), is -0.4 within one ULP (and het_lp_mean with it), and
+    the correction is the call's, not the contract's."""
+    m = _model(MCPower, "logit")
+    got = adapter.contract_to_lowered(types.SimulationContract.from_dict(m.to_simulation_spec()),
+                                      [300])
+    want = chip_smoke.lower_design(lower, ClusterStatic, "glm_bonferroni_10k")
+    assert chip_smoke.lowered_differences(got, want) == [
+        "spec.correction ('none' vs 'bonferroni')", "spec.report_overall (True vs False)",
+        "array effects", "array het_lp_mean", "array overall_crit", "array t2_corrected_ranks"]
+    np.testing.assert_allclose(got[1]["effects"], want[1]["effects"], rtol=0, atol=1e-15)
+
+
+def test_a_91_point_grid_passes_the_gate_and_matches_the_reference():
+    """find_sample_size(from_size=50, to_size=500, by=5)'s grid, beyond the
+    64 points K2 once took, on the curve design at 4 sims."""
+    spec, arr = chip_smoke.lower_design(lower, ClusterStatic, "c1_grid91")
+    assert spec.n_grid == 91 and datagen.unsupported(spec) == ""
+    want = ref_batch.run_batch(*chip_smoke.lower_design(ref_lower, RefCluster, "c1_grid91"), 4, 2137)
+    got = batch.run_batch(spec, arr, 4, 2137, device="cpu")
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
+
+
+@pytest.mark.parametrize("n_pred,item", [(16, r"wide fits, p > 16 \(ROADMAP A8\.2 / B10\)"),
+                                         (32, r"more than 32 generated streams \(ROADMAP A10\)")])
+def test_wide_designs_raise_in_the_preflight(monkeypatch, n_pred, item):
+    """p = 17 (16 predictors and the intercept) and 33 streams (32 predictor
+    normals and the residual) fail before any run, not in a kernel."""
+    calls = []
+    from mcpower_tpu_torch.orchestrator import runner
+    monkeypatch.setattr(runner.batch, "run_batch", lambda *a, **k: calls.append(1))
+    names = [f"x{i}" for i in range(1, n_pred + 1)]
+    m = MCPower("y ~ " + " + ".join(names))
+    m.set_effects(", ".join(f"{n}=0.1" for n in names))
+    with pytest.raises(NotImplementedError, match=item):
+        m.find_power(200, n_sims=8, verbose=False, device="cpu")
+    assert calls == []
