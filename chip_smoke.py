@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (``--checks-only`` stops after phase 3; ``--compare LABEL=DIR`` adds phase
-5's A/B against K1 and K3 built from another ``csrc`` directory.)
+5's A/B against K1, K3 and K6 built from another ``csrc`` directory.)
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -14,8 +14,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
 2. build kernels K1-K4, K6 and K8 from ``mcpower_tpu_torch/csrc`` (one nvcc
    per source, all started together) and print their register and spill
    use, per instantiation (of p for K2-K4 and K6, of mode and store width
-   for K1), and the static SASS instruction count of K1 and K3
-   (``cuobjdump``);
+   for K1), the static SASS instruction count of K1 and K3
+   (``cuobjdump``), and K6's launch geometry and resident blocks per SM at
+   p = 1..16 at the GLM arm's and the logit sample-size flow's launch;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (10,000 sims; the LMM's N = 200, p = 3, m = 20, G = 1,
    the curve design's p = 7, G = 8 and the GLM arm's N = 300, p = 4), and
@@ -25,9 +26,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    that cut a segment and a cluster and at p = 9 (two statistic groups), K3
    at every case of ``K3_CHECKS`` (p = 1, p = 16, rank-deficient cells and
    pivot ratios on both sides of EPS_RANK), K4 at both layouts, m = 7 and
-   m = 150, K6 at every case of ``K6_CHECKS`` (probit, Poisson, the cold
-   start, a 12-point grid, a pinned column, p = 1 and p = 16, separated and
-   rank-deficient cells) and K8 on synthetic rows (rates up to 20, above 20
+   m = 150, K6 at every case of ``K6_CHECKS`` (the logit sample-size flow's
+   launch, probit, Poisson, the cold start, a 12-point grid, a pinned
+   column, p = 1 and p = 16, separated and rank-deficient cells) and K8 on
+   synthetic rows (rates up to 20, above 20
    and 0, uniforms at the clamp) and on the Poisson design's rows;
 4. drive the main path through ``lower`` and ``run_batch(device="cuda")``:
    the 10,000-replicate random-intercept LMM headline (base seed 2137), the
@@ -37,8 +39,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    counts against golden counts of the JAX reference (at most one flip per
    entry);
 5. time each kernel (K1 and K2 at the LMM, OLS and curve arms' shapes, K3
-   at the OLS and curve shapes, K4 at the LMM's, K6 at the GLM arm's, K8 at
-   a launch of the Poisson flow) on the device, from
+   at the OLS and curve shapes, K4 at the LMM's, K6 at the GLM arm's and
+   at a launch of the logit sample-size flow, K8 at a launch of the
+   Poisson flow) on the device, from
    torch.profiler's kernel events, and per call through its wrapper (CUDA
    events, launch overhead included), each call on inputs that are not in
    L2, beside its plain version, its bound
@@ -46,10 +49,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    rate for their type; K6's counts the steps its cells ran, from the
    kernel's step counter) and, for K2, one ``torch.bmm`` that computes the
    same statistics at the OLS shape; with ``--compare LABEL=DIR`` (another
-   ``csrc`` directory, such as the parent commit's; repeatable) its K1 and K3
-   are built too, checked against this tree's and timed beside them in
-   turns (other, this, this, other); then each arm's wall, and a profile of each arm
-   (wall median of 7 calls, busy share, largest device items);
+   ``csrc`` directory, such as the parent commit's; repeatable) its K1, K3
+   and K6 are built too, checked against this tree's and timed beside them
+   in turns (other, this, this, other); then each arm's wall, and a profile
+   of each arm (wall median of 7 calls, busy share, largest device items);
 6. drive the seven user flows of ``MODEL_FLOWS`` through
    ``mcpower_tpu_torch.MCPower`` on the card (the random-intercept LMM's
    and the OLS model's ``find_power`` and ``find_sample_size``, the logit
@@ -241,22 +244,29 @@ def k3_stats(X, y, grid=K3_GRID):
     return tuple(np.stack(v, axis=1) for v in zip(*stats)) + (np.asarray(grid, np.float64),)
 
 # K6's cases, each held against the plain IRLS (glmfit.glm_irls_plain) on the
-# same f32 X and y: the GLM arm's cells (generated data, 10,000 sims), and
-# off the path GLM designs on generated data (probit, Poisson, the cold
-# start of truth_start=False, a 12-point grid, one pinned column) and
-# synthetic cells on one grid point of 300 rows (p = 1 and p = 16;
-# separated cells, y = 1 exactly where x1 > 0, whose slope runs to
-# BETA_CAP; a rank-deficient last column, a copy of column 1).
+# same f32 X and y: the GLM arm's cells (generated data, 10,000 sims), the
+# launch of the logit sample-size flow (the arm's design on that flow's
+# 13-point grid, one chunk of N_SIMS / 8 sims), and off the path GLM designs
+# on generated data (probit, Poisson, the cold start of truth_start=False, a
+# 12-point grid, one pinned column) and synthetic cells on one grid point of
+# 300 rows (p = 1 and p = 16; separated cells, y = 1 exactly where x1 > 0,
+# whose slope runs to BETA_CAP; a rank-deficient last column, a copy of
+# column 1).
+# find_sample_size(from_size=100, to_size=600)'s grid (orchestrator/grid.py,
+# linear, the CONFIG step).
+FLOW_GRID_LOGIT = [100, 145, 190, 235, 280, 325, 370, 415, 460, 505, 550, 595, 600]
 K6_DESIGNS = {
     "probit": dict(DESIGNS["glm_bonferroni_10k"], link="probit"),
     "poisson": dict(grid=[150], var_types=["normal", "normal"], effects=[0.6931471805599453, 0.2, 0.15],
                     target_cols=[1, 2], outcome="count", estimator="glm"),
     "cold_start": dict(DESIGNS["glm_bonferroni_10k"], truth_start=False),
     "grid12": dict(DESIGNS["glm_bonferroni_10k"], grid=list(range(25, 325, 25))),
+    "logit_sample_size": dict(DESIGNS["glm_bonferroni_10k"], grid=FLOW_GRID_LOGIT),
 }
 K6_CHECKS = {
-    "glm_bonferroni_10k": dict(design="glm_bonferroni_10k"),
-    **{name: dict(design=name) for name in K6_DESIGNS},
+    "glm_bonferroni_10k": dict(design="glm_bonferroni_10k", sims=N_SIMS),
+    "logit_sample_size": dict(design="logit_sample_size", sims=N_SIMS // 8),
+    **{name: dict(design=name) for name in K6_DESIGNS if name != "logit_sample_size"},
     "pinned": dict(design="glm_bonferroni_10k", pin=2),
     "p1": dict(p=1, kind="free"),
     "p16": dict(p=16, kind="free"),
@@ -897,13 +907,19 @@ def k4_bound(args, outs) -> Tuple[float, str]:
     return bound(nbytes(*args, *outs), {"f64": instr})
 
 
-def k6_bound(args, iters, outs) -> Tuple[float, str]:
+def k6_bound(args, iters, outs, pr6_count: bool = False) -> Tuple[float, str]:
     """The steps the cells ran (``iters (sims, G, 2)`` from the kernel's
     counter: f32 and f64 steps), each a pass over the cell's rows (eta, the
     link, X'WX and X'Wz) and a p x p solve, then per cell one final f64
-    pass (X'WX, two deviance terms) with two Cholesky factors and the
+    pass (X'WX, one link and one division per row, the deviance's logs: one
+    per binomial row, two per Poisson row, log mu and the y log y term; the
+    null deviance's logs once per cell) with two Cholesky factors and the
     inverse; bytes of X's fit columns and y up to the last grid point (each
-    read once), beta0, the column mask and every output."""
+    read once), beta0, the column mask and every output. ``pr6_count``
+    counts the final pass as first counted: two divisions and two logs per
+    row, the null deviance's logs per row."""
+    from mcpower_tpu_torch.engine.glmfit import LINK_POISSON
+
     code, X, y, fit, grid, beta0, colmask = args
     p = len(fit)
     it = iters.reshape(-1, len(grid), 2).to("cpu").double()
@@ -915,8 +931,16 @@ def k6_bound(args, iters, outs) -> Tuple[float, str]:
     f64 = float((it[..., 1] * ns).sum() * f64_row
                 + it[..., 1].sum() * (solve + p * F64_SQRT_INSTR))
     cells = it[..., 0].numel()
-    f64 += float(it.shape[0] * ns.sum() * (f64_row + 2 * F64_LOG_INSTR)
-                 + cells * (2 * p ** 3 // 3 + p ** 3 + 2 * p * F64_SQRT_INSTR))
+    rows = float(it.shape[0] * ns.sum())
+    if pr6_count:
+        final_row, final_cell = f64_row + 2 * F64_LOG_INSTR, 0
+    else:
+        poisson = code == LINK_POISSON
+        final_row = (row_ops + F64_EXP_INSTR + F64_DIV_INSTR
+                     + (2 if poisson else 1) * F64_LOG_INSTR)
+        final_cell = (1 if poisson else 2) * F64_LOG_INSTR
+    f64 += rows * final_row + cells * (final_cell + 2 * p ** 3 // 3 + p ** 3
+                                       + 2 * p * F64_SQRT_INSTR)
     read = X.shape[0] * max(grid) * (p + 1) * 4
     return bound(read + nbytes(beta0, colmask, *outs), {"f32": f32, "f64": f64})
 
@@ -1073,12 +1097,15 @@ def _ptxas_by_kernel(log: str) -> Dict[str, Dict[str, int]]:
 
 
 def _ptxas_by_p(log: str) -> Dict[int, Dict[str, int]]:
-    """The same, keyed by the template p (``...kernelILi<p>E...``)."""
-    by_p = {}
+    """The same, keyed by the template p (``...kernelILi<p>E...``); where
+    several instantiations share p (K6's links), the most of each."""
+    by_p: Dict[int, Dict[str, int]] = {}
     for name, v in _ptxas_by_kernel(log).items():
         m = re.search(r"kernelILi(\d+)E", name)
         if m:
-            by_p[int(m.group(1))] = v
+            old = by_p.setdefault(int(m.group(1)), {})
+            for key, n in v.items():
+                old[key] = max(old.get(key, 0), n)
     return by_p
 
 
@@ -1145,6 +1172,34 @@ def other_kernels(kernels_mod, csrc: Path, label: str, names) -> Dict[str, objec
     commit's, say) under their own library names, with the same flags."""
     return {n: kernels_mod.Kernel(f"{n}_{label}", kernels_mod.KERNELS[n].source,
                                   kernels_mod.KERNELS[n].flags, csrc=csrc) for n in names}
+
+
+# K6's launch shapes on the path, (sims, max_n, G): the GLM arm's and one
+# launch of the logit sample-size flow.
+K6_SHAPES = {"GLM arm": (N_SIMS, 300, 1), "logit sample-size flow launch": (N_SIMS // 8, 600, 13)}
+
+
+def k6_occupancy(kernels_mod) -> list:
+    """Lines of K6's launch geometry at p = 1..16 for each of K6_SHAPES, from
+    its C launcher (``mcp_glm_irls_occupancy``): resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), threads and dynamic
+    shared memory a block, sims a block and rows staged."""
+    import ctypes
+
+    fn = kernels_mod.KERNELS["glm_irls"].fn(
+        "mcp_glm_irls_occupancy", [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    lines = []
+    for tag, (sims, max_n, G) in K6_SHAPES.items():
+        row = []
+        for p in range(1, kernels_mod.MAX_FIT_P + 1):
+            out = (ctypes.c_int * 5)()
+            err = fn(p, sims, max_n, G, out)
+            check(err == 0, f"K6 occupancy at p = {p}, {tag}: CUDA error {err}")
+            row.append(f"p={p}: {out[0]} blocks ({out[0] * out[1] // 32} warps) of {out[1]} "
+                       f"threads, {out[2]} B shared, {out[3]} sims, {out[4]} rows staged")
+        lines.append(f"  K6 residency per SM at the {tag} ({sims} sims, max_n {max_n}, G {G}): "
+                     + "; ".join(row))
+    return lines
 
 
 def _ptxas_summary(log: str) -> str:
@@ -1269,7 +1324,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", default=[], metavar="LABEL=DIR",
                     help="a csrc directory of another tree (the parent commit's, say): build its "
-                         "K1 and K3 too and time them beside this tree's, in turns; repeatable")
+                         "K1, K3 and K6 too and time them beside this tree's, in turns; repeatable")
     ap.add_argument("--checks-only", action="store_true",
                     help="stop after phase 3 (build, ptxas, each kernel against its plain "
                          "version), print no result line")
@@ -1301,13 +1356,13 @@ def main(argv=None) -> int:
 
     # --- phase 2: build ---
     took = kernels.build_all()
-    others = {}  # label -> K1 and K3 built from that csrc, for phase 5's A/B
+    others = {}  # label -> K1, K3 and K6 built from that csrc, for phase 5's A/B
     for spec in opts.compare:
         label, _, path = spec.partition("=")
         csrc = Path(path).resolve()
         check(label.isidentifier() and (csrc / "philox_fill.cu").exists(),
               f"--compare {spec}: want LABEL=DIR with DIR/philox_fill.cu")
-        others[label] = other_kernels(kernels, csrc, label, ("philox_fill", "ols_solve"))
+        others[label] = other_kernels(kernels, csrc, label, ("philox_fill", "ols_solve", "glm_irls"))
     procs = {(lb, n): k.start_build() for lb, ks in others.items() for n, k in ks.items()}
     for (lb, n), proc in procs.items():
         others[lb][n].finish_build(proc)
@@ -1324,6 +1379,9 @@ def main(argv=None) -> int:
             sass.sort(key=lambda kv: [int(a) for a in re.findall(r"\d+", kv[0])])
             print("  SASS instructions (static, cuobjdump): " + (", ".join(
                 f"{f} {n}" for f, n in sass) if sass else "not available"), flush=True)
+
+    for line in k6_occupancy(kernels):
+        print(line, flush=True)
 
     # --- phase 3: each kernel against its plain version ---
     specs = {name: lower_design(lower, ClusterStatic, name) for name in DESIGNS}
@@ -1464,7 +1522,7 @@ def main(argv=None) -> int:
         if "design" in c:
             spec_, arr_ = lower_design(lower, ClusterStatic, c["design"])
             arr_d = datagen.to_device(arr_, dev)
-            n = N_SIMS if name == "glm_bonferroni_10k" else GOLDEN_SIMS
+            n = c.get("sims", GOLDEN_SIMS)
             X_, y_, _ = datagen.generate_batch(spec_, arr_d, SEED, 0, sim_ids[:n], plain=True)
             fit, grid = list(spec_.effective_fit_cols), list(spec_.grid)
             cm = torch.ones((len(grid), len(fit)), dtype=torch.float64, device=dev)
@@ -1648,13 +1706,21 @@ def main(argv=None) -> int:
     timing.append(("reml_intercept", f"LMM cells {cells_l}, p 3, m 20",
                    mixedfit.reml_intercept_kernel, mixedfit.reml_intercept_plain, args_l,
                    k4_bound(args_l, mixedfit.reml_intercept_kernel(*args_l)), None))
-    # K6 at the GLM arm's cells; its bound counts the steps the cells ran,
-    # read from the kernel's step counter (a call made here, not on the path)
-    args_g = k6_args["glm_bonferroni_10k"]
-    out_g = glmfit.glm_irls_kernel(*args_g, iters=True)
-    timing.append(("glm_irls", f"GLM cells {tuple(out_g[2].shape)}, N 300, p 4, logit",
-                   glmfit.glm_irls_kernel, glmfit.glm_irls_plain, args_g,
-                   k6_bound(args_g, out_g[6], out_g[:6]), None))
+    # K6 at the GLM arm's cells and at a launch of the logit sample-size
+    # flow; its bound counts the steps the cells ran, read from the kernel's
+    # step counter (a call made here, not on the path)
+    k6_lines = []
+    for key, case, shape in (("glm_irls", "glm_bonferroni_10k", "GLM cells {}, N 300, p 4, logit"),
+                             ("glm_irls flow", "logit_sample_size",
+                              "logit sample-size flow launch, cells {}, N 100..600, p 4, logit")):
+        args_ = k6_args[case]
+        out_ = glmfit.glm_irls_kernel(*args_, iters=True)
+        new_b, old_b = k6_bound(args_, out_[6], out_[:6]), k6_bound(args_, out_[6], out_[:6], True)
+        k6_lines.append(f"{key} {new_b[0]:.4f} ms ({new_b[1]}; PR 6's count {old_b[0]:.4f} ms)")
+        timing.append((key, shape.format(tuple(out_[2].shape)), glmfit.glm_irls_kernel,
+                       glmfit.glm_irls_plain, args_, new_b, None))
+    print("K6 bound, the steps the cells ran and one fused final pass (PR 6's count of the final "
+          "pass, two divisions and two logs a row, beside it): " + ", ".join(k6_lines), flush=True)
     # K8 at the Poisson flow's launches: MCPower's 10,000 sims in chunks of
     # FLOW_CHUNK sims, N = 150
     flow_chunk = N_SIMS // 8
@@ -1705,7 +1771,7 @@ def main(argv=None) -> int:
         f"{k} {v['ms']:.4f}" + "".join(f" ({lb} {v[lb + '_ms']:.4f})" for lb in others)
         for k, v in by_mode.items() if k != "write_yardstick"), flush=True)
 
-    # Each compared build's K1 and K3 beside this tree's, same inputs, in
+    # Each compared build's K1, K3 and K6 beside this tree's, same inputs, in
     # turns (other, this, this, other), each on cold-L2 inputs.
     for key, shape, fk, fp, inputs, _, _ in timing:
         name = key.split()[0]
@@ -1713,11 +1779,21 @@ def main(argv=None) -> int:
         for lb, ks in others.items():
             if name not in ks:
                 continue
+            kw = dict(iters=True) if name == "glm_irls" else {}
             with kernel_swapped(kernels, name, ks[name]):
-                theirs = fk(*copies[0])
-            ours = fk(*copies[0])
+                theirs = fk(*copies[0], **kw)
+            ours = fk(*copies[0], **kw)
             if name == "philox_fill":
                 check(torch.equal(theirs, ours), f"A/B {key}: {lb}'s K1 gives other values")
+            elif name == "glm_irls":
+                rels = [rel_err_finite(f"A/B {key}", a, b)
+                        for a, b in zip(theirs[:2] + theirs[3:6], ours[:2] + ours[3:6])]
+                check(torch.equal(theirs[2], ours[2]) and torch.equal(theirs[6], ours[6])
+                      and max(rels) <= K6_REL,
+                      f"A/B {key}: {lb}'s K6 disagrees (flags, step counts or rel err "
+                      f"{max(rels):.3e})")
+                print(f"A/B {key}: {lb}'s K6 has the same flags and step counts, max rel err "
+                      f"{max(rels):.3e}", flush=True)
             else:
                 ok = ours[3]
                 check(torch.equal(theirs[3], ok) and max(
@@ -1736,6 +1812,7 @@ def main(argv=None) -> int:
 
     for name in ("reml_intercept", "glm_irls", "poisson_quantile"):
         records[name].update(timed[name])
+    records["glm_irls"]["by_shape"] = {"arm": timed["glm_irls"], "flow": timed["glm_irls flow"]}
     # K1's line is the LMM fill and K3's the curve, the shapes the earlier
     # tables report; K2's the OLS shape, the one where a single library call
     # computes the same function; by_arm holds every arm's shape

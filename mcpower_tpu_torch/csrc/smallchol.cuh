@@ -10,7 +10,10 @@
 // index is static.
 //
 // Kernels K3 (ols_solve.cu), K4 (reml_intercept.cu) and K6 (glm_irls.cu)
-// include this file.
+// include this file. K6 keeps only the lower triangle, packed row by row
+// (entry (i, j), j <= i, at tri(i, j)), and factors it in place: the
+// *_packed functions below, with the same operations in the same order as
+// chol, cho_solve and cho_inverse_column_scaled.
 #pragma once
 
 #include <math.h>
@@ -114,6 +117,61 @@ __device__ __forceinline__ bool chol_rank_ok(const double* L, double eps_rank) {
         hi = fmax(hi, d);
     }
     return ok && (lo >= eps_rank * hi);
+}
+
+// Index of entry (i, j), j <= i, of a packed lower triangle.
+__host__ __device__ constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j; }
+
+// chol in place on a packed lower triangle: entry (i, j) is read once, then
+// overwritten by L[i][j].
+template <int P, typename T>
+__device__ __forceinline__ void chol_packed(T* a) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        T d = a[tri(j, j)];
+#pragma unroll
+        for (int k = 0; k < j; ++k) d = d - a[tri(j, k)] * a[tri(j, k)];
+        a[tri(j, j)] = sqrt(d);
+        const T inv_d = T(1) / a[tri(j, j)];
+#pragma unroll
+        for (int i = j + 1; i < P; ++i) {
+            T s = a[tri(i, j)];
+#pragma unroll
+            for (int k = 0; k < j; ++k) s = s - a[tri(i, k)] * a[tri(j, k)];
+            a[tri(i, j)] = s * inv_d;
+        }
+    }
+}
+
+// cho_solve with a packed factor.
+template <int P, typename T>
+__device__ __forceinline__ void cho_solve_packed(const T* L, const T* b, T* x) {
+    T y[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+        T s = b[i];
+#pragma unroll
+        for (int k = 0; k < i; ++k) s = s - L[tri(i, k)] * y[k];
+        y[i] = s / L[tri(i, i)];
+    }
+#pragma unroll
+    for (int i = P - 1; i >= 0; --i) {
+        T s = y[i];
+#pragma unroll
+        for (int k = i + 1; k < P; ++k) s = s - L[tri(k, i)] * x[k];
+        x[i] = s / L[tri(i, i)];
+    }
+}
+
+// Column j of (L L^T)^-1 from a packed factor: out[i * P + j] = inv[i][j].
+template <int P, typename T>
+__device__ __forceinline__ void cho_inverse_column_packed(const T* L, int j, T* out) {
+    T e[P], col[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) e[i] = (i == j) ? T(1) : T(0);
+    cho_solve_packed<P>(L, e, col);
+#pragma unroll
+    for (int i = 0; i < P; ++i) out[i * P + j] = col[i];
 }
 
 }  // namespace mcp

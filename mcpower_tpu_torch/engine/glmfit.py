@@ -12,7 +12,12 @@ Sums over rows follow the kernel's order rather than the reference's
 reduction (``smallchol.lane_sum``, ``rowmv``, ``crossprod``). Both then
 perform the same operations in the same order and agree bit for bit on the
 card; against the reference the f32 phase differs by its rounding and the
-f64 polish removes that difference.
+f64 polish removes that difference. K6 combines its lanes by a
+recursive-halving reduce-scatter in ``lane_sum``'s pair tree, masks the f32
+phase's columns in f32 and computes the final X'WX, deviance and null
+deviance in one pass (one log per binomial row, the null model's logs once
+per cell); each gives the bits of the plain form here
+(tests/test_torch_irls_order.py).
 
 The separation fallback and the posthoc contrasts of the reference need
 factors, which wait for ROADMAP A8.2; the ``colmask`` / pin argument is kept

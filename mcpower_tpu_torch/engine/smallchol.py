@@ -96,8 +96,8 @@ def chol_rank_ok(L: torch.Tensor, eps_rank: float = EPS_RANK) -> torch.Tensor:
 # The row contractions of the GLM IRLS (the reference's rowmv and crossprod,
 # smallchol.py:365-380) in kernel K6's order, so that K6 and its plain
 # version agree bit for bit: 32 lanes each add every 32nd row to a zero in
-# turn, then the lanes combine by the butterfly of __shfl_xor at distances
-# 16, 8, 4, 2, 1.
+# turn, then the lanes combine pairwise at distances 16, 8, 4, 2, 1 (K6 by
+# a recursive-halving reduce-scatter over the same pairs).
 LANES = 32
 
 
