@@ -24,13 +24,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
    arms' stream plans and a ragged plan at sim ids across 2**31), K2 at two
    cluster layouts, a 91-point grid, a design tall enough for row chunks
    that cut a segment and a cluster and at p = 9 (two statistic groups), K3
-   at every case of ``K3_CHECKS`` (p = 1, p = 16, rank-deficient cells and
-   pivot ratios on both sides of EPS_RANK), K4 at both layouts, m = 7 and
-   m = 150, K6 at every case of ``K6_CHECKS`` (the logit sample-size flow's
-   launch, probit, Poisson, the cold start, a 12-point grid, a pinned
-   column, p = 1 and p = 16, separated and rank-deficient cells) and K8 on
-   synthetic rows (rates up to 20, above 20
-   and 0, uniforms at the clamp) and on the Poisson design's rows;
+   at every case of ``K3_CHECKS`` (p = 1, p = 16, rank-deficient cells,
+   pivot ratios on both sides of EPS_RANK, and reduced fits with a p_eff
+   per cell, one where a masked column's unit pivot decides the pivot
+   ratio), K4 at both layouts, m = 7 and m = 150, K6 at every case of
+   ``K6_CHECKS`` (the logit sample-size flow's launch, probit, Poisson, the
+   cold start, a 12-point grid, a pinned column, p = 1 and p = 16,
+   separated and rank-deficient cells, a column mask per cell that differs
+   between sims, and the separation fallback's launch over the failed cells
+   of a sparse and of a separated factor design) and K8 on synthetic rows
+   (rates up to 20, above 20 and 0, uniforms at the clamp) and on the
+   Poisson design's rows; K1 also at the second fill of a design with a
+   sampled factor (RESID and FACTOR words);
 4. drive the main path through ``lower`` and ``run_batch(device="cuda")``:
    the 10,000-replicate random-intercept LMM headline (base seed 2137), the
    OLS arm, the 8-point power curve and the GLM arm (logit, Bonferroni),
@@ -39,9 +44,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    counts against golden counts of the JAX reference (at most one flip per
    entry);
 5. time each kernel (K1 and K2 at the LMM, OLS and curve arms' shapes, K3
-   at the OLS and curve shapes, K4 at the LMM's, K6 at the GLM arm's and
-   at a launch of the logit sample-size flow, K8 at a launch of the
-   Poisson flow) on the device, from
+   at the OLS and curve shapes and at a launch of the README model's
+   sample-size flow, K4 at the LMM's, K6 at the GLM arm's, at a launch of
+   the logit sample-size flow and at both launches of the logit factor
+   flow, K8 at a launch of the Poisson flow) on the device, from
    torch.profiler's kernel events, and per call through its wrapper (CUDA
    events, launch overhead included), each call on inputs that are not in
    L2, beside its plain version, its bound
@@ -53,12 +59,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and K6 are built too, checked against this tree's and timed beside them
    in turns (other, this, this, other); then each arm's wall, and a profile
    of each arm (wall median of 7 calls, busy share, largest device items);
-6. drive the seven user flows of ``MODEL_FLOWS`` through
+6. drive the eleven user flows of ``MODEL_FLOWS`` through
    ``mcpower_tpu_torch.MCPower`` on the card (the random-intercept LMM's
    and the OLS model's ``find_power`` and ``find_sample_size``, the logit
-   model's ``find_power`` and ``find_sample_size`` and the Poisson model's
-   ``find_power``; 10,000 sims, base seed 2137), each with every launch
-   count set to 0 before it and read after; check 1,024-sim results against
+   model's ``find_power`` and ``find_sample_size``, the Poisson model's
+   ``find_power``, README flow 1's ``find_power`` and ``find_sample_size``
+   as written, the Tukey ANOVA and the logit model with a rare factor
+   level's ``find_sample_size``; 10,000 sims, base seed 2137), each with
+   every launch count set to 0 before it and read after (the logit factor
+   flow must launch K6 twice a chunk, the second the fallback's); check
+   1,024-sim results against
    golden values of the JAX reference's ``MCPower`` (at most one flip per
    count) and their result trees against the plain path's on the CPU;
    print each flow's wall median (range) of 7 calls, the split into
@@ -67,7 +77,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``run_batch`` wall;
 7. print the ``kernels`` JSON line (launches on each kernel's path: the
    arms' for K1-K4 and K6, the Poisson flow's for K8; and by arm and by
-   flow), then as the last line ``{"ok": true, "device": {...}}``.
+   flow, with K6's fallback launches by flow), then as the last line
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.
 """
@@ -179,15 +190,21 @@ K1_CHECKS = {
     "curve_5pred_8grid": dict(design="curve_5pred_8grid"),
     "glm_bonferroni_10k": dict(design="glm_bonferroni_10k"),
     "ragged_high_ids": dict(plan=[(0, 3, 13), (3, 0, 3), (1, 0, 201)], sim0=2**31 - 2, seed_hi=3),
+    # the second fill of a logit design with a sampled factor: the RESID
+    # words and the FACTOR words (class 2) in one launch
+    "logit_factor_words": dict(design="logit_factor_sampled", second=True),
 }
 
 
 def k1_table(lower_mod, cluster_cls, datagen_mod, name: str):
     """``(plan, first sim id, seed_hi)`` of K1_CHECKS[name]; the arms' plans
-    come from ``datagen_mod.stream_plan`` of the lowered design."""
+    come from ``datagen_mod.stream_plan`` of the lowered design (its
+    ``outcome_plan``, the second fill, where ``second`` is set)."""
     c = K1_CHECKS[name]
     if "design" in c:
         spec, _ = lower_design(lower_mod, cluster_cls, c["design"])
+        if c.get("second"):
+            return datagen_mod.outcome_plan(spec)[1], 0, 0
         return datagen_mod.stream_plan(spec), 0, 0
     return [tuple(s) for s in c["plan"]], c["sim0"], c["seed_hi"]
 
@@ -199,7 +216,16 @@ def k1_table(lower_mod, cluster_cls, datagen_mod, name: str):
 # twice column 2) and cells whose pivot ratio straddles EPS_RANK = 1e-6,
 # with the last column delta (x1 + w) ("scaled", a well-conditioned solve in
 # relative terms) or x1 + delta w ("collinear"), delta log-uniform over
-# [10^-6.6, 10^-5.6] per sim.
+# [10^-6.6, 10^-5.6] per sim. The reduced fits of a sparse-factor exclusion
+# ("mask"): each cell's own column mask (each of columns 1..6 dropped with
+# probability 0.3, per sim and grid point), the masked rows and columns of
+# X'X zeroed with a unit diagonal and a per-cell p_eff, as olsfit does;
+# "masked_unit_pivot" scales column 1 by 10^[4.5, 5.3] per sim and masks
+# only columns 2..6, so that a masked column's unit pivot is the smallest
+# and the pivot ratio straddles EPS_RANK only in the cells with a mask; its
+# y does not load on column 1 (a y of that scale makes rss = y'y - b'X'y a
+# difference of two ~1e10-times larger sums, whose order alone moved t^2 by
+# 3e-7 between K3 and the plain sum on the H100).
 K3_GRID = (100, 200)
 K3_CHECKS = {
     "ols_10k": dict(design="ols_10k"),
@@ -209,7 +235,10 @@ K3_CHECKS = {
     "rank_deficient": dict(p=7, last="dependent"),
     "straddle_scaled": dict(p=7, last="scaled"),
     "straddle_collinear": dict(p=7, last="collinear"),
+    "masked_p_eff": dict(p=7, last="free", mask=1),
+    "masked_unit_pivot": dict(p=7, last="wide", mask=2),
 }
+K3_MASK_DROP = 0.3
 
 
 def k3_synthetic_xy(name: str, sims: int, seed: int = SEED):
@@ -226,13 +255,28 @@ def k3_synthetic_xy(name: str, sims: int, seed: int = SEED):
         X[..., -1] = delta * (X[..., 1] + w)
     elif last == "collinear":
         X[..., -1] = X[..., 1] + delta * w
+    elif last == "wide":
+        X[..., 1] *= 10.0 ** rs.uniform(4.5, 5.3, size=(sims, 1))
     elif last == "dependent":
         third = sims // 3
         X[:third, :, -1] = X[:third, :, 1]
         X[third:2 * third, :, -1] = 0.0
         X[2 * third:, :, -1] = 2.0 * X[2 * third:, :, 2]
-    y = X @ np.linspace(0.3, -0.1, p) + rs.standard_normal((sims, n))
+    coef = np.linspace(0.3, -0.1, p)
+    if last == "wide":  # y free of the scaled column: no cancellation in rss
+        coef[1] = 0.0
+    y = X @ coef + rs.standard_normal((sims, n))
     return X.astype(np.float32), y.astype(np.float32)
+
+
+def k3_mask(name: str, sims: int, seed: int = SEED):
+    """The K3_CHECKS case's column mask ``(sims, G, p)`` f64: columns from
+    its ``mask`` on each dropped with probability K3_MASK_DROP."""
+    c = K3_CHECKS[name]
+    rs = np.random.RandomState(seed + 7 * c["p"])
+    cm = np.ones((sims, len(K3_GRID), c["p"]))
+    cm[..., c["mask"]:] = rs.uniform(size=cm[..., c["mask"]:].shape) >= K3_MASK_DROP
+    return cm
 
 
 def k3_stats(X, y, grid=K3_GRID):
@@ -255,6 +299,33 @@ def k3_stats(X, y, grid=K3_GRID):
 # find_sample_size(from_size=100, to_size=600)'s grid (orchestrator/grid.py,
 # linear, the CONFIG step).
 FLOW_GRID_LOGIT = [100, 145, 190, 235, 280, 325, 370, 415, 460, 505, 550, 595, 600]
+# The grids of the README model's and the logit factor model's
+# find_sample_size (MODEL_FLOWS), and those models as lower() arguments:
+# the README model's columns are the intercept, x1, x2 (binary), group[2],
+# group[3] and x1:x2; the logit factor model's intercept is the log odds of
+# its baseline probability 0.2. "logit_factor_sampled" draws the levels per
+# row (the scenario's sampled_factor_proportions), so that exclusion, and
+# with it the column mask, differs between sims.
+FLOW_GRID_README = [50, 91, 132, 173, 214, 255, 296, 337, 378, 419, 460, 500]
+FLOW_GRID_LOGIT_FACTOR = [40, 60, 80, 100, 120, 140, 160, 180, 200]
+FACTOR_DESIGNS = {
+    "readme_sample_size": dict(
+        grid=FLOW_GRID_README, var_types=["normal", "binary"], var_params=[0.0, 0.5],
+        corr=[[1.0, 0.3], [0.3, 1.0]], factor_levels=[3], factor_props=[0.4, 0.3, 0.3],
+        effects=[0.0, 0.3, 0.25, 0.4, 0.2, 0.15], target_cols=[1, 2, 3, 4, 5],
+        interactions=[(1, 2)], correction="holm", report_overall=True),
+    "logit_factor": dict(
+        grid=FLOW_GRID_LOGIT_FACTOR, var_types=["normal"], factor_levels=[3],
+        factor_props=[0.8, 0.1, 0.1], effects=[float(np.log(0.25)), 0.4, 0.5, 0.5],
+        target_cols=[1, 2, 3], outcome="binary", estimator="glm", report_overall=True),
+}
+FACTOR_DESIGNS["logit_factor_sampled"] = dict(
+    FACTOR_DESIGNS["logit_factor"], scenario=dict(sampled_factor_proportions=True))
+# tests/test_reduced_refit.py's separated design: level 4 of the factor
+# predicts y = 1 in nearly every sim, so nearly every cell needs the fallback.
+FACTOR_DESIGNS["separated_factor"] = dict(
+    grid=[100], var_types=["normal"], factor_levels=[4], factor_props=[0.55, 0.20, 0.15, 0.10],
+    effects=[-1.5, 0.5, 0.0, 0.0, 8.0], target_cols=[1], outcome="binary", estimator="glm")
 K6_DESIGNS = {
     "probit": dict(DESIGNS["glm_bonferroni_10k"], link="probit"),
     "poisson": dict(grid=[150], var_types=["normal", "normal"], effects=[0.6931471805599453, 0.2, 0.15],
@@ -263,15 +334,28 @@ K6_DESIGNS = {
     "grid12": dict(DESIGNS["glm_bonferroni_10k"], grid=list(range(25, 325, 25))),
     "logit_sample_size": dict(DESIGNS["glm_bonferroni_10k"], grid=FLOW_GRID_LOGIT),
 }
+# With factors: each cell's column mask from the exclusion of its sparse
+# levels ("exclusion"), and the separation fallback's launch over the cells
+# whose first fit did not converge, with its cold start and its mask less
+# the sparsest factor ("fallback"): the logit factor flow's launch (its
+# fixed allocation, one chunk), the sampled design, whose masks differ
+# between sims and whose failed cells are few, and the separated design.
 K6_CHECKS = {
     "glm_bonferroni_10k": dict(design="glm_bonferroni_10k", sims=N_SIMS),
     "logit_sample_size": dict(design="logit_sample_size", sims=N_SIMS // 8),
-    **{name: dict(design=name) for name in K6_DESIGNS if name != "logit_sample_size"},
+    **{name: dict(design=name) for name in ("probit", "poisson", "cold_start", "grid12")},
     "pinned": dict(design="glm_bonferroni_10k", pin=2),
     "p1": dict(p=1, kind="free"),
     "p16": dict(p=16, kind="free"),
     "separated": dict(p=3, kind="separated"),
     "rank_deficient": dict(p=4, kind="dependent"),
+    "logit_factor_flow": dict(design="logit_factor", sims=N_SIMS // 8, exclusion=True),
+    "logit_factor_flow_fallback": dict(design="logit_factor", sims=N_SIMS // 8, exclusion=True,
+                                       fallback=True),
+    "colmask_per_sim": dict(design="logit_factor_sampled", sims=N_SIMS // 8, exclusion=True),
+    "fallback_sparse": dict(design="logit_factor_sampled", sims=N_SIMS // 8, exclusion=True,
+                            fallback=True),
+    "fallback_separated": dict(design="separated_factor", exclusion=True, fallback=True),
 }
 K6_ROWS = 300
 
@@ -365,10 +449,15 @@ GOLDEN = {
 }
 # The user flows of phase 6: ``MCPower`` built as a user writes it, then one
 # call. The OLS model is the README's first flow with the factor replaced by
-# a normal x3 (factors are ROADMAP A8.2). The logit model is the GLM arm
+# a normal x3, kept beside the README's own model ("readme", factor group
+# with fixed allocation, p = 6). The logit model is the GLM arm
 # (bench.py:116-125) as a user writes it: intercept -0.4 as the baseline
 # probability 1 / (1 + e^0.4). The Poisson model is tests/test_glm.py:133's
-# design with a second predictor, at a baseline rate of 2.
+# design with a second predictor, at a baseline rate of 2. The ANOVA is a
+# one-way design of four levels tested by its Tukey pairwise contrasts; the
+# logit factor model has two rare levels (10% each), excluded where they
+# hold fewer than 5 rows and separated (a level without events) in some
+# sims above that, so that its sample-size search runs the fallback.
 MODELS = {
     "lmm": dict(formula="y ~ x1 + x2 + (1|cluster)", family="lme",
                 cluster=dict(tau_squared=0.25, n_clusters=20), types=None,
@@ -380,6 +469,16 @@ MODELS = {
                   baseline_probability=1.0 / (1.0 + float(np.exp(0.4)))),
     "poisson": dict(formula="y ~ x1 + x2", family="poisson", cluster=None, types=None,
                     corr=None, effects="x1=0.2, x2=0.15", baseline_rate=2.0),
+    "readme": dict(formula="y ~ x1*x2 + group", family="ols", cluster=None,
+                   types="group=(factor,0.4,0.3,0.3), x2=binary", corr="corr(x1, x2)=0.3",
+                   effects="x1=0.3, x2=0.25, x1:x2=0.15, group[2]=0.4, group[3]=0.2"),
+    "anova": dict(formula="y ~ group", family="ols", cluster=None,
+                  types="group=(factor,0.25,0.25,0.25,0.25)", corr=None,
+                  effects="group[2]=0.3, group[3]=0.3, group[4]=0.5"),
+    "logit_factor": dict(formula="y ~ x1 + group", family="logit", cluster=None,
+                         types="group=(factor,0.8,0.1,0.1)", corr=None,
+                         effects="x1=0.4, group[2]=0.5, group[3]=0.5",
+                         baseline_probability=0.2),
 }
 # flow -> (model, method, arguments, the kernels its path must launch)
 MODEL_FLOWS = {
@@ -397,6 +496,18 @@ MODEL_FLOWS = {
                                 ("philox_fill", "glm_irls")),
     "model_poisson_power": ("poisson", "find_power", dict(sample_size=150),
                             ("philox_fill", "glm_irls", "poisson_quantile")),
+    "model_readme_ols_power": ("readme", "find_power", dict(sample_size=200, correction="holm"),
+                               ("philox_fill", "grid_suffstats", "ols_solve")),
+    "model_readme_ols_sample_size": ("readme", "find_sample_size",
+                                     dict(from_size=50, to_size=500),
+                                     ("philox_fill", "grid_suffstats", "ols_solve")),
+    "model_anova_tukey": ("anova", "find_power",
+                          dict(sample_size=120, correction="tukey_hsd",
+                               target_test="all-posthoc"),
+                          ("philox_fill", "grid_suffstats", "ols_solve")),
+    "model_logit_factor_sample_size": ("logit_factor", "find_sample_size",
+                                       dict(from_size=40, to_size=200, by=20),
+                                       ("philox_fill", "glm_irls")),
 }
 
 
@@ -429,13 +540,19 @@ def run_flow(mcpower_cls, name: str, n_sims: int, **kw):
 
 def flow_summary(res) -> Dict:
     """The golden values of a flow's result: significant counts per test
-    (uncorrected and corrected), joint and overall counts, the mean tau^2
-    estimate of an LMM, and for a sample-size search the first N reaching
-    the target and the fitted crossing per test."""
+    (uncorrected and corrected), joint, overall, posthoc and factor
+    exclusion counts and the separation fallback's count per N (where the
+    design has them), the mean tau^2 estimate of an LMM, and for a
+    sample-size search the first N reaching the target and the fitted
+    crossing per test."""
     out = {k: res[k] for k in ("success_counts_uncorrected", "success_counts_corrected",
-                               "joint_counts_uncorrected", "joint_counts_corrected")}
-    if "overall_counts" in res:
-        out["overall_counts"] = res["overall_counts"]
+                               "joint_counts_uncorrected", "joint_counts_corrected",
+                               "overall_counts", "posthoc_counts", "factor_exclusion_counts")
+           if k in res}
+    glm = res.get("estimator_extras", {}).get("glm", {})
+    if "separation_fallback_rate" in glm:
+        out["separation_fallback_counts"] = [int(round(r * res["n_sims"]))
+                                             for r in glm["separation_fallback_rate"]]
     mle = res.get("estimator_extras", {}).get("mle", {})
     if "tau_squared_hat_mean" in mle:
         out["tau_squared_hat_mean"] = mle["tau_squared_hat_mean"]
@@ -664,6 +781,54 @@ MODEL_GOLDEN = {
         "joint_counts_uncorrected": [728], "joint_counts_corrected": [728],
         "overall_counts": [1001],
     },
+    "model_readme_ols_power": {
+        "success_counts_uncorrected": [[838, 408, 665, 227, 165]],
+        "success_counts_corrected": [[665, 215, 428, 113, 64]],
+        "joint_counts_uncorrected": [3], "joint_counts_corrected": [0],
+        "overall_counts": [1024], "factor_exclusion_counts": [[0]],
+    },
+    "model_readme_ols_sample_size": {
+        "success_counts_uncorrected": [
+            [291, 111, 206, 83, 66], [489, 194, 363, 146, 100], [653, 272, 494, 161, 119],
+            [773, 319, 605, 194, 154], [865, 431, 700, 231, 183], [922, 477, 763, 262, 208],
+            [959, 546, 840, 310, 245], [986, 598, 906, 345, 269], [1004, 641, 932, 374, 311],
+            [1010, 688, 953, 408, 333], [1015, 735, 977, 434, 359], [1022, 781, 990, 483, 367],
+        ],
+        "success_counts_corrected": [
+            [291, 111, 206, 83, 66], [489, 194, 363, 146, 100], [653, 272, 494, 161, 119],
+            [773, 319, 605, 194, 154], [865, 431, 700, 231, 183], [922, 477, 763, 262, 208],
+            [959, 546, 840, 310, 245], [986, 598, 906, 345, 269], [1004, 641, 932, 374, 311],
+            [1010, 688, 953, 408, 333], [1015, 735, 977, 434, 359], [1022, 781, 990, 483, 367],
+        ],
+        "joint_counts_uncorrected": [0, 0, 1, 2, 4, 13, 30, 42, 63, 82, 94, 112],
+        "joint_counts_corrected": [0, 0, 1, 2, 4, 13, 30, 42, 63, 82, 94, 112],
+        "overall_counts": [642, 943, 1015, 1024, 1024, 1024, 1024, 1024, 1024, 1024, 1024, 1024],
+        "factor_exclusion_counts": [[0]] * 12,
+        "first_achieved": {"x1": 214, "x2": None, "group[2]": 296, "group[3]": None, "x1:x2": None},
+        "fitted": {"x1": 193.58913043478262, "x2": None, "group[2]": 284.9246753246753,
+                   "group[3]": None, "x1:x2": None},
+    },
+    "model_anova_tukey": {
+        "success_counts_uncorrected": [[]], "success_counts_corrected": [[]],
+        "posthoc_counts": [[73, 82, 249, 13, 35, 50]], "factor_exclusion_counts": [[0]],
+    },
+    "model_logit_factor_sample_size": {
+        "success_counts_uncorrected": [
+            [128, 0, 0], [195, 77, 64], [282, 95, 70], [337, 122, 96], [421, 130, 113],
+            [473, 153, 110], [553, 161, 133], [585, 180, 138], [634, 186, 143],
+        ],
+        "success_counts_corrected": [
+            [128, 0, 0], [195, 77, 64], [282, 95, 70], [337, 122, 96], [421, 130, 113],
+            [473, 153, 110], [553, 161, 133], [585, 180, 138], [634, 186, 143],
+        ],
+        "joint_counts_uncorrected": [0, 0, 6, 6, 8, 12, 12, 20, 24],
+        "joint_counts_corrected": [0, 0, 6, 6, 8, 12, 12, 20, 24],
+        "overall_counts": [177, 170, 220, 301, 374, 436, 500, 560, 594],
+        "factor_exclusion_counts": [[1024], [0], [0], [0], [0], [0], [0], [0], [0]],
+        "separation_fallback_counts": [0, 227, 126, 61, 30, 20, 11, 6, 2],
+        "first_achieved": {"x1": None, "group[2]": None, "group[3]": None},
+        "fitted": {"x1": None, "group[2]": None, "group[3]": None},
+    },
 }
 
 # The f32 generation path's log may differ by an ULP between XLA:CPU and
@@ -724,7 +889,7 @@ ARM_KERNELS = ("philox_fill", "grid_suffstats", "ols_solve", "reml_intercept", "
 def lower_design(lower_mod, cluster_cls, name: str):
     """``lower_mod.lower`` on design ``name``; works for either package. A
     ``truth_start`` entry becomes the scenario's."""
-    kw = dict({**DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS, **K6_DESIGNS}[name])
+    kw = dict({**DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS, **FACTOR_DESIGNS, **K6_DESIGNS}[name])
     for key in ("corr", "effects"):
         if key in kw:
             kw[key] = np.asarray(kw[key], dtype=np.float64)
@@ -732,6 +897,8 @@ def lower_design(lower_mod, cluster_cls, name: str):
         kw["cluster"] = cluster_cls(**kw["cluster"])
     if "truth_start" in kw:
         kw["scenario"] = lower_mod.ScenarioStatic(truth_start=kw.pop("truth_start"))
+    elif "scenario" in kw:
+        kw["scenario"] = lower_mod.ScenarioStatic(**kw["scenario"])
     return lower_mod.lower(**kw)
 
 
@@ -907,7 +1074,7 @@ def k4_bound(args, outs) -> Tuple[float, str]:
     return bound(nbytes(*args, *outs), {"f64": instr})
 
 
-def k6_bound(args, iters, outs, pr6_count: bool = False) -> Tuple[float, str]:
+def k6_bound(args, iters, outs, first_count: bool = False, active=None) -> Tuple[float, str]:
     """The steps the cells ran (``iters (sims, G, 2)`` from the kernel's
     counter: f32 and f64 steps), each a pass over the cell's rows (eta, the
     link, X'WX and X'Wz) and a p x p solve, then per cell one final f64
@@ -915,24 +1082,30 @@ def k6_bound(args, iters, outs, pr6_count: bool = False) -> Tuple[float, str]:
     per binomial row, two per Poisson row, log mu and the y log y term; the
     null deviance's logs once per cell) with two Cholesky factors and the
     inverse; bytes of X's fit columns and y up to the last grid point (each
-    read once), beta0, the column mask and every output. ``pr6_count``
+    read once), beta0, the column mask and every output. ``first_count``
     counts the final pass as first counted: two divisions and two logs per
-    row, the null deviance's logs per row."""
+    row, the null deviance's logs per row. With ``active (sims, G)``, a
+    launch over those cells alone: the final pass and the rows read count
+    only them and their sims."""
+    import torch
+
     from mcpower_tpu_torch.engine.glmfit import LINK_POISSON
 
     code, X, y, fit, grid, beta0, colmask = args
     p = len(fit)
     it = iters.reshape(-1, len(grid), 2).to("cpu").double()
     ns = it.new_tensor([float(n) for n in grid])
+    act = (active.to("cpu").double() if active is not None
+           else torch.ones(it.shape[:2], dtype=torch.float64))
     row_ops = 2 * p + p * (p + 1) + 3 * p + 6
     solve = p ** 3 // 3 + 2 * p * p
     f32 = float((it[..., 0] * ns).sum() * (row_ops + F32_EXP_OPS) + it[..., 0].sum() * solve)
     f64_row = row_ops + F64_EXP_INSTR + 2 * F64_DIV_INSTR
     f64 = float((it[..., 1] * ns).sum() * f64_row
                 + it[..., 1].sum() * (solve + p * F64_SQRT_INSTR))
-    cells = it[..., 0].numel()
-    rows = float(it.shape[0] * ns.sum())
-    if pr6_count:
+    cells = float(act.sum())
+    rows = float((act * ns).sum())
+    if first_count:
         final_row, final_cell = f64_row + 2 * F64_LOG_INSTR, 0
     else:
         poisson = code == LINK_POISSON
@@ -941,8 +1114,10 @@ def k6_bound(args, iters, outs, pr6_count: bool = False) -> Tuple[float, str]:
         final_cell = (1 if poisson else 2) * F64_LOG_INSTR
     f64 += rows * final_row + cells * (final_cell + 2 * p ** 3 // 3 + p ** 3
                                        + 2 * p * F64_SQRT_INSTR)
-    read = X.shape[0] * max(grid) * (p + 1) * 4
-    return bound(read + nbytes(beta0, colmask, *outs), {"f32": f32, "f64": f64})
+    last = (act * ns).amax(-1)  # each sim's rows up to its largest active grid point
+    read = float(last.sum()) * (p + 1) * 4
+    written = nbytes(*outs) * float(act.mean())
+    return bound(read + nbytes(beta0, colmask) + written, {"f32": f32, "f64": f64})
 
 
 def k8_bound(u, eta, y) -> Tuple[float, str]:
@@ -1167,11 +1342,27 @@ def kernel_swapped(kernels_mod, name: str, k):
         kernels_mod.KERNELS[name] = mine
 
 
+def _c_entry_points(source: Path) -> list:
+    """The ``extern "C"`` declarations of a kernel source, whitespace
+    collapsed: the interface its wrapper calls."""
+    text = source.read_text()
+    return [" ".join(m.split()) for m in re.findall(r'extern "C"[^{]*', text)]
+
+
 def other_kernels(kernels_mod, csrc: Path, label: str, names) -> Dict[str, object]:
     """Kernels ``names`` built from another ``csrc`` directory (the parent
-    commit's, say) under their own library names, with the same flags."""
-    return {n: kernels_mod.Kernel(f"{n}_{label}", kernels_mod.KERNELS[n].source,
-                                  kernels_mod.KERNELS[n].flags, csrc=csrc) for n in names}
+    commit's, say) under their own library names, with the same flags. A
+    kernel whose C entry points differ from this tree's is left out (this
+    tree's wrapper could not call it), and said so."""
+    out = {}
+    for n in names:
+        k = kernels_mod.KERNELS[n]
+        if _c_entry_points(csrc / k.source) != _c_entry_points(k.csrc / k.source):
+            print(f"--compare {label}: {k.source} has another C interface than this tree's; "
+                  f"not compared", flush=True)
+            continue
+        out[n] = kernels_mod.Kernel(f"{n}_{label}", k.source, k.flags, csrc=csrc)
+    return out
 
 
 # K6's launch shapes on the path, (sims, max_n, G): the GLM arm's and one
@@ -1208,6 +1399,10 @@ def _ptxas_summary(log: str) -> str:
     return (f"max registers {max(regs) if regs else 'n/a'}, "
             f"max spill-store bytes {max(spills) if spills else 0}")
 
+
+# Flows of a GLM with factors: K6 runs twice a chunk, the second launch the
+# separation fallback's over the cells whose first fit failed.
+FALLBACK_FLOWS = ("model_logit_factor_sample_size",)
 
 # Flows whose lowered design is (or is set beside) an arm of DESIGNS.
 FLOW_DESIGNS = {"model_lmm_power": "lmm_headline", "model_logit_power": "glm_bonferroni_10k"}
@@ -1259,11 +1454,18 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
         kernels.reset_counts()
         with stage_clock(model_mod, runner, batch) as clock:
             res = run()
-        launched = kernels.counts()
-        lowered = clock.take()["lowered"]
-        print(f"flow {name}: kernel launches {launched}", flush=True)
+        launched, tagged = kernels.counts(), kernels.tagged_counts()
+        got = clock.take()
+        lowered = got["lowered"]
+        print(f"flow {name}: kernel launches {launched}"
+              + (f", of them tagged {tagged}" if tagged else ""), flush=True)
         for k in expect:
             check(launched[k] > 0, f"flow {name}: kernel {k} was not launched")
+        fallback = tagged.get("glm_irls", {}).get("fallback", 0)
+        if name in FALLBACK_FLOWS:  # a second K6 launch per chunk, over the failed cells
+            check(fallback == got["chunks"] and launched["glm_irls"] == 2 * got["chunks"],
+                  f"flow {name}: {launched['glm_irls']} K6 launches, {fallback} of them the "
+                  f"fallback's, in {got['chunks']} chunks")
         check(res["n_sims"] == N_SIMS, f"flow {name}: n_sims {res['n_sims']}")
         check(min(res["convergence_rate"]) > 0.9, f"flow {name}: {res['convergence_rate']}")
         powers = np.asarray(res["powers"]["corrected"], dtype=np.float64)
@@ -1304,7 +1506,8 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
             device_ms=prof["device_ms"], device_kernels=prof["launches"], busy=busy,
             one_chunk_run_batch_ms=dict(median=one["median_ms"], min=one["min_ms"],
                                         max=one["max_ms"], busy=one["device_ms"] / one["median_ms"]),
-            first_call_ms=first_ms, launches=launched, golden_flips=flips)
+            first_call_ms=first_ms, launches=launched, fallback_launches=fallback,
+            golden_flips=flips)
         items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
         print(f"flow {name} ({N_SIMS} sims; {smi}): wall median {prof['median_ms']:.3f} ms "
               f"(range {prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {PROFILE_REPS} calls); split "
@@ -1454,6 +1657,10 @@ def main(argv=None) -> int:
         else:
             args = tuple(torch.as_tensor(v, device=dev)
                          for v in k3_stats(*k3_synthetic_xy(name, GOLDEN_SIMS)))
+            if "mask" in c:  # each cell's reduced fit, with its p_eff
+                cm = torch.as_tensor(k3_mask(name, GOLDEN_SIMS), device=dev)
+                xtx_, xty_, p_eff = olsfit.reduced_stats(args[0], args[1], cm)
+                args = (xtx_, xty_) + args[2:] + (p_eff,)
         k3_args[name] = args
         got = olsfit.ols_solve_kernel(*args)
         want = olsfit.ols_solve_plain(*args)
@@ -1464,8 +1671,18 @@ def main(argv=None) -> int:
             check(n_ok == 0, f"K3 {name}: {n_ok} rank-deficient cells converged")
         elif c.get("last") in ("scaled", "collinear"):
             check(0 < n_ok < cells, f"K3 {name}: {n_ok} of {cells} converged, not on both sides")
+        elif c.get("last") == "wide":  # fails only where a masked column's unit pivot is the least
+            masked = args[5] < c["p"]
+            check(0 < int((~ok & masked).sum()) and int((~ok & ~masked).sum()) == 0
+                  and int((ok & masked).sum()) > 0,
+                  f"K3 {name}: {int((~ok & masked).sum())} masked and {int((~ok & ~masked).sum())} "
+                  f"unmasked cells failed, {int((ok & masked).sum())} masked converged")
         else:
             check(n_ok > 0.9 * cells, f"K3 {name}: only {n_ok} of {cells} converged")
+        if "mask" in c:
+            pinned = torch.as_tensor(k3_mask(name, GOLDEN_SIMS), device=dev) == 0
+            check(bool((got[0][pinned & ok[..., None]] == 0).all()),
+                  f"K3 {name}: a masked column's beta is not 0")
         rel = t2_rel = 0.0
         if n_ok:  # values where the plain solve converged
             def t2(out):
@@ -1474,7 +1691,9 @@ def main(argv=None) -> int:
             rel = max(rel_err(g, w) for g, w in pairs)
             t2_rel = rel_err(t2(got), t2(want))
             k3_err = max(k3_err, max((g - w).abs().max().item() for g, w in pairs))
-        print(f"K3 ols_solve {name} cells {tuple(args[2].shape)} p {args[0].shape[-1]}: flags "
+        peff = (f", p_eff {float(args[5].min()):.0f}..{float(args[5].max()):.0f} per cell"
+                if len(args) > 5 else "")
+        print(f"K3 ols_solve {name} cells {tuple(args[2].shape)} p {args[0].shape[-1]}{peff}: flags "
               f"identical ({n_ok} of {cells} converged); over the converged cells max rel err "
               f"{rel:.3e}, t2 {t2_rel:.3e}", flush=True)
         check(max(rel, t2_rel) <= K3_REL, f"K3 {name}: rel err {max(rel, t2_rel):.3e} > {K3_REL}")
@@ -1517,19 +1736,28 @@ def main(argv=None) -> int:
     records["reml_intercept"] = {"max_abs_err": k4_err}
 
     k6_err = 0.0
-    k6_args = {}
+    k6_args = {}  # name -> (args, keyword arguments)
     for name, c in K6_CHECKS.items():
+        kw = {}
         if "design" in c:
             spec_, arr_ = lower_design(lower, ClusterStatic, c["design"])
             arr_d = datagen.to_device(arr_, dev)
             n = c.get("sims", GOLDEN_SIMS)
             X_, y_, _ = datagen.generate_batch(spec_, arr_d, SEED, 0, sim_ids[:n], plain=True)
             fit, grid = list(spec_.effective_fit_cols), list(spec_.grid)
-            cm = torch.ones((len(grid), len(fit)), dtype=torch.float64, device=dev)
+            code = glmfit.link_code(spec_.outcome, spec_.link)
+            if c.get("exclusion"):  # each cell's mask, as run_sims makes it
+                mc = datagen.factor_min_counts(spec_, X_)
+                cm, _ = batch._exclusion_colmask(spec_, mc < spec_.factor_min_level_count)
+            else:
+                cm = torch.ones((len(grid), len(fit)), dtype=torch.float64, device=dev)
             if "pin" in c:
                 cm[:, c["pin"]] = 0.0
             beta0 = glmfit.start_values(spec_, arr_d, y_, cm)
-            code = glmfit.link_code(spec_.outcome, spec_.link)
+            if c.get("fallback"):  # the second launch, over the cells the first left failed
+                first = glmfit.glm_irls_plain(code, X_, y_, fit, grid, beta0, cm)
+                beta0, cm = glmfit.fallback_inputs(spec_, y_, cm, mc)
+                kw = dict(active=~first[2])
         else:
             X_, y_ = (torch.as_tensor(v, device=dev) for v in k6_synthetic(name, GOLDEN_SIMS))
             fit, grid = list(range(c["p"])), [K6_ROWS]
@@ -1538,32 +1766,50 @@ def main(argv=None) -> int:
             beta0[..., 0] = glmfit.data_intercept("binary", "canonical", y_.double().mean(-1, keepdim=True))
             code = glmfit.LINK_LOGIT
         args = (code, X_, y_, fit, grid, beta0, cm)
-        k6_args[name] = args
-        got = glmfit.glm_irls_kernel(*args, iters=True)
-        want = glmfit.glm_irls_plain(*args, iters=True)
+        k6_args[name] = (args, kw)
+        got = glmfit.glm_irls_kernel(*args, iters=True, **kw)
+        want = glmfit.glm_irls_plain(*args, iters=True, **kw)
         n_diff = int((got[2] != want[2]).sum())
         check(n_diff == 0, f"K6 {name}: converged flags differ in {n_diff} cells")
         ok = want[2]
-        n_ok, cells = int(ok.sum()), ok.numel()
-        at_cap = int((want[0].abs() >= glmfit.BETA_CAP - 1e-6).any(-1).sum())
+        act = kw.get("active", torch.ones_like(ok))
+        n_ok, cells, total = int(ok.sum()), int(act.sum()), ok.numel()
+        at_cap = int(((want[0].abs() >= glmfit.BETA_CAP - 1e-6).any(-1) & act).sum())
         if c.get("kind") == "dependent":
             check(n_ok == 0, f"K6 {name}: {n_ok} rank-deficient cells converged")
         elif c.get("kind") == "separated":
             check(at_cap > 0.5 * cells and n_ok < 0.5 * cells,
                   f"K6 {name}: {at_cap} of {cells} cells at the cap, {n_ok} converged")
+        elif c.get("fallback"):  # the failed cells: few, or (separated) most; the refit rescues
+            few = c["design"] != "separated_factor"
+            check(0 < cells and (cells < 0.5 * total if few else cells > 0.5 * total)
+                  and n_ok > 0.5 * cells,
+                  f"K6 {name}: {cells} of {total} cells refit, {n_ok} of them converged")
+        elif c.get("exclusion"):
+            check(n_ok > 0.5 * cells, f"K6 {name}: only {n_ok} of {cells} converged")
         else:
             check(n_ok > 0.9 * cells, f"K6 {name}: only {n_ok} of {cells} converged")
         if "pin" in c:
             check(bool((got[0][..., c["pin"]] == 0).all() and (want[0][..., c["pin"]] == 0).all()),
                   f"K6 {name}: the pinned column's beta is not 0")
+        masks = ""
+        if cm.dim() == 3:
+            check(bool((got[0][(cm == 0) & act[..., None]] == 0).all()),
+                  f"K6 {name}: a masked column's beta is not 0")
+            differ = bool((cm != cm[:1]).any())
+            check(differ or name != "colmask_per_sim",
+                  f"K6 {name}: the column masks do not differ between sims")
+            masks = (f"; per-cell masks ({int((cm == 0).any(-1).sum())} cells with a masked "
+                     f"column, {'differing' if differ else 'equal'} between sims)")
         rels = {k: rel_err_finite(f"K6 {name} {k}", g, w)
                 for k, g, w in zip(("beta", "cov", "dev", "dev0", "ybar"), got[:2] + got[3:6],
                                    want[:2] + want[3:6])}
         it_diff = int((got[6] != want[6]).any(-1).sum())
         k6_err = max(k6_err, max(float((g - w)[torch.isfinite(w)].abs().max())
                                  for g, w in zip(got[:2] + got[3:6], want[:2] + want[3:6])))
-        steps = got[6].double().mean(dim=tuple(range(got[6].dim() - 1))).tolist()
-        print(f"K6 glm_irls {name} cells {tuple(got[2].shape)} p {len(fit)} link {code}: flags "
+        steps = got[6][act].double().mean(0).tolist()
+        print(f"K6 glm_irls {name} cells {tuple(got[2].shape)} p {len(fit)} link {code}"
+              + (f", {cells} active" if kw else "") + f"{masks}: flags "
               f"identical ({n_ok} of {cells} converged, {at_cap} at the cap); rel err "
               + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
               + f"; mean steps f32 {steps[0]:.2f}, f64 {steps[1]:.2f} (cells whose step counts "
@@ -1698,27 +1944,56 @@ def main(argv=None) -> int:
         ("grid_suffstats curve", f"curve X {tuple(Xc.shape)}, G 8", *k2(curve, False), (Xc, yc),
          k2_bound(curve, Xc, yc, olsfit.grid_suffstats_kernel(curve, Xc, yc)), None),
     ]
-    for arm, name in (("ols", "ols_10k"), ("curve", "curve_5pred_8grid")):
+    # K3 at a launch of the README model's find_sample_size: one chunk of
+    # N_SIMS / 8 sims on its 12-point grid, p 6, each cell's p_eff
+    spec_r, arr_r = lower_design(lower, ClusterStatic, "readme_sample_size")
+    Xr, yr, _ = datagen.generate_batch(spec_r, datagen.to_device(arr_r, dev), SEED, 0,
+                                       sim_ids[:N_SIMS // 8], plain=True)
+    suff_r = olsfit.grid_suffstats_plain(spec_r, Xr, yr)
+    cm_r, _ = batch._exclusion_colmask(
+        spec_r, datagen.factor_min_counts(spec_r, Xr) < spec_r.factor_min_level_count)
+    xtx_r, xty_r, peff_r = olsfit.reduced_stats(suff_r["xtx"], suff_r["xty"], cm_r)
+    k3_args["readme"] = (xtx_r, xty_r, suff_r["yty"], suff_r["ysum"],
+                         torch.as_tensor(spec_r.grid, dtype=torch.float64, device=dev), peff_r)
+    for arm, name in (("ols", "ols_10k"), ("curve", "curve_5pred_8grid"), ("readme", "readme")):
         args_ = k3_args[name]
-        timing.append((f"ols_solve {arm}", f"{arm} cells {tuple(args_[2].shape)}, p "
-                       f"{args_[0].shape[-1]}", olsfit.ols_solve_kernel, olsfit.ols_solve_plain,
+        shape = f"{arm} cells {tuple(args_[2].shape)}, p {args_[0].shape[-1]}"
+        if arm == "readme":
+            shape = f"README sample-size flow launch, cells {tuple(args_[2].shape)}, p 6, p_eff per cell"
+        timing.append((f"ols_solve {arm}", shape, olsfit.ols_solve_kernel, olsfit.ols_solve_plain,
                        args_, k3_bound(args_, olsfit.ols_solve_kernel(*args_)), None))
     timing.append(("reml_intercept", f"LMM cells {cells_l}, p 3, m 20",
                    mixedfit.reml_intercept_kernel, mixedfit.reml_intercept_plain, args_l,
                    k4_bound(args_l, mixedfit.reml_intercept_kernel(*args_l)), None))
-    # K6 at the GLM arm's cells and at a launch of the logit sample-size
-    # flow; its bound counts the steps the cells ran, read from the kernel's
-    # step counter (a call made here, not on the path)
+    # K6 at the GLM arm's cells, at a launch of the logit sample-size flow
+    # and at the two launches of the logit factor flow (the fallback's over
+    # its failed cells, whose mask rides as the last input); its bound
+    # counts the steps the cells ran, read from the kernel's step counter (a
+    # call made here, not on the path)
+    def k6_call(fn):
+        def call(*a, **k):
+            return fn(*a[:7], active=a[7] if len(a) > 7 else None, **k)
+        return call
+
     k6_lines = []
     for key, case, shape in (("glm_irls", "glm_bonferroni_10k", "GLM cells {}, N 300, p 4, logit"),
                              ("glm_irls flow", "logit_sample_size",
-                              "logit sample-size flow launch, cells {}, N 100..600, p 4, logit")):
-        args_ = k6_args[case]
-        out_ = glmfit.glm_irls_kernel(*args_, iters=True)
-        new_b, old_b = k6_bound(args_, out_[6], out_[:6]), k6_bound(args_, out_[6], out_[:6], True)
+                              "logit sample-size flow launch, cells {}, N 100..600, p 4, logit"),
+                             ("glm_irls factor", "logit_factor_flow",
+                              "logit factor flow launch, cells {}, N 40..200, p 4, per-cell masks"),
+                             ("glm_irls fallback", "logit_factor_flow_fallback",
+                              "logit factor flow fallback launch, cells {}, {} failed")):
+        args_, kw_ = k6_args[case]
+        if kw_:
+            args_ = args_ + (kw_["active"],)
+        out_ = k6_call(glmfit.glm_irls_kernel)(*args_, iters=True)
+        new_b = k6_bound(args_[:7], out_[6], out_[:6], active=kw_.get("active"))
+        old_b = k6_bound(args_[:7], out_[6], out_[:6], True, active=kw_.get("active"))
         k6_lines.append(f"{key} {new_b[0]:.4f} ms ({new_b[1]}; PR 6's count {old_b[0]:.4f} ms)")
-        timing.append((key, shape.format(tuple(out_[2].shape)), glmfit.glm_irls_kernel,
-                       glmfit.glm_irls_plain, args_, new_b, None))
+        n_act = int(kw_["active"].sum()) if kw_ else None
+        timing.append((key, shape.format(tuple(out_[2].shape), n_act),
+                       k6_call(glmfit.glm_irls_kernel), k6_call(glmfit.glm_irls_plain), args_,
+                       new_b, None))
     print("K6 bound, the steps the cells ran and one fused final pass (PR 6's count of the final "
           "pass, two divisions and two logs a row, beside it): " + ", ".join(k6_lines), flush=True)
     # K8 at the Poisson flow's launches: MCPower's 10,000 sims in chunks of
@@ -1812,13 +2087,15 @@ def main(argv=None) -> int:
 
     for name in ("reml_intercept", "glm_irls", "poisson_quantile"):
         records[name].update(timed[name])
-    records["glm_irls"]["by_shape"] = {"arm": timed["glm_irls"], "flow": timed["glm_irls flow"]}
+    records["glm_irls"]["by_shape"] = {"arm": timed["glm_irls"], "flow": timed["glm_irls flow"],
+                                       "factor_flow": timed["glm_irls factor"],
+                                       "factor_flow_fallback": timed["glm_irls fallback"]}
     # K1's line is the LMM fill and K3's the curve, the shapes the earlier
     # tables report; K2's the OLS shape, the one where a single library call
     # computes the same function; by_arm holds every arm's shape
     for name, top, arms in (("philox_fill", "lmm", ("lmm", "ols", "curve")),
                             ("grid_suffstats", "ols", ("lmm", "ols", "curve")),
-                            ("ols_solve", "curve", ("ols", "curve"))):
+                            ("ols_solve", "curve", ("ols", "curve", "readme"))):
         records[name].update(timed[f"{name} {top}"],
                              by_arm={arm: timed[f"{name} {arm}"] for arm in arms})
     records["philox_fill"]["by_mode"] = by_mode
@@ -1861,6 +2138,9 @@ def main(argv=None) -> int:
             "launches": path_launches, **r,
             "launches_by_arm": {a: v[name] for a, v in launches_by_arm.items()},
             "launches_by_flow": {f: v["launches"][name] for f, v in flows.items()},
+            **({"fallback_launches_by_flow": {f: v["fallback_launches"] for f, v in flows.items()
+                                              if v["fallback_launches"]}}
+               if name == "glm_irls" else {}),
         })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

@@ -11,7 +11,11 @@
 // freezes on done | ~ok; then in f64 the unridged information X'WX, the
 // covariance (X'WX + ridge)^-1, the deviance, the pivot-ratio rank probe on
 // X'WX + diag(pin), converged = done & finite & ~at_cap & rank_ok, and the
-// intercept-only deviance and mean of y.
+// intercept-only deviance and mean of y. Each cell has its own 0/1 column
+// mask (a sparse-factor exclusion's reduced fit, glmfit.py:246-256), and a
+// launch may fit only the cells of an `active` mask: the separation
+// fallback's second launch (glmfit.py:258-278) refits the cells whose first
+// fit did not converge, with their own masks and cold starts.
 //
 // What bounds it on the H100: the latency of dependent chains, not bytes
 // and not the f64 rate. A sim's rows (N x (p + 1) f32, 6 KB at the GLM
@@ -39,7 +43,7 @@
 //   (only when a sim's rows exceed the block's shared-memory budget) are
 //   read from device memory in a second loop, in the same order. The
 //   launcher (geometry()) chooses sims per block, chunks and capacity;
-// - the f32 phase runs in f32 only: each grid point's 0/1 column mask is
+// - the f32 phase runs in f32 only: each cell's 0/1 column mask is
 //   applied by an f32 multiply when a row is read (exact: it equals the
 //   reference's f32 copy of x * mask formed in f64); the f64 phase and the
 //   final pass convert the masked f32 values;
@@ -101,7 +105,8 @@ struct Args {
     int sims, max_n, P, G, link;
     const int* grid;        // (G,) device
     const double* beta0;    // (sims * G, pf)
-    const double* colmask;  // (G, pf)
+    const double* colmask;  // (sims * G, pf)
+    const uint8_t* active;  // (sims * G), or null: every cell
     double *beta, *cov, *dev, *dev0, *ybar;
     uint8_t* converged;
     int* iters;  // (sims * G, 2) or null
@@ -256,7 +261,7 @@ struct Cell {
     const float* Xg;    // the sim's rows in device memory, for rows >= rcap
     const float* yg;
     int rs, rcap, P, n;
-    float cm[PF];       // the grid point's 0/1 column mask
+    float cm[PF];       // the cell's 0/1 column mask
 };
 
 // f(x, y) for this lane's rows r = lane + 32 t < n in turn: x the fit
@@ -422,16 +427,18 @@ __global__ void __launch_bounds__(WARP * MAX_WARPS, (PF <= 4) ? 3 : 1)
     const long long sim0 = (long long)(blockIdx.x / geo.nchunk) * geo.spb;
     const int chunk = blockIdx.x % geo.nchunk;
 
-    // The gc warps of a sim stage it once, up to their cells' largest grid
-    // point. A warp that holds its sim alone (gc = 1) waits for its own
-    // copies only; warps that share sims wait together.
+    // The gc warps of a sim stage it once, up to their active cells'
+    // largest grid point (a sim with none is not staged). A warp that holds
+    // its sim alone (gc = 1) waits for its own copies only; warps that share
+    // sims wait together.
     const int ls = warp / geo.gc, gi = warp % geo.gc;
     const long long sim = sim0 + ls;
     if (sim < a.sims) {
         int rows = 0;
         for (int i = 0; i < geo.gc; ++i) {
             const int gg = chunk + geo.nchunk * i;
-            if (gg < a.G) rows = max(rows, min(a.grid[gg], geo.rcap));
+            if (gg < a.G && (a.active == nullptr || a.active[sim * a.G + gg]))
+                rows = max(rows, min(a.grid[gg], geo.rcap));
         }
         const float* Xs = a.X + sim * a.max_n * (long long)a.P;
         const float* ys = a.y + sim * a.max_n;
@@ -453,6 +460,7 @@ __global__ void __launch_bounds__(WARP * MAX_WARPS, (PF <= 4) ? 3 : 1)
     const int g = chunk + geo.nchunk * gi;
     if (sim >= a.sims || g >= a.G) return;
     const long long cell = sim * a.G + g;
+    if (a.active != nullptr && !a.active[cell]) return;  // its outputs stay as they are
 
     Cell<PF> c;
     c.slab = stage + ls * slab;
@@ -465,7 +473,7 @@ __global__ void __launch_bounds__(WARP * MAX_WARPS, (PF <= 4) ? 3 : 1)
     float b32[PF];
 #pragma unroll
     for (int k = 0; k < PF; ++k) {
-        c.cm[k] = (float)a.colmask[g * PF + k];
+        c.cm[k] = (float)a.colmask[cell * PF + k];
         b32[k] = (float)a.beta0[cell * PF + k];
     }
     double* sums = reinterpret_cast<double*>(smem + geo.sums_off) + warp * S::SLOT;
@@ -637,14 +645,15 @@ int occupancy(int sims, int max_n, int G, int* out) {
 }  // namespace
 
 // fit: pf column indices of X (host memory); grid: G row counts in
-// 1..max_n (device memory); beta0 (sims, G, pf) and colmask (G, pf) f64 on
-// the device, colmask 0/1; link 0 logit, 1 probit, 2 Poisson. iters may be
-// null. Returns a cudaError_t.
+// 1..max_n (device memory); beta0 (sims, G, pf) and colmask (sims, G, pf)
+// f64 on the device, colmask 0/1; active (sims, G) uint8 on the device, or
+// null for every cell (a cell outside it writes no output); link 0 logit, 1
+// probit, 2 Poisson. iters may be null. Returns a cudaError_t.
 extern "C" int mcp_glm_irls(const void* X, const void* y, int sims, int max_n, int P,
                             const int* fit, int pf, const void* grid, int G, const void* beta0,
-                            const void* colmask, int link, void* beta, void* cov,
-                            void* converged, void* dev, void* dev0, void* ybar, void* iters,
-                            void* stream) {
+                            const void* colmask, const void* active, int link, void* beta,
+                            void* cov, void* converged, void* dev, void* dev0, void* ybar,
+                            void* iters, void* stream) {
     if (sims <= 0 || max_n <= 0 || P <= 0 || pf <= 0 || pf > MCP_MAX_P || G <= 0 || link < 0 ||
         link > LINK_POISSON)
         return (int)cudaErrorInvalidValue;
@@ -664,6 +673,7 @@ extern "C" int mcp_glm_irls(const void* X, const void* y, int sims, int max_n, i
     a.grid = (const int*)grid;
     a.beta0 = (const double*)beta0;
     a.colmask = (const double*)colmask;
+    a.active = (const uint8_t*)active;
     a.beta = (double*)beta;
     a.cov = (double*)cov;
     a.dev = (double*)dev;

@@ -3,20 +3,25 @@
 // Replaces: the batched small Cholesky of mcpower_tpu/engine/smallchol.py
 // (chol, cho_solve, cho_inverse, :34-349) as mcpower_tpu/engine/olsfit.py
 // ::ols_grid_stats uses it (:102-129): per (sim, grid) cell, beta =
-// (X'X)^-1 X'y, rss = y'y - beta'X'y, sigma^2 = rss / max(n - p, 1), the
-// Wald covariance sigma^2 (X'X)^-1, the overall F ((tss - rss) / max(p - 1,
-// 1)) / sigma^2 with tss = y'y - (sum y)^2 / n, and the convergence flag
-// (finite positive sigma^2 and pivots, pivot ratio >= eps_rank).
+// (X'X)^-1 X'y, rss = y'y - beta'X'y, sigma^2 = rss / max(n - p_eff, 1),
+// the Wald covariance sigma^2 (X'X)^-1, the overall F ((tss - rss) /
+// max(p_eff - 1, 1)) / sigma^2 with tss = y'y - (sum y)^2 / n, and the
+// convergence flag (finite positive sigma^2 and pivots, pivot ratio >=
+// eps_rank). p_eff is the cell's fitted column count: p, or, for the
+// reduced fit of a sparse-factor exclusion (olsfit.py:91-97), the columns
+// its mask keeps; the masked columns reach the kernel as zero rows and
+// columns of X'X with a unit diagonal, whose unit pivots take part in the
+// pivot-ratio test as the reference's do.
 //
-// What bounds it on H100: the bytes. A cell reads p^2 + p + 2 doubles and
-// writes p^2 + p + 1 (73.7 MB at the curve's 80,000 cells of p = 7, 0.022
-// ms at 3.35 TB/s), against a few hundred f64 operations. What holds it
-// above that is latency: each lane waits on a chain of square roots and
-// divisions (PERF.md: faster with more resident warps). One thread per
-// cell would be far from that: its A and L arrays (2 p^2 doubles) would
-// fill its registers, each warp load and store would touch 32 lines p^2
-// doubles apart, and the factor and its p + 1 solves (2p IEEE divisions
-// each) would run one after another.
+// What bounds it on H100: the bytes. A cell reads p^2 + p + 2 doubles (one
+// more with a p_eff) and writes p^2 + p + 1 (73.7 MB at the curve's 80,000
+// cells of p = 7, 0.022 ms at 3.35 TB/s), against a few hundred f64
+// operations. What holds it above that is latency: each lane waits on a
+// chain of square roots and divisions (PERF.md: faster with more resident
+// warps). One thread per cell would be far from that: its A and L arrays
+// (2 p^2 doubles) would fill its registers, each warp load and store would
+// touch 32 lines p^2 doubles apart, and the factor and its p + 1 solves (2p
+// IEEE divisions each) would run one after another.
 //
 // What the design does about it:
 // - a group of lanes per cell, the next power of two at or above p + 1 (8
@@ -103,8 +108,8 @@ template <int P, int LANES>
 __global__ void __launch_bounds__(OLS_THREADS)
     ols_solve_kernel(const double* __restrict__ xtx, const double* __restrict__ xty,
                      const double* __restrict__ yty, const double* __restrict__ ysum,
-                     const double* __restrict__ ns, int B, int G, double eps_rank,
-                     double* __restrict__ beta, double* __restrict__ cov,
+                     const double* __restrict__ ns, const double* __restrict__ peff, int B,
+                     int G, double eps_rank, double* __restrict__ beta, double* __restrict__ cov,
                      double* __restrict__ overall, uint8_t* __restrict__ conv) {
     constexpr int CPW = 32 / LANES;  // cells per warp
     constexpr int PP = P * P;
@@ -190,7 +195,7 @@ __global__ void __launch_bounds__(OLS_THREADS)
         const double yy = yty[cell];
         const double rss = yy - bx;
         const double n = ns[cell % G];
-        const double p_eff = (double)P;
+        const double p_eff = peff != nullptr ? peff[cell] : (double)P;
         sigma2 = rss / fmax(n - p_eff, 1.0);
         const double ys = ysum[cell];
         const double tss = yy - ys * ys / n;
@@ -222,25 +227,29 @@ __global__ void __launch_bounds__(OLS_THREADS)
 
 template <int P>
 static int launch(const double* xtx, const double* xty, const double* yty, const double* ysum,
-                  const double* ns, int B, int G, double eps_rank, double* beta, double* cov,
-                  double* overall, uint8_t* conv, cudaStream_t stream) {
+                  const double* ns, const double* peff, int B, int G, double eps_rank,
+                  double* beta, double* cov, double* overall, uint8_t* conv,
+                  cudaStream_t stream) {
     constexpr int LANES = group_lanes(P);
     const long long cells_per_block = (long long)OLS_WARPS * (32 / LANES);
     const unsigned blocks = mcp_blocks((B + cells_per_block - 1) / cells_per_block, 1);
     if (blocks == 0) return (int)cudaErrorInvalidConfiguration;
     ols_solve_kernel<P, LANES><<<blocks, OLS_THREADS, 0, stream>>>(
-        xtx, xty, yty, ysum, ns, B, G, eps_rank, beta, cov, overall, conv);
+        xtx, xty, yty, ysum, ns, peff, B, G, eps_rank, beta, cov, overall, conv);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// B cells laid out (sims, G): cell b has n = ns[b % G]. Returns a cudaError_t.
+// B cells laid out (sims, G): cell b has n = ns[b % G] and fits peff[b]
+// columns (p in every cell when peff is null). Returns a cudaError_t.
 extern "C" int mcp_ols_solve(const void* xtx, const void* xty, const void* yty, const void* ysum,
-                             const void* ns, int B, int G, int p, double eps_rank, void* beta,
-                             void* cov, void* overall, void* conv, void* stream) {
+                             const void* ns, const void* peff, int B, int G, int p,
+                             double eps_rank, void* beta, void* cov, void* overall, void* conv,
+                             void* stream) {
     if (B <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
     MCP_DISPATCH_P(p, launch, (const double*)xtx, (const double*)xty, (const double*)yty,
-                   (const double*)ysum, (const double*)ns, B, G, eps_rank, (double*)beta,
-                   (double*)cov, (double*)overall, (uint8_t*)conv, (cudaStream_t)stream)
+                   (const double*)ysum, (const double*)ns, (const double*)peff, B, G, eps_rank,
+                   (double*)beta, (double*)cov, (double*)overall, (uint8_t*)conv,
+                   (cudaStream_t)stream)
 }

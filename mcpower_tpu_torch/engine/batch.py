@@ -4,10 +4,13 @@ The port of ``mcpower_tpu.engine.batch`` for this slice. Where the reference
 vmaps ``run_one_sim`` over sims inside one jitted program, :func:`run_sims`
 runs each stage once over a chunk of sims with the sim axis written out:
 the Philox fill (K1; a second fill for a logit or count outcome, whose
-counts go through K8), the design and outcome, the fit (K2 + K3 for OLS, K2
-+ K4 for the random-intercept LMM, K6 for an unclustered GLM), t^2
-thresholds and corrections, and the
-reduction of per-sim flags to int32 counts before they leave the device.
+counts go through K8, and for sampled factor levels), the design and
+outcome, the fit (K2 + K3 for OLS, K2 + K4 for the random-intercept LMM, K6
+for an unclustered GLM, with a second K6 launch for the separation fallback
+of a design with factors), t^2 thresholds and corrections (with the
+reduced-df crit rows of cells whose sparse factor levels were excluded),
+posthoc contrasts, and the reduction of per-sim flags to int32 counts before
+they leave the device.
 Results depend only on sim ids, never on chunking or the device.
 
 Specs outside the slice raise ``NotImplementedError`` naming the ROADMAP
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from . import corrections, datagen, glmfit, mixedfit, olsfit
-from .spec import SimSpec
+from .spec import SimSpec, factor_dependent_cols
 
 
 def _split_seed(base_seed: int) -> Tuple[int, int]:
@@ -30,35 +33,74 @@ def _split_seed(base_seed: int) -> Tuple[int, int]:
     return base_seed & 0xFFFFFFFF, base_seed >> 32
 
 
-def _crit_rows(arr: Dict[str, torch.Tensor], key2d: str) -> torch.Tensor:
-    """The (G, ...) crit table; the reduced-df stacks of the reference's
-    ``_crit_rows`` belong to factor exclusion, outside this slice."""
-    return arr[key2d]
+def _exclusion_colmask(spec: SimSpec, excluded: torch.Tensor):
+    """The fit-column mask ``(sims, G, pf)`` f64 (0 drops a column) and the
+    dropped-column count ``(sims, G)`` int32 from the per-cell exclusion
+    flags ``excluded (sims, G, n_factors)``: an excluded factor drops its
+    dummies and every interaction touching them (the reference's
+    ``_exclusion_colmask``, :36)."""
+    fit_cols = spec.effective_fit_cols
+    mask = torch.ones(excluded.shape[:2] + (len(fit_cols),), dtype=torch.float64,
+                      device=excluded.device)
+    for f in range(spec.n_factors):
+        dep_cols = factor_dependent_cols(spec, f)
+        dep = [i for i, c in enumerate(fit_cols) if c in dep_cols]
+        if dep:
+            keep = 1.0 - excluded[..., f].to(torch.float64)
+            mask[..., dep] = mask[..., dep] * keep[..., None]
+    dropped = torch.round(len(fit_cols) - mask.sum(-1)).to(torch.int32)
+    return mask, dropped
+
+
+def _crit_rows(arr: Dict[str, torch.Tensor], key2d: str, key3d: str,
+               dropped: torch.Tensor) -> torch.Tensor:
+    """The crit row of each cell: from a reduced-df stack ``(G, D + 1, ...)``
+    the layer of the cell's dropped-column count (clipped to the stack),
+    ``(sims, G, ...)``; without one the flat ``(G, ...)`` table, whose z- and
+    chi^2-based crits do not depend on the fitted columns (the reference's
+    ``_crit_rows``, :53)."""
+    if key3d not in arr:
+        return arr[key2d]
+    table = arr[key3d]
+    d = dropped.clamp(0, table.shape[1] - 1).long()
+    return table[torch.arange(table.shape[0], device=d.device), d]
 
 
 def run_sims(spec: SimSpec, arr: Dict[str, torch.Tensor], seed_lo: int, seed_hi: int,
              sim_ids: torch.Tensor, *, plain: bool = False) -> Dict[str, torch.Tensor]:
     """Per-sim significance flags across the grid for the sims ``sim_ids``:
-    the reference's ``run_one_sim`` batched over sims. Returns tensors with
-    a leading sim axis.
+    the reference's ``run_one_sim`` batched over sims, in its order (the
+    sparse-factor exclusion before the fits, the reduced-df crit rows after
+    them). Returns tensors with a leading sim axis.
     """
     X, y, _ = datagen.generate_batch(spec, arr, seed_lo, seed_hi, sim_ids, plain=plain)
+    excluded = colmask = min_counts = None
+    dropped = torch.zeros((), dtype=torch.int32, device=X.device)
+    if spec.n_factors:
+        min_counts = datagen.factor_min_counts(spec, X)  # (sims, G, n_factors)
+        excluded = min_counts < spec.factor_min_level_count
+        colmask, dropped = _exclusion_colmask(spec, excluded)
+
     if spec.estimator == "ols":
-        stats = olsfit.ols_grid_stats(spec, X, y, plain=plain)
+        stats = olsfit.ols_grid_stats(spec, X, y, colmask=colmask, plain=plain)
     elif spec.estimator == "glm":  # unclustered: generate_batch has checked the scope
-        stats = glmfit.glm_grid_stats(spec, arr, X, y, plain=plain)
-    else:  # "mle" with a cluster
+        stats = glmfit.glm_grid_stats(spec, arr, X, y, colmask=colmask, min_counts=min_counts,
+                                      plain=plain)
+    else:  # "mle" with a cluster; the reference fits it without the mask (batch.py:125):
+        # exclusion moves only its crit rows, through `dropped`
         stats = mixedfit.mixed_grid_stats(spec, X, y, plain=plain)
 
     t2 = stats["t2"]  # (sims, G, k)
     converged = stats["converged"]  # (sims, G)
-    sig_unc = (t2 > _crit_rows(arr, "t2_uncorrected")) & converged[..., None]
-    sig_corr = corrections.apply_correction(
-        t2, _crit_rows(arr, "t2_corrected_ranks").expand_as(t2), spec.correction
-    ) & converged[..., None]
+    unc = _crit_rows(arr, "t2_uncorrected", "t2_unc_by_dropped", dropped)
+    corr = _crit_rows(arr, "t2_corrected_ranks", "t2_corr_by_dropped", dropped)
+    sig_unc = (t2 > unc) & converged[..., None]
+    sig_corr = corrections.apply_correction(t2, corr.expand_as(t2), spec.correction) \
+        & converged[..., None]
     out = {"sig_unc": sig_unc, "sig_corr": sig_corr, "converged": converged, "t2": t2}
     if spec.report_overall:
-        out["overall"] = (stats["overall"] > _crit_rows(arr, "overall_crit")) & converged
+        crit = _crit_rows(arr, "overall_crit", "overall_crit_by_dropped", dropped)
+        out["overall"] = (stats["overall"] > crit) & converged
 
     k = spec.n_targets
     if k > 0:
@@ -70,13 +112,19 @@ def run_sims(spec: SimSpec, arr: Dict[str, torch.Tensor], seed_lo: int, seed_hi:
         out["nsig_hist_unc"] = nsig_unc[..., None] == levels
         out["nsig_hist_corr"] = nsig_corr[..., None] == levels
 
+    if spec.posthoc and "posthoc_t2" in stats:
+        crit = _crit_rows(arr, "posthoc_t2", "posthoc_t2_by_dropped", dropped)
+        out["posthoc_sig"] = (stats["posthoc_t2"] > crit) & converged[..., None]
+
     for extra in ("boundary_hit", "boundary_hi", "singular", "tau2_hat", "glm_baseline",
-                  "pinned_comp"):
+                  "separation_fallback", "pinned_comp"):
         if extra in stats:
             out[extra] = stats[extra]
     # tau2 counts only for converged fits (the host divides by that count)
     if "tau2_hat" in out:
         out["tau2_hat"] = torch.where(converged, out["tau2_hat"], torch.zeros_like(out["tau2_hat"]))
+    if excluded is not None:
+        out["factor_excluded"] = excluded
     return out
 
 

@@ -12,8 +12,10 @@ batch.
 
 The stages follow the reference in order: the static design draw (``L =
 corr_chol``), the f32 mix ``z @ L.T``, the normal/binary marginals, the
-interaction block, ``eta = X @ beta``, the primary random intercept
-(``u = z_c * chol(tau^2 + 1e-12)`` indexed by cluster id) and the outcome:
+reference-coded factor dummies (fixed allocation codes, or levels drawn from
+the FACTOR words of a sampled factor), the interaction block, ``eta = X @
+beta``, the primary random intercept (``u = z_c * chol(tau^2 + 1e-12)``
+indexed by cluster id) and the outcome:
 a normal residual, a binary draw (logit: a top-24-bit uniform of the RESID
 words against ``sigmoid(eta)``; probit: the RESID normal against ``eta``)
 or a Poisson count (the open uniform of the RESID words through
@@ -73,10 +75,6 @@ def unsupported(spec: SimSpec) -> str:
             return f"a GLM of a {spec.outcome} outcome"
     elif spec.estimator not in ("ols", "mle"):
         return f"estimator {spec.estimator!r}"
-    if spec.factor_levels:
-        return "factor predictors (ROADMAP A8.2)"
-    if spec.posthoc:
-        return "posthoc contrasts (ROADMAP A8.2)"
     if spec.upload_rows > 0 or spec.bootstrap:
         return "uploaded data (ROADMAP A13)"
     if any(v not in (DIST_NORMAL, DIST_BINARY) for v in spec.var_types):
@@ -99,7 +97,7 @@ def unsupported(spec: SimSpec) -> str:
     if n_streams(spec) > rng.MAX_STREAMS:
         return f"more than {rng.MAX_STREAMS} generated streams (ROADMAP A10)"
     if len(spec.effective_fit_cols) > kernels.MAX_FIT_P:
-        return f"wide fits, p > {kernels.MAX_FIT_P} (ROADMAP A8.2 / B10)"
+        return f"wide fits, p > {kernels.MAX_FIT_P} (ROADMAP B10)"
     return ""
 
 
@@ -114,6 +112,30 @@ def check_supported(spec: SimSpec) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _resid_mode(spec: SimSpec):
+    """The fill mode of the RESID stream of a logit (words) or count (open
+    uniforms) outcome; None when the outcome reads the residual normals."""
+    if spec.outcome == "binary" and spec.link != "probit":
+        return rng.MODE_WORDS
+    if spec.outcome == "count":
+        return rng.MODE_OPEN_UNIFORM
+    return None
+
+
+def sampled_factors(spec: SimSpec) -> List[int]:
+    """The factors whose levels are drawn per row: ``factor_sampled[f]``,
+    else the scenario's ``sampled_factor_proportions``. The others take the
+    fixed allocation codes of the lowering."""
+    out = []
+    for f in range(spec.n_factors):
+        sampled = spec.factor_sampled[f]
+        if sampled is None:
+            sampled = spec.scenario.sampled_factor_proportions
+        if sampled:
+            out.append(f)
+    return out
+
+
 def stream_plan(spec: SimSpec) -> List[Tuple[int, int, int]]:
     """``(class, column, rows)`` of every stream the generation reads as
     normals: the latent predictor normals, the primary-intercept draws
@@ -122,27 +144,31 @@ def stream_plan(spec: SimSpec) -> List[Tuple[int, int, int]]:
     plan = [(rng.CLASS_XNORM, j, spec.max_n) for j in range(spec.n_cont)]
     if spec.cluster is not None:
         plan.append((rng.CLASS_CLUSTER, 0, spec.cluster.n_clusters_at(spec.max_n)))
-    if outcome_plan(spec) is None:
+    if _resid_mode(spec) is None:
         plan.append((rng.CLASS_RESID, 0, spec.max_n))
     return plan
 
 
 def outcome_plan(spec: SimSpec):
-    """``(mode, streams)`` of the second fill a logit or count outcome reads
-    (K1 fills one mode per launch): the RESID words of a logit draw, the
-    RESID open uniforms of a count draw; None when the outcome reads the
-    residual normals of :func:`stream_plan`."""
-    resid = [(rng.CLASS_RESID, 0, spec.max_n)]
-    if spec.outcome == "binary" and spec.link != "probit":
-        return rng.MODE_WORDS, resid
-    if spec.outcome == "count":
-        return rng.MODE_OPEN_UNIFORM, resid
-    return None
+    """``(mode, streams)`` of the second fill (K1 fills one mode per
+    launch): the RESID stream of a logit outcome (words, of which the draw
+    takes the top 24 bits) or a count outcome (open uniforms), then column
+    f of FACTOR for each sampled factor f (words, whose top 24 bits are its
+    uniforms). With factor words a count outcome's RESID stream is filled as
+    words too and turned into the same open uniforms after. None when the
+    generation reads nothing but the normals of :func:`stream_plan`."""
+    mode = _resid_mode(spec)
+    streams = [(rng.CLASS_RESID, 0, spec.max_n)] if mode is not None else []
+    factors = [(rng.CLASS_FACTOR, f, spec.max_n) for f in sampled_factors(spec)]
+    if not streams + factors:
+        return None
+    return (rng.MODE_WORDS if factors else mode), streams + factors
 
 
 def n_streams(spec: SimSpec) -> int:
     """Streams the generation fills, over both fills."""
-    return len(stream_plan(spec)) + (outcome_plan(spec) is not None)
+    second = outcome_plan(spec)
+    return len(stream_plan(spec)) + (len(second[1]) if second is not None else 0)
 
 
 def cluster_ids(spec: SimSpec, device=None) -> torch.Tensor:
@@ -247,13 +273,33 @@ def poisson_quantile(u: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _factor_levels(spec: SimSpec, arr: Dict[str, torch.Tensor], f: int, words, sims: int,
+                   device) -> torch.Tensor:
+    """Level codes ``(sims, max_n)`` of factor ``f`` (the reference's
+    generate, :541-562): the fixed allocation codes of the lowering, or, for
+    a sampled factor, ``u >= cdf[:-1]`` summed, with ``u`` the top-24-bit
+    uniform of its FACTOR words and ``cdf = cumsum(probs) / sum(probs)`` in
+    the f64 of the lowered proportions, against which the f32 ``u`` is
+    compared exactly, as the reference compares it."""
+    n_levels = spec.factor_levels[f]
+    if words is None:
+        codes = arr[f"fixed_codes_{f}"].to(device=device, dtype=torch.int64)
+        return codes.expand(sims, spec.max_n)
+    off = sum(spec.factor_levels[:f])
+    probs = arr["factor_props"][off : off + n_levels].to(device)
+    cdf = torch.cumsum(probs, 0) / probs.sum()
+    u = rng.u32_to_uniform(words).to(probs.dtype)
+    return (u[..., None] >= cdf[:-1]).sum(-1)
+
+
 def generate_from_normals(spec: SimSpec, arr: Dict[str, torch.Tensor], Z: torch.Tensor,
-                          resid: torch.Tensor = None, *, plain: bool = False):
+                          second: torch.Tensor = None, *, plain: bool = False):
     """``(X, y, ids)`` from the filled normals ``Z (sims, n_streams, rows)``
-    laid out as :func:`stream_plan` says and, for a logit or count outcome,
-    the second fill's plane ``resid (sims, max_n)`` (:func:`outcome_plan`:
-    words, or open uniforms). ``plain=True`` draws counts through the plain
-    version of K8 on any device."""
+    laid out as :func:`stream_plan` says and the second fill ``second
+    (sims, streams, max_n)`` laid out as :func:`outcome_plan` says (the
+    RESID words or open uniforms of a logit or count outcome, then the
+    FACTOR words of the sampled factors). ``plain=True`` draws counts
+    through the plain version of K8 on any device."""
     max_n = spec.max_n
     sims = Z.shape[0]
     device = Z.device
@@ -267,6 +313,14 @@ def generate_from_normals(spec: SimSpec, arr: Dict[str, torch.Tensor], Z: torch.
             cols.append(
                 marginals.apply_marginal_static(mixed[:, :, j], spec.var_types[j], params[j])
             )
+    plan2 = outcome_plan(spec)
+    first = int(_resid_mode(spec) is not None)  # the factor words follow any RESID stream
+    words_at = {f: first + i for i, f in enumerate(sampled_factors(spec))}
+    for f, n_levels in enumerate(spec.factor_levels):  # reference-coded dummies
+        words = second[:, words_at[f]] if f in words_at else None
+        lvl = _factor_levels(spec, arr, f, words, sims, device)
+        for d in range(n_levels - 1):
+            cols.append((lvl == d + 1).to(torch.float32))
     for comps in spec.interactions:
         prod = cols[comps[0]]
         for cidx in comps[1:]:
@@ -291,10 +345,29 @@ def generate_from_normals(spec: SimSpec, arr: Dict[str, torch.Tensor], Z: torch.
     elif spec.outcome == "binary" and spec.link == "probit":
         y = torch.where(Z[:, s_resid, :max_n] < eta, one, zero)
     elif spec.outcome == "binary":
-        y = torch.where(rng.u32_to_uniform(resid) < torch.sigmoid(eta), one, zero)
+        y = torch.where(rng.u32_to_uniform(second[:, 0]) < torch.sigmoid(eta), one, zero)
     else:  # count
-        y = (poisson_quantile_plain if plain else poisson_quantile)(resid, eta)
+        u = second[:, 0]
+        if plan2[0] == rng.MODE_WORDS:  # filled with factor words: the same open uniforms
+            u = rng.u32_to_open_uniform(u)
+        y = (poisson_quantile_plain if plain else poisson_quantile)(u, eta)
     return X, y, ids.unsqueeze(0).expand(sims, max_n)
+
+
+def factor_min_counts(spec: SimSpec, X: torch.Tensor) -> torch.Tensor:
+    """Smallest realized level count per (sim, grid point, factor), ``(sims,
+    G, n_factors)`` in X's f32, from the dummies of the generated design (the
+    reference's ``factor_min_counts``, :263): the level counts are prefix
+    sums of 0/1 values below 2^24, exact in any order, and the reference
+    level's count is n less their sum."""
+    idx = torch.as_tensor([n - 1 for n in spec.grid], device=X.device)
+    ns = torch.as_tensor(spec.grid, dtype=X.dtype, device=X.device)
+    out = []
+    for f in range(spec.n_factors):
+        counts = torch.cumsum(X[..., list(spec.factor_dummy_cols(f))], dim=1)[:, idx]
+        ref_count = ns - counts.sum(-1)
+        out.append(torch.minimum(counts.amin(-1), ref_count))
+    return torch.stack(out, dim=-1)
 
 
 def to_device(arrays: Dict, device) -> Dict[str, torch.Tensor]:
@@ -314,8 +387,6 @@ def generate_batch(spec: SimSpec, arr: Dict[str, torch.Tensor], seed_lo: int, se
     check_supported(spec)
     fill = rng.fill_streams_plain if plain else rng.fill_streams
     Z = fill(seed_lo, seed_hi, sim_ids, stream_plan(spec), rng.MODE_NORMAL)
-    second = outcome_plan(spec)
-    resid = None
-    if second is not None:
-        resid = fill(seed_lo, seed_hi, sim_ids, second[1], second[0])[:, 0]
-    return generate_from_normals(spec, arr, Z, resid, plain=plain)
+    plan2 = outcome_plan(spec)
+    second = fill(seed_lo, seed_hi, sim_ids, plan2[1], plan2[0]) if plan2 is not None else None
+    return generate_from_normals(spec, arr, Z, second, plain=plain)

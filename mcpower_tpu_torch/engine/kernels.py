@@ -13,7 +13,8 @@ version.
 
 Each :class:`Kernel` carries ``launches``, a plain integer the wrappers add
 one to where they launch the kernel, so a run can show which kernels it went
-through (``reset_counts`` / ``counts``).
+through (``reset_counts`` / ``counts``); a launch the wrapper tags (K6's
+separation-fallback launch) is also counted under its tag in ``tagged``.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ class Kernel:
         self.csrc = Path(csrc)
         self.flags = list(flags)
         self.launches = 0
+        self.tagged: Dict[str, int] = {}
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
@@ -128,8 +130,9 @@ class Kernel:
         f.restype = ctypes.c_int
         return f
 
-    def check(self, err: int) -> None:
-        """Raise on the cudaError_t a launch returned; count it otherwise."""
+    def check(self, err: int, tag: Optional[str] = None) -> None:
+        """Raise on the cudaError_t a launch returned; count it otherwise
+        (under ``tag`` as well, where given)."""
         if err != 0:
             msg = self._lib.mcp_error_string
             msg.argtypes = [ctypes.c_int]
@@ -139,6 +142,8 @@ class Kernel:
                 f"{msg(err).decode()}"
             )
         self.launches += 1
+        if tag is not None:
+            self.tagged[tag] = self.tagged.get(tag, 0) + 1
 
 
 KERNELS: Dict[str, Kernel] = {
@@ -178,10 +183,15 @@ def build_all() -> Dict[str, float]:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.tagged = {}
 
 
 def counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def tagged_counts() -> Dict[str, Dict[str, int]]:
+    return {name: dict(k.tagged) for name, k in KERNELS.items() if k.tagged}
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -262,8 +262,8 @@ def mixed_grid_stats(spec: SimSpec, X: torch.Tensor, y: torch.Tensor, *,
 
 def _assemble_outputs(spec: SimSpec, beta, cov, converged, boundary, tau2_hat, pinned,
                       boundary_hi=None) -> Dict[str, torch.Tensor]:
-    """t^2 and omnibus assembly; ``pinned (..., G, n_components)`` is masked
-    to converged fits."""
+    """t^2, omnibus and posthoc assembly; ``pinned (..., G, n_components)``
+    is masked to converged fits."""
     out = {
         "t2": waldstats.t2_targets(spec, beta, cov),
         "converged": converged,
@@ -275,4 +275,4 @@ def _assemble_outputs(spec: SimSpec, beta, cov, converged, boundary, tau2_hat, p
         out["overall"] = waldstats.overall_wald_chi2(spec, beta, cov)
     if boundary_hi is not None:
         out["boundary_hi"] = boundary_hi
-    return out
+    return waldstats.add_posthoc(out, spec, beta, cov)

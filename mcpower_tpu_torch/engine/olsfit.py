@@ -163,9 +163,13 @@ def grid_suffstats(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def ols_solve_plain(xtx, xty, yty, ysum, ns):
+def ols_solve_plain(xtx, xty, yty, ysum, ns, p_eff=None):
     """Per-cell OLS from prefix statistics. ``xtx (..., G, p, p)``, ``xty
-    (..., G, p)``, ``yty``/``ysum (..., G)``, ``ns (G,)`` f64 row counts.
+    (..., G, p)``, ``yty``/``ysum (..., G)``, ``ns (G,)`` f64 row counts;
+    ``p_eff (..., G)`` f64, the columns each cell fits (a reduced fit's
+    masked columns carry a unit pivot in ``xtx``), or None for p in every
+    cell. ``p_eff`` sets the residual df ``max(n - p_eff, 1)`` and the
+    overall F's ``max(p_eff - 1, 1)``.
 
     Returns ``beta (..., G, p)``, ``cov (..., G, p, p)`` (sigma^2 (X'X)^-1),
     ``overall (..., G)`` (the F statistic) and ``converged (..., G)``.
@@ -175,11 +179,15 @@ def ols_solve_plain(xtx, xty, yty, ysum, ns):
     beta = smallchol.cho_solve(chol, xty)
     inv = smallchol.cho_inverse(chol)
     rss = yty - (beta * xty).sum(-1)
-    p_eff = float(p)
+    if p_eff is None:
+        p_eff = float(p)
+        df1 = max(p_eff - 1.0, 1.0)
+    else:
+        df1 = torch.clamp(p_eff - 1.0, min=1.0)
     sigma2 = rss / torch.clamp(ns - p_eff, min=1.0)
     cov = sigma2[..., None, None] * inv
     tss = yty - ysum * ysum / ns
-    overall = ((tss - rss) / max(p_eff - 1.0, 1.0)) / sigma2
+    overall = ((tss - rss) / df1) / sigma2
     diag = torch.diagonal(chol, dim1=-2, dim2=-1)
     converged = (
         torch.isfinite(sigma2)
@@ -197,6 +205,7 @@ _SOLVE_ARGS = [
     ctypes.c_void_p,  # yty (B,)
     ctypes.c_void_p,  # ysum (B,)
     ctypes.c_void_p,  # ns (G,) f64; cell b uses ns[b % G]
+    ctypes.c_void_p,  # p_eff (B,) f64, or null for p
     ctypes.c_int,  # B
     ctypes.c_int,  # G
     ctypes.c_int,  # p
@@ -209,7 +218,7 @@ _SOLVE_ARGS = [
 ]
 
 
-def ols_solve_kernel(xtx, xty, yty, ysum, ns):
+def ols_solve_kernel(xtx, xty, yty, ysum, ns, p_eff=None):
     """Kernel K3: :func:`ols_solve_plain` on the card, a group of lanes per cell."""
     p, G = xtx.shape[-1], xtx.shape[-3]
     if not 1 <= p <= MAX_P:
@@ -220,19 +229,23 @@ def ols_solve_kernel(xtx, xty, yty, ysum, ns):
     )
     if ns.shape != (G,) or xty.shape != lead + (p,) or yty.shape != lead or ysum.shape != lead:
         raise ValueError("ols_solve: inconsistent shapes")
+    if p_eff is not None:
+        p_eff = p_eff.to(device=xtx.device, dtype=torch.float64).expand(lead).contiguous()
     B = yty.numel()
     beta = torch.empty(lead + (p,), dtype=torch.float64, device=xtx.device)
     cov = torch.empty(lead + (p, p), dtype=torch.float64, device=xtx.device)
     overall = torch.empty(lead, dtype=torch.float64, device=xtx.device)
     conv = torch.empty(lead, dtype=torch.uint8, device=xtx.device)
-    kernels.require_cuda("ols_solve", xtx, xty, yty, ysum, ns, beta, cov, overall, conv)
+    kernels.require_cuda("ols_solve", xtx, xty, yty, ysum, ns, beta, cov, overall, conv,
+                         *([p_eff] if p_eff is not None else []))
     if B:
         k = kernels.KERNELS["ols_solve"]
         fn = k.fn("mcp_ols_solve", _SOLVE_ARGS)
         k.check(
             fn(
                 kernels.ptr(xtx), kernels.ptr(xty), kernels.ptr(yty), kernels.ptr(ysum),
-                kernels.ptr(ns), B, G, p, EPS_RANK,
+                kernels.ptr(ns), kernels.ptr(p_eff) if p_eff is not None else ctypes.c_void_p(0),
+                B, G, p, EPS_RANK,
                 kernels.ptr(beta), kernels.ptr(cov), kernels.ptr(overall), kernels.ptr(conv),
                 kernels.stream_of(xtx),
             )
@@ -240,13 +253,13 @@ def ols_solve_kernel(xtx, xty, yty, ysum, ns):
     return beta, cov, overall, conv.bool()
 
 
-def ols_solve(xtx, xty, yty, ysum, ns):
+def ols_solve(xtx, xty, yty, ysum, ns, p_eff=None):
     """K3 for CUDA tensors, the plain version for CPU tensors."""
     if xtx.is_cuda:
-        return ols_solve_kernel(xtx, xty, yty, ysum, ns)
+        return ols_solve_kernel(xtx, xty, yty, ysum, ns, p_eff)
     if xtx.device.type != "cpu":
         raise ValueError(f"ols_solve: no kernel for device {xtx.device}")
-    return ols_solve_plain(xtx, xty, yty, ysum, ns)
+    return ols_solve_plain(xtx, xty, yty, ysum, ns, p_eff)
 
 
 # ---------------------------------------------------------------------------
@@ -254,21 +267,41 @@ def ols_solve(xtx, xty, yty, ysum, ns):
 # ---------------------------------------------------------------------------
 
 
-def ols_grid_stats(spec: SimSpec, X: torch.Tensor, y: torch.Tensor, *,
-                   plain: bool = False) -> Dict[str, torch.Tensor]:
-    """All OLS statistics for a batch of sims across the grid: ``t2 (sims,
-    G, k)``, ``overall (sims, G)``, ``converged (sims, G)``.
+def reduced_stats(xtx, xty, colmask):
+    """The statistics of each cell's reduced fit under ``colmask (..., G,
+    p)`` f64 0/1 (the reference's olsfit.py:91-95): X'X with the masked
+    rows and columns zeroed and a unit diagonal, X'y with the masked entries
+    zeroed, and ``p_eff``, the columns each cell keeps."""
+    xtx = xtx * colmask[..., :, None] * colmask[..., None, :]
+    xtx = xtx + torch.diag_embed(1.0 - colmask)
+    return xtx, xty * colmask, colmask.sum(-1)
 
-    ``plain=True`` runs the plain PyTorch versions on any device (used to
-    time and check K2 and K3 against them).
+
+def ols_grid_stats(spec: SimSpec, X: torch.Tensor, y: torch.Tensor, *,
+                   colmask: torch.Tensor = None, plain: bool = False) -> Dict[str, torch.Tensor]:
+    """All OLS statistics for a batch of sims across the grid: ``t2 (sims,
+    G, k)``, ``overall (sims, G)``, ``converged (sims, G)`` and, for a
+    posthoc spec, ``posthoc_t2``.
+
+    ``colmask (sims, G, pf)`` f64 0/1 runs each cell's reduced fit (the
+    reference's :91-95): between K2 and K3 the masked rows and columns of
+    X'X are zeroed and given a unit diagonal, which pins their beta at 0 and
+    takes part in the pivot-ratio rank test as the reference's does, the
+    masked entries of X'y are zeroed, and K3 takes ``p_eff = colmask.sum(-1)``
+    per cell. ``plain=True`` runs the plain PyTorch versions on any device
+    (used to time and check K2 and K3 against them).
     """
     suff = (grid_suffstats_plain if plain else grid_suffstats)(spec, X, y)
     ns = torch.as_tensor(spec.grid, dtype=torch.float64, device=X.device)
+    xtx, xty, p_eff = suff["xtx"], suff["xty"], None
+    if colmask is not None:
+        xtx, xty, p_eff = reduced_stats(xtx, xty, colmask)
     beta, cov, overall, converged = (ols_solve_plain if plain else ols_solve)(
-        suff["xtx"], suff["xty"], suff["yty"], suff["ysum"], ns
+        xtx, xty, suff["yty"], suff["ysum"], ns, p_eff
     )
-    return {
+    out = {
         "t2": waldstats.t2_targets(spec, beta, cov),
         "overall": overall,
         "converged": converged,
     }
+    return waldstats.add_posthoc(out, spec, beta, cov)

@@ -112,15 +112,17 @@ def _lmm(**cluster):
     return dict(estimator="mle", cluster=ClusterStatic("fixed_clusters", 20, 0.25, **cluster))
 
 
+# Factor designs and posthoc contrasts run (tests/test_torch_factors.py);
+# here they are 16-level factors, too wide for the fit kernels (p = 18).
 UNSUPPORTED = {
-    "glm": dict(outcome="binary", estimator="glm", factor_levels=[3], effects=np.zeros(5)),
+    "glm": dict(outcome="continuous", estimator="glm"),
     "glmm": dict(outcome="binary", estimator="glm",
                  cluster=ClusterStatic("fixed_clusters", 20, 0.25)),
     "slopes": _lmm(slopes=(SlopeStatic(1, 0.1, 0.0),)),
     "extra_groupings": _lmm(extra_groupings=(ExtraGroupingStatic("crossed", 10, 0.15),)),
-    "factors": dict(factor_levels=[3], effects=np.zeros(5)),
-    "posthoc": dict(factor_levels=[3], effects=np.zeros(5),
-                    posthoc=(PosthocStatic(0, 3, ((2, 3),)),)),
+    "factors": dict(factor_levels=[16], effects=np.zeros(18)),
+    "posthoc": dict(factor_levels=[16], effects=np.zeros(18),
+                    posthoc=(PosthocStatic(0, 16, ((3, 4),)),)),
     "heterogeneity": dict(scenario=ScenarioStatic(heterogeneity=0.2)),
     "heteroskedasticity": dict(scenario=ScenarioStatic(heteroskedasticity_ratio=2.0)),
     "scenario_swaps": dict(scenario=ScenarioStatic(distribution_change_prob=0.5)),

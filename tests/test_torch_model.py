@@ -86,8 +86,8 @@ def test_scenarios_raise_before_any_run(runs):
 
 
 @pytest.mark.parametrize("formula,family,types,item", [
-    ("y ~ x1 + g", "logit", "g=(factor,3)", "A8.2"),
-    ("y ~ x1 + g", "ols", "g=(factor,3)", "A8"),
+    ("y ~ x1 + g", "logit", "g=(factor,16)", "B10"),
+    ("y ~ x1 + g", "ols", "g=(factor,16)", "B10"),
     ("y ~ x1 + x2", "ols", "x2=right_skewed", "A10"),
 ])
 def test_designs_outside_the_port_raise_before_any_run(runs, formula, family, types, item):
