@@ -35,15 +35,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
    of a sparse and of a separated factor design) and K8 on synthetic rows
    (rates up to 20, above 20 and 0, uniforms at the clamp) and on the
    Poisson design's rows; K1 also at the second fill of a design with a
-   sampled factor (RESID and FACTOR words);
+   sampled factor (RESID and FACTOR words), at the three fills of the
+   realistic LMM (its long normals with a heavy-tailed intercept and the
+   residual swap's chi-square planes, its short normals, the words of its
+   swap uniforms) and at a plan of 33 streams, which
+   ``rng.fill_streams_kernel`` splits into two K1 launches (counted);
 4. drive the main path through ``lower`` and ``run_batch(device="cuda")``:
    the 10,000-replicate random-intercept LMM headline (base seed 2137), the
    OLS arm, the 8-point power curve and the GLM arm (logit, Bonferroni),
    with every kernel's launch count set to 0 before each arm and read after
    (the GLM arm must launch K1 twice and K6 once); then check 1,024-sim
    counts against golden counts of the JAX reference (at most one flip per
-   entry);
-5. time each kernel (K1 and K2 at the LMM, OLS and curve arms' shapes, K3
+   entry); then the scenario arm (``SCENARIO_ARMS``: heterogeneity and a
+   residual swap, 40,000 sims, counted on its own), its power held within
+   1 pp of a NumPy oracle of 400,000 draws and its 1,024-sim counts
+   against the reference's;
+5. time each kernel (K1 and K2 at the LMM, OLS and curve arms' shapes, K1
+   also at the realistic LMM's long and short normal fills, K3
    at the OLS and curve shapes and at a launch of the README model's
    sample-size flow, K4 at the LMM's, K6 at the GLM arm's, at a launch of
    the logit sample-size flow and at both launches of the logit factor
@@ -57,27 +65,33 @@ Phases, each fatal on failure (exit code != 0, no result line):
    same statistics at the OLS shape; with ``--compare LABEL=DIR`` (another
    ``csrc`` directory, such as the parent commit's; repeatable) its K1, K3
    and K6 are built too, checked against this tree's and timed beside them
-   in turns (other, this, this, other); then each arm's wall, and a profile
-   of each arm (wall median of 7 calls, busy share, largest device items);
-6. drive the eleven user flows of ``MODEL_FLOWS`` through
+   in turns (other, this, this, other); K1 at the realistic LMM's long
+   normals with its cluster streams padded in one launch against them in a
+   launch of their own; then each arm's wall, and a profile of each arm
+   (wall median of 7 calls, busy share, largest device items);
+6. drive the fourteen user flows of ``MODEL_FLOWS`` through
    ``mcpower_tpu_torch.MCPower`` on the card (the random-intercept LMM's
    and the OLS model's ``find_power`` and ``find_sample_size``, the logit
    model's ``find_power`` and ``find_sample_size``, the Poisson model's
    ``find_power``, README flow 1's ``find_power`` and ``find_sample_size``
-   as written, the Tukey ANOVA and the logit model with a rare factor
-   level's ``find_sample_size``; 10,000 sims, base seed 2137), each with
-   every launch count set to 0 before it and read after (the logit factor
-   flow must launch K6 twice a chunk, the second the fallback's); check
+   as written, the Tukey ANOVA, the logit model with a rare factor
+   level's ``find_sample_size``, and ``scenarios=True`` (optimistic,
+   realistic, doomer) on README flow 1's ``find_sample_size`` as written,
+   the LMM's and the logit model's ``find_power``; 10,000 sims, base seed
+   2137), each with every launch count set to 0 before it and read after
+   (the logit factor flow must launch K6 twice a chunk, the second the
+   fallback's; K1 as often a chunk as each scenario's fill plan says); check
    1,024-sim results against
    golden values of the JAX reference's ``MCPower`` (at most one flip per
    count) and their result trees against the plain path's on the CPU;
    print each flow's wall median (range) of 7 calls, the split into
    projection, lowering, runner (run_batch inside it) and packaging, the
    chunk count, the busy share and the same design's one-chunk
-   ``run_batch`` wall;
+   ``run_batch`` wall (per scenario);
 7. print the ``kernels`` JSON line (launches on each kernel's path: the
    arms' for K1-K4 and K6, the Poisson flow's for K8; and by arm and by
-   flow, with K6's fallback launches by flow), then as the last line
+   flow, with K6's fallback launches by flow and K1's launches a chunk of
+   each flow's scenarios), then as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.
@@ -142,6 +156,75 @@ DESIGNS = {
     ),
 }
 
+# The scenario arm (tests/test_ols_power.py:198): one normal predictor,
+# beta 0.55, N = 100, alpha 5e-7, heterogeneity 0.3 and a residual swap
+# (probability 0.5) over t(8) and chi-square(8); phase 4 holds its
+# rejection rate at SCENARIO_SIMS sims against a NumPy oracle of its own.
+SCENARIO_ARMS = {
+    "ols_composed_scenario": dict(
+        grid=[100],
+        alpha=5e-7,
+        var_types=["normal"],
+        effects=[0.0, 0.55],
+        target_cols=[1],
+        scenario=dict(label="robust5", heterogeneity=0.3, residual_change_prob=0.5,
+                      residual_dists=("high_kurtosis", "right_skewed"), residual_df=8.0),
+    ),
+}
+
+# The realistic scenario (config.SCENARIO_PRESETS) on the LMM headline, as
+# model_lmm_scenarios lowers it, and with 13 predictors (33 long streams).
+REALISTIC = dict(
+    label="realistic", heterogeneity=0.2, heteroskedasticity_ratio=2.0, correlation_noise_sd=0.15,
+    sampled_factor_proportions=True, truth_start=False, distribution_change_prob=0.5,
+    new_distributions=("right_skewed", "left_skewed", "uniform"),
+    random_effect_dist="heavy_tailed", random_effect_df=10.0, icc_noise_sd=0.15,
+    residual_dists=("high_kurtosis", "right_skewed"), residual_change_prob=0.5, residual_df=8.0,
+)
+SCENARIO_DESIGNS = {
+    "lmm_realistic": dict(DESIGNS["lmm_headline"], scenario=REALISTIC),
+    "lmm_realistic_13": dict(DESIGNS["lmm_headline"], var_types=["normal"] * 13,
+                             corr=np.eye(13).tolist(), effects=[0.0] + [0.1] * 13,
+                             target_cols=list(range(1, 14)), scenario=REALISTIC),
+}
+
+SCENARIO_SIMS = 40_000
+SCENARIO_POWER_PP = 0.01
+ORACLE_DRAWS = 400_000
+
+
+def composed_scenario_oracle(draws: int = ORACLE_DRAWS, chunk: int = 25_000) -> float:
+    """The rejection rate of SCENARIO_ARMS["ols_composed_scenario"] by the
+    independent NumPy simulator of tests/test_ols_power.py:198, with its
+    own generator (seed 424242): effects jittered by het * beta and clipped
+    at 0, residuals swapped with probability 0.5 to t(8) scaled by
+    sqrt(6 / 8) or to chi-square(8) centred and scaled by 1 / 4, the
+    two-sided t test of the slope at alpha 5e-7."""
+    from scipy import stats
+
+    alpha, beta, n, het, swap_prob, df = 5e-7, 0.55, 100, 0.3, 0.5, 8
+    tcrit = stats.t.ppf(1 - alpha / 2, n - 2)
+    rs = np.random.default_rng(424242)
+    t_scale, chi_scale = np.sqrt((df - 2.0) / df), 1.0 / np.sqrt(2.0 * df)
+    hits = 0
+    for _ in range(draws // chunk):
+        x = rs.standard_normal((chunk, n))
+        beta_eff = np.maximum(beta + rs.standard_normal(chunk) * het * beta, 0.0)
+        swap = rs.random(chunk) < swap_prob
+        pick = np.minimum((rs.random(chunk) * 2).astype(int), 1)
+        eps = rs.standard_normal((chunk, n))
+        t_eps = rs.standard_t(df, (chunk, n)) * t_scale
+        chi_eps = (rs.chisquare(df, (chunk, n)) - df) * chi_scale
+        eps = np.where(swap[:, None], np.where(pick[:, None] == 0, t_eps, chi_eps), eps)
+        y = x * beta_eff[:, None] + eps
+        xc, yc = x - x.mean(1, keepdims=True), y - y.mean(1, keepdims=True)
+        sxx = (xc * xc).sum(1)
+        b1 = (xc * yc).sum(1) / sxx
+        resid = yc - b1[:, None] * xc
+        t = b1 / np.sqrt((resid * resid).sum(1) / (n - 2) / sxx)
+        hits += int(np.sum(np.abs(t) > tcrit))
+    return hits / draws
+
 # Cluster layouts the main path does not reach, held against the plain
 # versions in phase 3 only: round-robin and blocked clusters over a two-point
 # grid (K2's per-segment cluster ranges, K4's cells at G > 1).
@@ -192,20 +275,27 @@ K1_CHECKS = {
     "ragged_high_ids": dict(plan=[(0, 3, 13), (3, 0, 3), (1, 0, 201)], sim0=2**31 - 2, seed_hi=3),
     # the second fill of a logit design with a sampled factor: the RESID
     # words and the FACTOR words (class 2) in one launch
-    "logit_factor_words": dict(design="logit_factor_sampled", second=True),
+    "logit_factor_words": dict(design="logit_factor_sampled", fill=1),
+    # the realistic LMM of model_lmm_scenarios: its long normals (2
+    # predictors, CLUSTER 0..10 of the t(10) intercept at 20 rows, RESID
+    # 0..8 of the t(8) / chi-square(8) swap), its short normals (SCENARIO 0
+    # and 5, HET 0) and the words of its swap uniforms (SCENARIO 1..4)
+    "lmm_realistic": dict(design="lmm_realistic", fill=0),
+    "lmm_realistic_short": dict(design="lmm_realistic", fill=1),
+    "lmm_realistic_swaps": dict(design="lmm_realistic", fill=2),
+    # 33 long streams (13 predictors in the realistic LMM): two launches
+    "split_33": dict(design="lmm_realistic_13", fill=0),
 }
 
 
 def k1_table(lower_mod, cluster_cls, datagen_mod, name: str):
-    """``(plan, first sim id, seed_hi)`` of K1_CHECKS[name]; the arms' plans
-    come from ``datagen_mod.stream_plan`` of the lowered design (its
-    ``outcome_plan``, the second fill, where ``second`` is set)."""
+    """``(plan, first sim id, seed_hi)`` of K1_CHECKS[name]; a design's plan
+    is fill ``fill`` (default 0, the long normals) of
+    ``datagen_mod.fill_plan`` of the lowered design."""
     c = K1_CHECKS[name]
     if "design" in c:
         spec, _ = lower_design(lower_mod, cluster_cls, c["design"])
-        if c.get("second"):
-            return datagen_mod.outcome_plan(spec)[1], 0, 0
-        return datagen_mod.stream_plan(spec), 0, 0
+        return datagen_mod.fill_plan(spec)[c.get("fill", 0)][1], 0, 0
     return [tuple(s) for s in c["plan"]], c["sim0"], c["seed_hi"]
 
 
@@ -439,6 +529,11 @@ GOLDEN = {
         ],
         "n_done": 1024,
     },
+    "ols_composed_scenario": {
+        "converged": [1024], "joint_corr": [537], "joint_unc": [537],
+        "nsig_hist_corr": [[487, 537]], "nsig_hist_unc": [[487, 537]],
+        "sig_corr": [[537]], "sig_unc": [[537]], "n_done": 1024,
+    },
     "glm_bonferroni_10k": {
         "converged": [1024], "glm_baseline": [415.28333333333336],
         "joint_corr": [16], "joint_unc": [66],
@@ -508,6 +603,17 @@ MODEL_FLOWS = {
     "model_logit_factor_sample_size": ("logit_factor", "find_sample_size",
                                        dict(from_size=40, to_size=200, by=20),
                                        ("philox_fill", "glm_irls")),
+    # the three scenarios (optimistic, realistic, doomer) of scenarios=True:
+    # README flow 1's last line as written, the LMM's heavy-tailed intercept
+    # and ICC noise, and the logit model's intercept jitter and cold start
+    "model_readme_ols_scenarios": ("readme", "find_sample_size",
+                                   dict(from_size=50, to_size=500, scenarios=True),
+                                   ("philox_fill", "grid_suffstats", "ols_solve")),
+    "model_lmm_scenarios": ("lmm", "find_power", dict(sample_size=200, scenarios=True),
+                            ("philox_fill", "grid_suffstats", "reml_intercept")),
+    "model_logit_scenarios": ("logit", "find_power",
+                              dict(sample_size=300, correction="bonferroni", scenarios=True),
+                              ("philox_fill", "glm_irls")),
 }
 
 
@@ -544,7 +650,9 @@ def flow_summary(res) -> Dict:
     exclusion counts and the separation fallback's count per N (where the
     design has them), the mean tau^2 estimate of an LMM, and for a
     sample-size search the first N reaching the target and the fitted
-    crossing per test."""
+    crossing per test; of a run of several scenarios, these per scenario."""
+    if "scenarios" in res:
+        return {label: flow_summary(r) for label, r in res["scenarios"].items()}
     out = {k: res[k] for k in ("success_counts_uncorrected", "success_counts_corrected",
                                "joint_counts_uncorrected", "joint_counts_corrected",
                                "overall_counts", "posthoc_counts", "factor_exclusion_counts")
@@ -630,20 +738,26 @@ def stage_clock(model_mod, runner_mod, batch_mod):
     (``MCPower._project``), lowering (``contract_to_lowered``), the runner
     (``runner.find_power`` / ``find_sample_size``), ``run_batch`` inside the
     runner, and packaging (``MCPower._package``); also the chunks (calls of
-    ``run_sims``) and the lowered scenarios the runner was given. A stage
+    ``run_sims``), the K1 launches each chunk made (from the wrappers' own
+    count, by the chunk's scenario label) and the lowered scenarios the
+    runner was given. A stage
     entered inside another (packaging projects again for its warnings)
     counts to the outer one. ``clock.take()`` returns what was gathered since
     the last take and starts afresh."""
     from collections import defaultdict
+
+    from mcpower_tpu_torch.engine import kernels
 
     state = {"depth": 0}
 
     class Clock:
         def __init__(self):
             self.ms, self.chunks, self.lowered = defaultdict(float), 0, []
+            self.k1_by_chunk = defaultdict(list)
 
         def take(self):
-            got = dict(ms=dict(self.ms), chunks=self.chunks, lowered=self.lowered)
+            got = dict(ms=dict(self.ms), chunks=self.chunks, lowered=self.lowered,
+                       k1_by_chunk=dict(self.k1_by_chunk))
             self.__init__()
             return got
 
@@ -669,9 +783,14 @@ def stage_clock(model_mod, runner_mod, batch_mod):
         return timed("runner", wrapper)
 
     def counted(fn):
-        def wrapper(*a, **k):
+        def wrapper(spec, *a, **k):
             clock.chunks += 1
-            return fn(*a, **k)
+            before = kernels.counts()["philox_fill"]
+            try:
+                return fn(spec, *a, **k)
+            finally:
+                clock.k1_by_chunk[spec.scenario.label].append(
+                    kernels.counts()["philox_fill"] - before)
         return wrapper
 
     cls = model_mod.MCPower
@@ -829,6 +948,144 @@ MODEL_GOLDEN = {
         "first_achieved": {"x1": None, "group[2]": None, "group[3]": None},
         "fitted": {"x1": None, "group[2]": None, "group[3]": None},
     },
+    # per scenario (optimistic, realistic, doomer) of scenarios=True
+    "model_readme_ols_scenarios": {
+        "optimistic": {
+            "success_counts_uncorrected": [[291, 111, 206, 83, 66], [489, 194, 363, 146, 100],
+                                           [653, 272, 494, 161, 119],
+                                           [773, 319, 605, 194, 154],
+                                           [865, 431, 700, 231, 183],
+                                           [922, 477, 763, 262, 208],
+                                           [959, 546, 840, 310, 245],
+                                           [986, 598, 906, 345, 269],
+                                           [1004, 641, 932, 374, 311],
+                                           [1010, 688, 953, 408, 333],
+                                           [1015, 735, 977, 434, 359],
+                                           [1022, 781, 990, 483, 367]],
+            "success_counts_corrected": [[291, 111, 206, 83, 66], [489, 194, 363, 146, 100],
+                                         [653, 272, 494, 161, 119], [773, 319, 605, 194, 154],
+                                         [865, 431, 700, 231, 183], [922, 477, 763, 262, 208],
+                                         [959, 546, 840, 310, 245], [986, 598, 906, 345, 269],
+                                         [1004, 641, 932, 374, 311],
+                                         [1010, 688, 953, 408, 333],
+                                         [1015, 735, 977, 434, 359],
+                                         [1022, 781, 990, 483, 367]],
+            "joint_counts_uncorrected": [0, 0, 1, 2, 4, 13, 30, 42, 63, 82, 94, 112],
+            "joint_counts_corrected": [0, 0, 1, 2, 4, 13, 30, 42, 63, 82, 94, 112],
+            "overall_counts": [642, 943, 1015, 1024, 1024, 1024, 1024, 1024, 1024, 1024, 1024,
+                               1024],
+            "factor_exclusion_counts": [[0], [0], [0], [0], [0], [0], [0], [0], [0], [0], [0],
+                                        [0]],
+            "first_achieved": {"x1": 214, "x2": None, "group[2]": 296, "group[3]": None,
+                               "x1:x2": None},
+            "fitted": {"x1": 193.58913043478262, "x2": None, "group[2]": 284.9246753246753,
+                       "group[3]": None, "x1:x2": None},
+        },
+        "realistic": {
+            "success_counts_uncorrected": [[288, 112, 203, 92, 77], [470, 200, 358, 126, 106],
+                                           [619, 277, 462, 150, 124],
+                                           [739, 339, 580, 216, 158],
+                                           [827, 420, 661, 244, 191],
+                                           [885, 479, 736, 275, 209],
+                                           [925, 545, 811, 321, 231],
+                                           [956, 586, 847, 350, 262],
+                                           [969, 637, 878, 383, 305],
+                                           [980, 684, 907, 412, 318],
+                                           [988, 719, 931, 447, 337],
+                                           [996, 757, 954, 486, 351]],
+            "success_counts_corrected": [[288, 112, 203, 92, 77], [470, 200, 358, 126, 106],
+                                         [619, 277, 462, 150, 124], [739, 339, 580, 216, 158],
+                                         [827, 420, 661, 244, 191], [885, 479, 736, 275, 209],
+                                         [925, 545, 811, 321, 231], [956, 586, 847, 350, 262],
+                                         [969, 637, 878, 383, 305], [980, 684, 907, 412, 318],
+                                         [988, 719, 931, 447, 337], [996, 757, 954, 486, 351]],
+            "joint_counts_uncorrected": [0, 0, 1, 6, 6, 22, 31, 42, 60, 74, 90, 112],
+            "joint_counts_corrected": [0, 0, 1, 6, 6, 22, 31, 42, 60, 74, 90, 112],
+            "overall_counts": [641, 912, 991, 1015, 1021, 1023, 1023, 1024, 1024, 1024, 1024,
+                               1024],
+            "factor_exclusion_counts": [[0], [0], [0], [0], [0], [0], [0], [0], [0], [0], [0],
+                                        [0]],
+            "first_achieved": {"x1": 214, "x2": None, "group[2]": 337, "group[3]": None,
+                               "x1:x2": None},
+            "fitted": {"x1": 210.3659090909091, "x2": None, "group[2]": 305.33888888888896,
+                       "group[3]": None, "x1:x2": None},
+        },
+        "doomer": {
+            "success_counts_uncorrected": [[298, 130, 225, 91, 82], [438, 221, 372, 139, 130],
+                                           [560, 302, 472, 169, 151],
+                                           [653, 373, 572, 214, 187],
+                                           [718, 430, 625, 252, 198],
+                                           [773, 467, 685, 289, 217],
+                                           [803, 525, 734, 335, 247],
+                                           [825, 567, 776, 358, 277],
+                                           [856, 604, 808, 396, 295],
+                                           [870, 640, 846, 415, 323],
+                                           [881, 660, 866, 445, 336],
+                                           [899, 700, 875, 481, 359]],
+            "success_counts_corrected": [[298, 130, 225, 91, 82], [438, 221, 372, 139, 130],
+                                         [560, 302, 472, 169, 151], [653, 373, 572, 214, 187],
+                                         [718, 430, 625, 252, 198], [773, 467, 685, 289, 217],
+                                         [803, 525, 734, 335, 247], [825, 567, 776, 358, 277],
+                                         [856, 604, 808, 396, 295], [870, 640, 846, 415, 323],
+                                         [881, 660, 866, 445, 336], [899, 700, 875, 481, 359]],
+            "joint_counts_uncorrected": [0, 0, 2, 6, 10, 12, 18, 32, 54, 60, 72, 96],
+            "joint_counts_corrected": [0, 0, 2, 6, 10, 12, 18, 32, 54, 60, 72, 96],
+            "overall_counts": [636, 873, 954, 990, 1003, 1017, 1015, 1019, 1021, 1022, 1022,
+                               1023],
+            "factor_exclusion_counts": [[0], [0], [0], [0], [0], [0], [0], [0], [0], [0], [0],
+                                        [0]],
+            "first_achieved": {"x1": 337, "x2": None, "group[2]": 419, "group[3]": None,
+                               "x1:x2": None},
+            "fitted": {"x1": 326.1909090909092, "x2": None, "group[2]": 390.0842105263158,
+                       "group[3]": None, "x1:x2": None},
+        },
+    },
+    "model_lmm_scenarios": {
+        "optimistic": {
+            "success_counts_uncorrected": [[994, 744]],
+            "success_counts_corrected": [[994, 744]],
+            "joint_counts_uncorrected": [719],
+            "joint_counts_corrected": [719],
+            "tau_squared_hat_mean": [0.24906913729523056],
+        },
+        "realistic": {
+            "success_counts_uncorrected": [[960, 718]],
+            "success_counts_corrected": [[960, 718]],
+            "joint_counts_uncorrected": [664],
+            "joint_counts_corrected": [664],
+            "tau_squared_hat_mean": [0.2594011416867773],
+        },
+        "doomer": {
+            "success_counts_uncorrected": [[852, 670]],
+            "success_counts_corrected": [[852, 670]],
+            "joint_counts_uncorrected": [545],
+            "joint_counts_corrected": [545],
+            "tau_squared_hat_mean": [0.2996262323525873],
+        },
+    },
+    "model_logit_scenarios": {
+        "optimistic": {
+            "success_counts_uncorrected": [[713, 381, 249]],
+            "success_counts_corrected": [[551, 223, 131]],
+            "joint_counts_uncorrected": [66],
+            "joint_counts_corrected": [16],
+            "overall_counts": [802],
+        },
+        "realistic": {
+            "success_counts_uncorrected": [[666, 364, 254]],
+            "success_counts_corrected": [[513, 226, 136]],
+            "joint_counts_uncorrected": [62],
+            "joint_counts_corrected": [16],
+            "overall_counts": [781],
+        },
+        "doomer": {
+            "success_counts_uncorrected": [[589, 345, 248]],
+            "success_counts_corrected": [[440, 214, 129]],
+            "joint_counts_uncorrected": [52],
+            "joint_counts_corrected": [12],
+            "overall_counts": [780],
+        },
+    },
 }
 
 # The f32 generation path's log may differ by an ULP between XLA:CPU and
@@ -886,10 +1143,25 @@ KERNEL_META = {
 ARM_KERNELS = ("philox_fill", "grid_suffstats", "ols_solve", "reml_intercept", "glm_irls")
 
 
+def k1_launches_per_chunk(what: str, by_chunk: Dict[str, list], lowered, datagen_mod) -> Dict:
+    """K1 launches a chunk by scenario label, as counted in each chunk
+    (``stage_clock``'s ``k1_by_chunk``). Fails unless every scenario ran
+    chunks and each of its chunks launched K1 as often as its fill plan says
+    (``datagen.k1_launches``)."""
+    want = {sp.scenario.label: datagen_mod.k1_launches(sp) for sp, _ in lowered}
+    check(sorted(by_chunk) == sorted(want),
+          f"{what}: K1 counted for scenarios {sorted(by_chunk)}, ran {sorted(want)}")
+    for label, counts in by_chunk.items():
+        check(counts and set(counts) == {want[label]},
+              f"{what} {label}: K1 launches by chunk {counts}, {want[label]} a chunk planned")
+    return {label: by_chunk[label][0] for label in want}
+
+
 def lower_design(lower_mod, cluster_cls, name: str):
     """``lower_mod.lower`` on design ``name``; works for either package. A
     ``truth_start`` entry becomes the scenario's."""
-    kw = dict({**DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS, **FACTOR_DESIGNS, **K6_DESIGNS}[name])
+    kw = dict({**DESIGNS, **SCENARIO_ARMS, **SCENARIO_DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS,
+               **FACTOR_DESIGNS, **K6_DESIGNS}[name])
     for key in ("corr", "effects"):
         if key in kw:
             kw[key] = np.asarray(kw[key], dtype=np.float64)
@@ -1146,12 +1418,14 @@ def rel_err_finite(name: str, a, b) -> float:
 PROFILER_ATTEMPTS = 3
 
 
-def device_events(run, what: str, match: str = "", cpu: bool = False, before=None) -> list:
+def device_events(run, what: str, match: str = "", cpu: bool = False, before=None,
+                  host: list = None) -> list:
     """The CUDA events of ``run()`` under torch.profiler whose name contains
-    ``match`` (``cpu`` traces the host too). A window in which the profiler
-    returned no such event (seen once on an H100, between two windows of the
-    same run that had them) is profiled again, after ``before()``, up to
-    PROFILER_ATTEMPTS times; then the phase fails."""
+    ``match`` (``cpu`` traces the host too, and its events go to ``host``
+    where given). A window in which the profiler returned no such event
+    (seen once on an H100, between two windows of the same run that had
+    them) is profiled again, after ``before()``, up to PROFILER_ATTEMPTS
+    times; then the phase fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1165,24 +1439,48 @@ def device_events(run, what: str, match: str = "", cpu: bool = False, before=Non
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and match in e.name]
         if events:
+            if host is not None:
+                host[:] = [e for e in prof.events() if e.device_type == DeviceType.CPU]
             return events
         print(f"the profiler saw no device time for {what} (attempt {attempt} of "
               f"{PROFILER_ATTEMPTS})", flush=True)
     raise SmokeFailure(f"the profiler saw no device time for {what}")
 
 
-def device_ms(fn, copies, reps: int, kernel: str = "") -> float:
+def device_ms(fn, copies, reps: int, kernel: str = "", launches: int = None) -> float:
     """Mean device time per call of ``fn``, one copy of its inputs after
     another: the CUDA kernels it launches (those whose name contains
     ``kernel``, or all), summed from torch.profiler's device events. Gaps
-    between kernels, where the device waits for the host, are not
-    counted."""
+    between kernels, where the device waits for the host, are not counted.
+    Where the call's ``launches`` of the wrapped kernel ``kernel`` are known,
+    the wrapper's own launch count is read around each profiled window and
+    must be ``reps * launches``; the time is then the mean event times
+    ``launches``: the profiler has been seen on an H100 to drop some of a
+    window's events (2 of 20 K6 launches, in three windows running) that
+    the launch count shows were made, which a mean over the events seen
+    does not feel."""
+    from mcpower_tpu_torch.engine import kernels
+
+    counted = []
+
     def calls():
+        name = kernel.removesuffix("_kernel")
+        before = kernels.counts()[name] if launches else 0
         for i in range(reps):
             fn(*copies[i % len(copies)])
+        if launches:
+            counted.append(kernels.counts()[name] - before)
 
     events = device_events(calls, kernel or "the plain version", kernel,
                            before=lambda: _warm_then_flush(fn, copies))
+    if launches:
+        check(counted[-1] == reps * launches,
+              f"{kernel}: {counted[-1]} launches counted in the profiled window, "
+              f"{reps * launches} expected")
+        if len(events) != reps * launches:
+            print(f"the profiler saw {len(events)} events of {kernel} where its wrapper counted "
+                  f"{counted[-1]} launches; its time is the events' mean", flush=True)
+        return sum(e.time_range.elapsed_us() for e in events) / len(events) * launches / 1e3
     return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
 
 
@@ -1238,15 +1536,27 @@ def profile_arm(run, after_each=None) -> Dict:
         walls.append((time.perf_counter() - t0) * 1e3)
         if after_each is not None:
             after_each()
+    # two profiled calls, keeping the one whose window holds more kernels:
+    # a window has been seen to drop part of a call's events
+    host: list = []
+    events = []
+    for _ in range(2):
+        got_host: list = []
+        got = device_events(run, "an arm", cpu=True, host=got_host)
+        if len(got) > len(events):
+            events, host = got, got_host
     by_name: Dict[str, float] = defaultdict(float)
-    launches = 0
-    for e in device_events(run, "an arm", cpu=True):
+    for e in events:
         name = re.split(r"[(<]", e.name.replace("(anonymous namespace)::", ""))[0]
         by_name[name[:48]] += e.time_range.elapsed_us() / 1e3
-        launches += 1
+    # host time by operator: self time of the aten and other CPU ops
+    by_host: Dict[str, float] = defaultdict(float)
+    for e in host:
+        by_host[e.name[:48]] += e.self_cpu_time_total / 1e3
     return dict(median_ms=statistics.median(walls), min_ms=min(walls), max_ms=max(walls), walls=walls,
-                device_ms=sum(by_name.values()), launches=launches,
-                items=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+                device_ms=sum(by_name.values()), launches=len(events),
+                items=sorted(by_name.items(), key=lambda kv: -kv[1])[:6],
+                host_items=sorted(by_host.items(), key=lambda kv: -kv[1])[:8])
 
 
 def _ptxas_by_kernel(log: str) -> Dict[str, Dict[str, int]]:
@@ -1439,7 +1749,7 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
 
     from mcpower_tpu_torch import MCPower
     from mcpower_tpu_torch import model as model_mod
-    from mcpower_tpu_torch.engine import batch, kernels
+    from mcpower_tpu_torch.engine import batch, datagen, kernels
     from mcpower_tpu_torch.orchestrator import runner
 
     dev = "cuda"
@@ -1466,11 +1776,18 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
             check(fallback == got["chunks"] and launched["glm_irls"] == 2 * got["chunks"],
                   f"flow {name}: {launched['glm_irls']} K6 launches, {fallback} of them the "
                   f"fallback's, in {got['chunks']} chunks")
-        check(res["n_sims"] == N_SIMS, f"flow {name}: n_sims {res['n_sims']}")
-        check(min(res["convergence_rate"]) > 0.9, f"flow {name}: {res['convergence_rate']}")
-        powers = np.asarray(res["powers"]["corrected"], dtype=np.float64)
-        check(powers.shape == (len(res["sample_sizes"]), len(res["target_labels"]))
-              and bool(np.isfinite(powers).all()), f"flow {name}: powers {powers.shape}")
+        # K1 launches of each chunk, counted by scenario, against each
+        # scenario's plan; the kernels line prints the counted values
+        k1_per_chunk = k1_launches_per_chunk(name, got["k1_by_chunk"], lowered, datagen)
+        check(launched["philox_fill"] == sum(map(sum, got["k1_by_chunk"].values())),
+              f"flow {name}: {launched['philox_fill']} K1 launches, "
+              f"{got['k1_by_chunk']} counted by chunk")
+        for part in res["scenarios"].values() if "scenarios" in res else [res]:
+            check(part["n_sims"] == N_SIMS, f"flow {name}: n_sims {part['n_sims']}")
+            check(min(part["convergence_rate"]) > 0.9, f"flow {name}: {part['convergence_rate']}")
+            powers = np.asarray(part["powers"]["corrected"], dtype=np.float64)
+            check(powers.shape == (len(part["sample_sizes"]), len(part["target_labels"]))
+                  and bool(np.isfinite(powers).all()), f"flow {name}: powers {powers.shape}")
         res.summary()  # the report renders
         if name in FLOW_DESIGNS:
             differ = lowered_differences(lowered[0], specs[FLOW_DESIGNS[name]])
@@ -1496,9 +1813,8 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
                                                     "packaging"))
             for w, s in zip(prof["walls"], splits))
         chunks = splits[0]["chunks"]
-        spec_, arr_ = lowered[0]
-        one = profile_arm(lambda: batch.run_batch(spec_, arr_, N_SIMS, SEED, chunk_size=N_SIMS,
-                                                  device=dev))
+        one = profile_arm(lambda: [batch.run_batch(sp, ar, N_SIMS, SEED, chunk_size=N_SIMS,
+                                                   device=dev) for sp, ar in lowered])
         busy = prof["device_ms"] / prof["median_ms"]
         flows[name] = dict(
             wall_median_ms=prof["median_ms"], wall_min_ms=prof["min_ms"],
@@ -1507,8 +1823,10 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
             one_chunk_run_batch_ms=dict(median=one["median_ms"], min=one["min_ms"],
                                         max=one["max_ms"], busy=one["device_ms"] / one["median_ms"]),
             first_call_ms=first_ms, launches=launched, fallback_launches=fallback,
-            golden_flips=flips)
+            golden_flips=flips, k1_launches_per_chunk=k1_per_chunk,
+            host_items_ms=dict(prof["host_items"]))
         items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
+        host = ", ".join(f"{k} {v:.3f}" for k, v in prof["host_items"])
         print(f"flow {name} ({N_SIMS} sims; {smi}): wall median {prof['median_ms']:.3f} ms "
               f"(range {prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {PROFILE_REPS} calls); split "
               f"(medians, ms): projection {split['projection']:.3f}, lowering "
@@ -1516,10 +1834,12 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
               f"{split['run_batch']:.3f}), packaging {split['packaging']:.3f}, other "
               f"{split['other']:.3f}; {chunks} chunks; device kernel time "
               f"{prof['device_ms']:.3f} ms in {prof['launches']} kernels, busy {busy:.1%} of the "
-              f"median wall; the same design's run_batch in one chunk: median "
+              f"median wall; K1 launches a chunk {k1_per_chunk}; the same design's run_batch "
+              f"in one chunk (per scenario): median "
               f"{one['median_ms']:.3f} ms (range {one['min_ms']:.3f}-{one['max_ms']:.3f}), busy "
               f"{one['device_ms'] / one['median_ms']:.1%}; first call {first_ms:.1f} ms; largest "
-              f"device items (ms): {items}", flush=True)
+              f"device items (ms): {items}; largest host items of the profiled call (self "
+              f"time under the profiler, ms): {host}", flush=True)
     return flows
 
 
@@ -1540,10 +1860,12 @@ def main(argv=None) -> int:
         return 2
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
+    from mcpower_tpu_torch import model as model_mod
     from mcpower_tpu_torch.engine import (
         batch, datagen, glmfit, kernels, lower, mixedfit, olsfit, rng, waldstats,
     )
     from mcpower_tpu_torch.engine.spec import ClusterStatic
+    from mcpower_tpu_torch.orchestrator import runner
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -1600,9 +1922,12 @@ def main(argv=None) -> int:
         plan_, sim0, seed_hi = k1_table(lower, ClusterStatic, datagen, name)
         n = N_SIMS if name in DESIGNS else GOLDEN_SIMS
         ids = torch.arange(sim0, sim0 + n, dtype=torch.int64, device=dev)
-        ulps = []
+        ulps, launched = [], set()
         for mode in (rng.MODE_WORDS, rng.MODE_OPEN_UNIFORM, rng.MODE_NORMAL):
+            # a plan of more than 32 streams takes several K1 launches
+            before = kernels.counts()["philox_fill"]
             got = rng.fill_streams_kernel(SEED, seed_hi, ids, plan_, mode)
+            launched.add(kernels.counts()["philox_fill"] - before)
             want = rng.fill_streams_plain(SEED, seed_hi, ids, plan_, mode)
             check(got.shape == want.shape and got.dtype == want.dtype,
                   f"K1 {name} mode {mode}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
@@ -1613,8 +1938,11 @@ def main(argv=None) -> int:
             if mode == rng.MODE_NORMAL:
                 k1_err = max(k1_err, (got - want).abs().max().item())
             check(ulps[-1] <= NORMAL_MAX_ULP, f"K1 {name} mode {mode}: {ulps[-1]} ULP from the plain fill")
-        print(f"K1 philox_fill {name} ({n} sims from id {sim0}, seed_hi {seed_hi}, plan {plan_}): "
-              f"words identical; uniforms and normals max ULP {ulps[0]} and {ulps[1]}", flush=True)
+        launches = -(-len(plan_) // rng.MAX_STREAMS)
+        check(launched == {launches}, f"K1 {name}: {launched} launches a fill, {launches} expected")
+        print(f"K1 philox_fill {name} ({n} sims from id {sim0}, seed_hi {seed_hi}, plan {plan_}, "
+              f"{launches} launch{'es' if launches > 1 else ''} a fill, counted): words identical; "
+              f"uniforms and normals max ULP {ulps[0]} and {ulps[1]}", flush=True)
     records["philox_fill"] = {"max_abs_err": k1_err}
 
     X, y, _ = datagen.generate_batch(lmm, lmm_arr, SEED, 0, sim_ids, plain=True)
@@ -1876,8 +2204,7 @@ def main(argv=None) -> int:
           f"glm_bonferroni_10k: K1 launched {glm_launches['philox_fill']} times (2 expected), "
           f"K6 {glm_launches['glm_irls']} (1 expected)")
 
-    for name in DESIGNS:
-        spec_, arr_ = specs[name]
+    def check_golden(name, spec_, arr_):
         counts = batch.run_batch(spec_, arr_, GOLDEN_SIMS, SEED, chunk_size=GOLDEN_SIMS, device=dev)
         flips = []
         for key, want in GOLDEN[name].items():
@@ -1897,6 +2224,47 @@ def main(argv=None) -> int:
         check(not extra, f"{name}: counts {sorted(extra)} not in the golden set")
         print(f"golden {name} at {GOLDEN_SIMS} sims: "
               f"{'identical' if not flips else 'flips ' + '; '.join(flips)}", flush=True)
+
+    for name in DESIGNS:
+        check_golden(name, *specs[name])
+
+    # The scenario arm: SCENARIO_SIMS sims through the kernels, counted on
+    # their own; the rejection rate against the NumPy oracle; the
+    # GOLDEN_SIMS counts against the reference's.
+    scenario_arms = {}
+    for name in SCENARIO_ARMS:
+        spec_, arr_ = lower_design(lower, ClusterStatic, name)
+        batch.run_batch(spec_, arr_, N_SIMS, 1, chunk_size=N_SIMS, device=dev)  # warm-up
+        kernels.reset_counts()
+        with stage_clock(model_mod, runner, batch) as clock:
+            t0 = time.perf_counter()
+            counts = batch.run_batch(spec_, arr_, SCENARIO_SIMS, SEED, chunk_size=N_SIMS,
+                                     device=dev)
+            wall = time.perf_counter() - t0
+        launches_by_arm[name] = kernels.counts()
+        for k in ("philox_fill", "grid_suffstats", "ols_solve"):
+            check(launches_by_arm[name][k] > 0, f"{name}: kernel {k} was not launched")
+        got = clock.take()
+        chunks = got["chunks"]
+        check(chunks == -(-SCENARIO_SIMS // N_SIMS), f"{name}: {chunks} chunks")
+        k1_per_chunk = k1_launches_per_chunk(name, got["k1_by_chunk"], [(spec_, arr_)], datagen)
+        k1_per_chunk = k1_per_chunk[spec_.scenario.label]
+        check(int(counts["n_done"]) == SCENARIO_SIMS, f"{name}: n_done {counts['n_done']}")
+        p_hat = float(counts["sig_unc"][0, 0]) / SCENARIO_SIMS
+        t0 = time.perf_counter()
+        oracle = composed_scenario_oracle()
+        check(abs(p_hat - oracle) < SCENARIO_POWER_PP,
+              f"{name}: power {p_hat:.4f} against the oracle's {oracle:.4f}")
+        scenario_arms[name] = dict(power=p_hat, oracle=oracle, wall_ms=wall * 1e3,
+                                   k1_launches_per_chunk=k1_per_chunk)
+        print(f"arm {name}: {wall * 1e3:.1f} ms for {SCENARIO_SIMS} sims through the kernels "
+              f"({chunks} chunks, K1 launches {k1_per_chunk} a chunk, counted: "
+              f"{datagen.fill_plan(spec_)}); power {p_hat:.4f}, NumPy oracle "
+              f"({ORACLE_DRAWS} draws, {time.perf_counter() - t0:.1f} s) {oracle:.4f}, "
+              f"within {SCENARIO_POWER_PP:.0%}", flush=True)
+        check_golden(name, spec_, arr_)
+        for k in launches:
+            launches[k] += launches_by_arm[name][k]
 
     # --- phase 5: timings at the main path's shapes ---
     reps = 20
@@ -1925,8 +2293,13 @@ def main(argv=None) -> int:
 
     timing = []  # (record, shape, kernel, plain, inputs, (bound ms, bound by), library call)
     bound_lines = []
-    for arm, name in (("lmm", "lmm_headline"), ("ols", "ols_10k"), ("curve", "curve_5pred_8grid")):
-        plan_ = datagen.stream_plan(specs[name][0])
+    # K1 at the arms' fills and at the realistic LMM's (model_lmm_scenarios):
+    # its long normals, the largest of its fills, and its short normals
+    fills_lr = datagen.fill_plan(lower_design(lower, ClusterStatic, "lmm_realistic")[0])
+    k1_plans = [(arm, datagen.stream_plan(specs[name][0])) for arm, name in (
+        ("lmm", "lmm_headline"), ("ols", "ols_10k"), ("curve", "curve_5pred_8grid"))]
+    k1_plans += [("lmm_realistic", fills_lr[0][1]), ("short", fills_lr[1][1])]
+    for arm, plan_ in k1_plans:
         z = k1(plan_)[0](sim_ids)
         new_b, old_b = k1_bound(plan_, N_SIMS, z), k1_bound_padded(z)
         bound_lines.append(f"{arm} {new_b[0]:.4f} ms ({new_b[1]}; padded {old_b[0]:.4f} ms)")
@@ -2009,7 +2382,7 @@ def main(argv=None) -> int:
             kname = key.split()[0] + "_kernel"  # the CUDA function's name
             copies = input_copies(inputs)
             plain_ms = device_ms(fp, copies, 3)
-            ms = device_ms(fk, copies, reps, kname)
+            ms = device_ms(fk, copies, reps, kname, launches=1)
             plain_ms = (plain_ms + device_ms(fp, copies, 3)) / 2.0
             call_ms = cuda_ms(fk, copies, reps)
             library_ms = device_ms(lib[0], input_copies(lib[1]), reps) if lib is not None else None
@@ -2033,10 +2406,11 @@ def main(argv=None) -> int:
         def fill(ids, mode=mode):
             return rng.fill_streams_kernel(SEED, 0, ids, plan_l, mode)
         copies = input_copies((sim_ids,))
-        by_mode[label] = {"ms": device_ms(fill, copies, reps, "philox_fill_kernel")}
+        by_mode[label] = {"ms": device_ms(fill, copies, reps, "philox_fill_kernel", launches=1)}
         for lb, ks in others.items():
             with kernel_swapped(kernels, "philox_fill", ks["philox_fill"]):
-                by_mode[label][f"{lb}_ms"] = device_ms(fill, copies, reps, "philox_fill_kernel")
+                by_mode[label][f"{lb}_ms"] = device_ms(fill, copies, reps, "philox_fill_kernel",
+                                                       launches=1)
     z_l = rng.fill_streams_kernel(SEED, 0, sim_ids, plan_l, rng.MODE_NORMAL)
     fill_ms = device_ms(lambda t: t.fill_(0.0), input_copies((z_l,)), reps)
     by_mode["write_yardstick"] = {"ms": fill_ms, "bytes": nbytes(z_l)}
@@ -2077,7 +2451,7 @@ def main(argv=None) -> int:
             turns = []
             for k in (ks[name], kernels.KERNELS[name], kernels.KERNELS[name], ks[name]):
                 with kernel_swapped(kernels, name, k):
-                    turns.append(device_ms(fk, copies, reps, name + "_kernel"))
+                    turns.append(device_ms(fk, copies, reps, name + "_kernel", launches=1))
             o1, n1, n2, o2 = turns
             timed[key].setdefault("compare", {})[lb] = dict(ms=(o1 + o2) / 2.0, turns=[o1, o2],
                                                              this_turns=[n1, n2])
@@ -2093,7 +2467,8 @@ def main(argv=None) -> int:
     # K1's line is the LMM fill and K3's the curve, the shapes the earlier
     # tables report; K2's the OLS shape, the one where a single library call
     # computes the same function; by_arm holds every arm's shape
-    for name, top, arms in (("philox_fill", "lmm", ("lmm", "ols", "curve")),
+    for name, top, arms in (("philox_fill", "lmm", ("lmm", "ols", "curve", "lmm_realistic",
+                                                    "short")),
                             ("grid_suffstats", "ols", ("lmm", "ols", "curve")),
                             ("ols_solve", "curve", ("ols", "curve", "readme"))):
         records[name].update(timed[f"{name} {top}"],
@@ -2141,6 +2516,10 @@ def main(argv=None) -> int:
             **({"fallback_launches_by_flow": {f: v["fallback_launches"] for f, v in flows.items()
                                               if v["fallback_launches"]}}
                if name == "glm_irls" else {}),
+            **({"launches_per_chunk_by_flow": {f: v["k1_launches_per_chunk"]
+                                               for f, v in flows.items()},
+                "scenario_arms": scenario_arms}
+               if name == "philox_fill" else {}),
         })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

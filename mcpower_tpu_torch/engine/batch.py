@@ -3,9 +3,11 @@
 The port of ``mcpower_tpu.engine.batch`` for this slice. Where the reference
 vmaps ``run_one_sim`` over sims inside one jitted program, :func:`run_sims`
 runs each stage once over a chunk of sims with the sim axis written out:
-the Philox fill (K1; a second fill for a logit or count outcome, whose
-counts go through K8, and for sampled factor levels), the design and
-outcome, the fit (K2 + K3 for OLS, K2 + K4 for the random-intercept LMM, K6
+the Philox fills (K1: the long normals; a words or uniforms fill for a
+logit or count outcome, whose counts go through K8, a uniform residual and
+sampled factor levels; a scenario's short SCENARIO and HET streams), the
+scenario's per-sim design, the design and outcome, the fit (K2 + K3 for
+OLS, K2 + K4 for the random-intercept LMM, K6
 for an unclustered GLM, with a second K6 launch for the separation fallback
 of a design with factors), t^2 thresholds and corrections (with the
 reduced-df crit rows of cells whose sparse factor levels were excluded),

@@ -1,28 +1,32 @@
 """Batched dataset synthesis: the generation half of the main path.
 
-The port of ``mcpower_tpu.engine.datagen.generate`` for the designs of this
-slice, with the sim axis written out: one call builds ``X (sims, max_n, P)
-f32``, ``y (sims, max_n) f32`` and the cluster ids for a batch of sims.
+The port of ``mcpower_tpu.engine.datagen.generate``, with the sim axis
+written out: one call builds ``X (sims, max_n, P) f32``, ``y (sims, max_n)
+f32`` and the cluster ids for a batch of sims.
 
 Every draw comes from batched Philox fills (``rng.fill_streams``, kernel K1
-on the card) over the streams :func:`stream_plan` and :func:`outcome_plan`
-list, at the reference's addresses, so ``X[:, :N]`` is a nested prefix
-across the grid (common random numbers) and a value never depends on the
-batch.
+on the card) over the streams :func:`fill_plan` lists, at the reference's
+addresses, so ``X[:, :N]`` is a nested prefix across the grid (common random
+numbers) and a value never depends on the batch. K1 fills one mode a launch:
+the normals of the long streams (predictors, cluster draws, residual and
+chi-square planes), a words or uniforms fill of the outcome's RESID stream
+and the sampled factors' FACTOR words, and, under a scenario, two short
+launches of the SCENARIO and HET streams (normals, then words), so that
+streams of a few rows are not padded to ``max_n``.
 
-The stages follow the reference in order: the static design draw (``L =
-corr_chol``), the f32 mix ``z @ L.T``, the normal/binary marginals, the
-reference-coded factor dummies (fixed allocation codes, or levels drawn from
-the FACTOR words of a sampled factor), the interaction block, ``eta = X @
-beta``, the primary random intercept (``u = z_c * chol(tau^2 + 1e-12)``
-indexed by cluster id) and the outcome:
-a normal residual, a binary draw (logit: a top-24-bit uniform of the RESID
-words against ``sigmoid(eta)``; probit: the RESID normal against ``eta``)
-or a Poisson count (the open uniform of the RESID words through
-:func:`poisson_quantile`, kernel K8 on the card). The reference also fills
-``df`` chi-square planes for the other residual families and discards them
-in a select; for a statically normal residual the port skips them, which
-leaves every value unchanged.
+The stages follow the reference in order: the per-sim scenario design
+(:func:`design_draw`: correlation noise with its PSD repair, marginal and
+residual swaps, the ICC jitter), the f32 mix ``z @ L.T``, the marginals, the
+reference-coded factor dummies, the cluster-level broadcast, the
+interactions, the heterogeneity beta-jitter, ``eta = X @ beta``, the random
+intercept (normal or heavy-tailed) and the outcome: a residual of the
+scenario's family (with heteroskedasticity), a binary draw (logit: a
+top-24-bit uniform of the RESID words against ``sigmoid(eta)``; probit: the
+RESID normal against ``eta``) or a Poisson count (the open uniform of the
+RESID words through :func:`poisson_quantile`, kernel K8 on the card). The
+reference also fills ``df`` chi-square planes for the residual families it
+discards in a select; where the scenario can only give a normal or uniform
+residual the port skips them, which leaves every value unchanged.
 """
 
 from __future__ import annotations
@@ -34,7 +38,29 @@ import numpy as np
 import torch
 
 from . import kernels, marginals, rng
-from .spec import DIST_BINARY, DIST_NORMAL, RESID_NORMAL, SimSpec
+from .spec import (
+    DIST_CODES,
+    DIST_NORMAL,
+    RESID_CODES,
+    RESID_HIGH_KURTOSIS,
+    RESID_LEFT_SKEWED,
+    RESID_NORMAL,
+    RESID_RIGHT_SKEWED,
+    RESID_UNIFORM,
+    SimSpec,
+)
+
+FLOAT_NEAR_ZERO = 1e-12
+
+# Scenario-stream column ids (CLASS_SCENARIO), the reference's.
+_SC_CORR = 0
+_SC_VARSWAP_U = 1
+_SC_VARSWAP_PICK = 2
+_SC_RESID_U = 3
+_SC_RESID_PICK = 4
+_SC_ICC = 5
+
+_MARGINALS = tuple(range(6))  # DIST_NORMAL .. DIST_UNIFORM: synthetic marginals
 
 
 def fixed_allocation_codes(probs, n: int) -> np.ndarray:
@@ -58,14 +84,13 @@ def fixed_allocation_codes(probs, n: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# The slice's scope
+# The port's scope
 # ---------------------------------------------------------------------------
 
 
 def unsupported(spec: SimSpec) -> str:
     """Why the port cannot run ``spec`` yet, naming the ROADMAP item that
-    will port it; '' when the spec is inside this slice."""
-    sc = spec.scenario
+    will port it; '' when the spec is inside the port."""
     if spec.estimator == "glm" or spec.outcome != "continuous":
         if spec.cluster is not None:
             return "GLMM fits (ROADMAP A9)"
@@ -75,27 +100,17 @@ def unsupported(spec: SimSpec) -> str:
             return f"a GLM of a {spec.outcome} outcome"
     elif spec.estimator not in ("ols", "mle"):
         return f"estimator {spec.estimator!r}"
-    if spec.upload_rows > 0 or spec.bootstrap:
+    if spec.upload_rows > 0 or spec.bootstrap or any(v not in _MARGINALS
+                                                      for v in spec.var_types):
         return "uploaded data (ROADMAP A13)"
-    if any(v not in (DIST_NORMAL, DIST_BINARY) for v in spec.var_types):
-        return "marginals other than normal and binary (ROADMAP A10)"
-    if not sc.is_baseline:
-        return "scenario perturbations, heterogeneity and heteroskedasticity (ROADMAP A10)"
-    if spec.residual != RESID_NORMAL:
-        return "non-normal residuals (ROADMAP A10)"
     c = spec.cluster
     if c is not None:
         if c.slopes:
             return "random slopes (ROADMAP A11)"
         if c.extra_groupings:
             return "extra groupings (ROADMAP A12)"
-        if c.between_cols:
-            return "cluster-level predictor columns (ROADMAP A10)"
     elif spec.estimator == "mle":
         return "the mle estimator without a cluster"
-    # the widths the kernels take: K1's stream table and the fits' p
-    if n_streams(spec) > rng.MAX_STREAMS:
-        return f"more than {rng.MAX_STREAMS} generated streams (ROADMAP A10)"
     if len(spec.effective_fit_cols) > kernels.MAX_FIT_P:
         return f"wide fits, p > {kernels.MAX_FIT_P} (ROADMAP B10)"
     return ""
@@ -108,17 +123,87 @@ def check_supported(spec: SimSpec) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Draw plan and small host pieces
+# What the scenario draws, and the fill plan
 # ---------------------------------------------------------------------------
 
 
+def _df(df: float) -> Tuple[float, int]:
+    """The reference's ``df = max(df, 3)`` and the count of chi-square
+    planes, ``round(df)``."""
+    df = max(float(df), 3.0)
+    return df, max(int(round(df)), 1)
+
+
+def swappable_cols(spec: SimSpec) -> List[int]:
+    """The continuous columns a marginal swap can change (unpinned normal
+    columns); none when the scenario swaps no marginal."""
+    sc = spec.scenario
+    if not (sc.distribution_change_prob > 0.0 and sc.new_distributions):
+        return []
+    return [j for j, (v, pinned) in enumerate(zip(spec.var_types, spec.var_pinned))
+            if v == DIST_NORMAL and not pinned]
+
+
+def resid_swap(spec: SimSpec) -> bool:
+    """Whether the residual family is drawn per sim. Only a continuous
+    outcome reads its residual, so the port draws the swap for it alone."""
+    sc = spec.scenario
+    return (spec.outcome == "continuous" and sc.residual_change_prob > 0.0
+            and not spec.residual_pinned and bool(sc.residual_dists))
+
+
+def resid_codes(spec: SimSpec) -> List[int]:
+    """The residual families a sim can draw: the spec's, and under a swap
+    each family of the pool."""
+    codes = {spec.residual}
+    if resid_swap(spec):
+        codes |= {RESID_CODES[d] for d in spec.scenario.residual_dists}
+    return sorted(codes)
+
+
+def chi2_planes(spec: SimSpec) -> int:
+    """RESID chi-square planes the residual reads: ``round(df)`` when it
+    can be skewed or heavy-tailed, else 0."""
+    if spec.outcome != "continuous" or not set(resid_codes(spec)) & {
+            RESID_RIGHT_SKEWED, RESID_LEFT_SKEWED, RESID_HIGH_KURTOSIS}:
+        return 0
+    return _df(spec.scenario.residual_df)[1]
+
+
+def heavy_re_planes(spec: SimSpec) -> int:
+    """CLUSTER chi-square planes of a heavy-tailed random intercept, else 0."""
+    if spec.cluster is None or spec.scenario.random_effect_dist == "normal":
+        return 0
+    return _df(spec.scenario.random_effect_df)[1]
+
+
+def _het(spec: SimSpec) -> float:
+    return max(spec.scenario.heterogeneity, 0.0)
+
+
+def _het_gamma(spec: SimSpec) -> float:
+    """Heteroskedasticity's ``gamma = ln(lambda) / 4``, lambda >= 1."""
+    return float(np.log(max(spec.scenario.heteroskedasticity_ratio, 1.0)) / 4.0)
+
+
+def _corr_noise(spec: SimSpec) -> bool:
+    return spec.scenario.correlation_noise_sd > 0.0 and spec.n_cont > 1
+
+
+def _icc_noise(spec: SimSpec) -> bool:
+    return spec.cluster is not None and spec.scenario.icc_noise_sd > 0.0
+
+
 def _resid_mode(spec: SimSpec):
-    """The fill mode of the RESID stream of a logit (words) or count (open
-    uniforms) outcome; None when the outcome reads the residual normals."""
+    """The fill mode of the RESID words of a logit outcome or of a uniform
+    residual (words), or of a count outcome (open uniforms); None when the
+    outcome reads only the RESID normals."""
     if spec.outcome == "binary" and spec.link != "probit":
         return rng.MODE_WORDS
     if spec.outcome == "count":
         return rng.MODE_OPEN_UNIFORM
+    if spec.outcome == "continuous" and RESID_UNIFORM in resid_codes(spec):
+        return rng.MODE_WORDS
     return None
 
 
@@ -137,26 +222,30 @@ def sampled_factors(spec: SimSpec) -> List[int]:
 
 
 def stream_plan(spec: SimSpec) -> List[Tuple[int, int, int]]:
-    """``(class, column, rows)`` of every stream the generation reads as
-    normals: the latent predictor normals, the primary-intercept draws
-    (column 0 of CLUSTER) and, for a continuous or probit outcome, the
-    residual normals (column 0 of RESID)."""
+    """``(class, column, rows)`` of every long stream the generation reads
+    as normals: the latent predictor normals, the random-intercept draws
+    (CLUSTER column 0, and 1..round(df) of a heavy-tailed one, at the
+    cluster count, padded to ``max_n`` in the launch: padding costs K1 a
+    store, not a cipher) and, for a continuous or probit outcome, the
+    residual normals (RESID column 0) and the chi-square planes (RESID
+    1..round(df))."""
     plan = [(rng.CLASS_XNORM, j, spec.max_n) for j in range(spec.n_cont)]
     if spec.cluster is not None:
-        plan.append((rng.CLASS_CLUSTER, 0, spec.cluster.n_clusters_at(spec.max_n)))
-    if _resid_mode(spec) is None:
-        plan.append((rng.CLASS_RESID, 0, spec.max_n))
+        m = spec.cluster.n_clusters_at(spec.max_n)
+        plan += [(rng.CLASS_CLUSTER, c, m) for c in range(1 + heavy_re_planes(spec))]
+    if spec.outcome == "continuous" or (spec.outcome == "binary" and spec.link == "probit"):
+        plan += [(rng.CLASS_RESID, c, spec.max_n) for c in range(1 + chi2_planes(spec))]
     return plan
 
 
 def outcome_plan(spec: SimSpec):
-    """``(mode, streams)`` of the second fill (K1 fills one mode per
-    launch): the RESID stream of a logit outcome (words, of which the draw
-    takes the top 24 bits) or a count outcome (open uniforms), then column
-    f of FACTOR for each sampled factor f (words, whose top 24 bits are its
-    uniforms). With factor words a count outcome's RESID stream is filled as
-    words too and turned into the same open uniforms after. None when the
-    generation reads nothing but the normals of :func:`stream_plan`."""
+    """``(mode, streams)`` of the second fill: the RESID stream of a logit
+    outcome or a uniform residual (words, of which the draw takes the top 24
+    bits) or a count outcome (open uniforms), then column f of FACTOR for
+    each sampled factor f (words, whose top 24 bits are its uniforms). With
+    factor words a count outcome's RESID stream is filled as words too and
+    turned into the same open uniforms after. None when the generation
+    reads no long stream but the normals of :func:`stream_plan`."""
     mode = _resid_mode(spec)
     streams = [(rng.CLASS_RESID, 0, spec.max_n)] if mode is not None else []
     factors = [(rng.CLASS_FACTOR, f, spec.max_n) for f in sampled_factors(spec)]
@@ -165,10 +254,66 @@ def outcome_plan(spec: SimSpec):
     return (rng.MODE_WORDS if factors else mode), streams + factors
 
 
-def n_streams(spec: SimSpec) -> int:
-    """Streams the generation fills, over both fills."""
+def scenario_plans(spec: SimSpec) -> List[Tuple[int, List[Tuple[int, int, int]]]]:
+    """``(mode, streams)`` of the short fills of a scenario, each a launch
+    of its own: the normals of the correlation noise (SCENARIO column 0,
+    one row per off-diagonal pair), the ICC jitter (column 5, one row) and
+    the beta-jitter (HET column 0, one row per design column); then the
+    words of the swap uniforms (SCENARIO columns 1 and 2 over the continuous
+    columns, 3 and 4 one row each). Empty for the baseline."""
+    n = spec.n_cont
+    normals, words = [], []
+    if _corr_noise(spec):
+        normals.append((rng.CLASS_SCENARIO, _SC_CORR, n * (n - 1) // 2))
+    if _icc_noise(spec):
+        normals.append((rng.CLASS_SCENARIO, _SC_ICC, 1))
+    if _het(spec) > FLOAT_NEAR_ZERO:
+        normals.append((rng.CLASS_HET, 0, spec.n_predictors))
+    if swappable_cols(spec):
+        words += [(rng.CLASS_SCENARIO, _SC_VARSWAP_U, n), (rng.CLASS_SCENARIO, _SC_VARSWAP_PICK, n)]
+    if resid_swap(spec):
+        words += [(rng.CLASS_SCENARIO, _SC_RESID_U, 1), (rng.CLASS_SCENARIO, _SC_RESID_PICK, 1)]
+    return [(mode, st) for mode, st in ((rng.MODE_NORMAL, normals), (rng.MODE_WORDS, words)) if st]
+
+
+def fill_plan(spec: SimSpec) -> List[Tuple[int, List[Tuple[int, int, int]]]]:
+    """``(mode, streams)`` of every fill the generation makes, in order: the
+    long normals, the second fill (if any), the scenario's short fills.
+    ``rng.fill_streams`` launches K1 once per MAX_STREAMS streams of each."""
     second = outcome_plan(spec)
-    return len(stream_plan(spec)) + (len(second[1]) if second is not None else 0)
+    return ([(rng.MODE_NORMAL, stream_plan(spec))] + ([second] if second else [])
+            + scenario_plans(spec))
+
+
+def k1_launches(spec: SimSpec) -> int:
+    """K1 launches per chunk of sims: one per MAX_STREAMS streams a fill."""
+    return sum(-(-len(streams) // rng.MAX_STREAMS) for _, streams in fill_plan(spec))
+
+
+class Draws:
+    """The filled streams of a batch, by ``(class, column)``: each fill's
+    tensor ``(sims, streams, rows)`` cut to each stream's own rows."""
+
+    def __init__(self, fills):
+        self._at = {}
+        for (mode, streams), t in fills:
+            for i, (cls, col, rows) in enumerate(streams):
+                self._at[(cls, col, mode)] = t[:, i, :rows]
+
+    def normals(self, cls: int, col: int) -> torch.Tensor:
+        return self._at[(cls, col, rng.MODE_NORMAL)]
+
+    def words(self, cls: int, col: int) -> torch.Tensor:
+        return self._at[(cls, col, rng.MODE_WORDS)]
+
+    def uniform(self, cls: int, col: int) -> torch.Tensor:
+        """The top-24-bit uniform in [0, 1) of the words."""
+        return rng.u32_to_uniform(self.words(cls, col))
+
+    def open_uniform(self, cls: int, col: int) -> torch.Tensor:
+        """The open uniform, filled as such or from the words."""
+        got = self._at.get((cls, col, rng.MODE_OPEN_UNIFORM))
+        return got if got is not None else rng.u32_to_open_uniform(self.words(cls, col))
 
 
 def cluster_ids(spec: SimSpec, device=None) -> torch.Tensor:
@@ -181,14 +326,197 @@ def cluster_ids(spec: SimSpec, device=None) -> torch.Tensor:
     return rows % s if c.sizing_mode == "fixed_clusters" else rows // s
 
 
-def re_chol_intercept(tau0_sq: float) -> float:
+def rep_rows(spec: SimSpec, device=None) -> torch.Tensor:
+    """The first row of each row's cluster (the reference's ``_rep_rows``),
+    (max_n,) int64: a cluster-level column takes that row's value."""
+    rows = torch.arange(spec.max_n, dtype=torch.int64, device=device)
+    s = max(spec.cluster.sizing_value, 1)
+    return rows % s if spec.cluster.sizing_mode == "fixed_clusters" else rows - rows % s
+
+
+def re_chol_intercept(tau0_sq):
     """chol(D + 1e-12 I) for the intercept-only D = tau^2, in f32 as the
     reference's ``_re_chol`` computes it (a 1x1 Cholesky is the square
-    root)."""
-    f32 = np.float32
-    tau = np.sqrt(np.maximum(f32(tau0_sq), f32(0.0)))
-    d = tau * f32(1.0) * tau
-    return float(np.sqrt(d + f32(1e-12)))
+    root): of a number, a number; of an f32 tensor of per-sim values, a
+    tensor."""
+    t = torch.as_tensor(tau0_sq, dtype=torch.float32)
+    tau = torch.sqrt(torch.clamp(t, min=0.0))
+    out = torch.sqrt(tau * 1.0 * tau + marginals.f32(1e-12))
+    return out if isinstance(tau0_sq, torch.Tensor) else float(out)
+
+
+# ---------------------------------------------------------------------------
+# The per-sim scenario design, residual families and random effects
+# ---------------------------------------------------------------------------
+
+
+def psd_repair_chol(sigma: torch.Tensor) -> torch.Tensor:
+    """Spectral-clip PSD repair (eigenvalues floored at 1e-10) and
+    Cholesky of a batch of f64 correlation matrices ``(..., n, n)``, as the
+    reference's ``_psd_repair_chol``: ``eigh``, the floor, ``(V w) V^T``,
+    ``cholesky``. The repaired matrix is positive definite by construction,
+    so the Cholesky skips torch's error check, a wait for the device."""
+    w, v = torch.linalg.eigh(sigma)
+    w = torch.clamp(w, min=1e-10)
+    return torch.linalg.cholesky_ex((v * w[..., None, :]) @ v.transpose(-1, -2)).L
+
+
+def design_draw(spec: SimSpec, arr: Dict[str, torch.Tensor], draws: Draws, sims: int, device):
+    """The reference's ``_design_draw`` (:289) per sim: ``(L, var_codes,
+    resid_code, tau2_eff)``. ``L`` is the f32 mixing factor, ``(n_cont,
+    n_cont)`` from the lowering or ``(sims, n_cont, n_cont)`` under
+    correlation noise; ``var_codes (sims, n_cont)`` int64 or None when no
+    marginal is swapped; ``resid_code (sims,)`` int64 or None when the
+    residual family is the spec's; ``tau2_eff`` the f32 intercept variance,
+    ``(sims,)`` under ICC noise, else a number.
+
+    Integer draws compare the f32 uniforms with f32 thresholds and
+    truncate ``u * k`` in f32, as the reference does."""
+    sc = spec.scenario
+    n = spec.n_cont
+    f32 = marginals.f32
+    if _corr_noise(spec):
+        noise = draws.normals(rng.CLASS_SCENARIO, _SC_CORR).to(torch.float64) \
+            * sc.correlation_noise_sd
+        i, j = np.triu_indices(n, k=1)
+        sigma = arr["corr"].to(device=device, dtype=torch.float64).repeat(sims, 1, 1)
+        sigma[:, i, j] += noise
+        sigma[:, j, i] += noise
+        sigma = torch.where(torch.eye(n, dtype=torch.bool, device=device), 1.0,
+                            torch.clamp(sigma, -0.8, 0.8))
+        L = psd_repair_chol(sigma).to(torch.float32)
+    else:
+        L = arr["corr_chol"].to(device=device, dtype=torch.float32)
+
+    var_codes = None
+    swappable = swappable_cols(spec)
+    if swappable:
+        pool = torch.as_tensor([DIST_CODES[d] for d in sc.new_distributions], device=device)
+        k = len(sc.new_distributions)
+        u_swap = draws.uniform(rng.CLASS_SCENARIO, _SC_VARSWAP_U)
+        pick = torch.clamp((draws.uniform(rng.CLASS_SCENARIO, _SC_VARSWAP_PICK) * k)
+                           .to(torch.int64), max=k - 1)
+        mask = torch.zeros(n, dtype=torch.bool, device=device)
+        mask[swappable] = True
+        base = torch.as_tensor(spec.var_types, dtype=torch.int64, device=device)
+        var_codes = torch.where(mask & (u_swap < f32(sc.distribution_change_prob)), pool[pick],
+                                base)
+
+    resid_code = None
+    if resid_swap(spec):
+        pool_r = torch.as_tensor([RESID_CODES[d] for d in sc.residual_dists], device=device)
+        k = len(sc.residual_dists)
+        u_r = draws.uniform(rng.CLASS_SCENARIO, _SC_RESID_U)[:, 0]
+        pick_r = torch.clamp((draws.uniform(rng.CLASS_SCENARIO, _SC_RESID_PICK)[:, 0] * k)
+                             .to(torch.int64), max=k - 1)
+        resid_code = torch.where(u_r < f32(sc.residual_change_prob), pool_r[pick_r],
+                                 spec.residual)
+
+    tau2_eff = None
+    if spec.cluster is not None:
+        tau2_eff = f32(spec.cluster.tau_squared)
+        if _icc_noise(spec):
+            jitter = draws.normals(rng.CLASS_SCENARIO, _SC_ICC)[:, 0]
+            tau2_eff = torch.clamp(tau2_eff + jitter * f32(sc.icc_noise_sd), min=0.0)
+    return L, var_codes, resid_code, tau2_eff
+
+
+def _t_scaled(z: torch.Tensor, chi2: torch.Tensor, df: float) -> torch.Tensor:
+    """``where(denom > 0, z / denom, z)`` with ``denom = sqrt(chi2 / df)``
+    (f32 division by the f32 df)."""
+    denom = torch.sqrt(chi2 / marginals.const(df, chi2))
+    return torch.where(denom > 0, z / denom, z)
+
+
+def _chi2(planes) -> torch.Tensor:
+    """The chi-square accumulator: squares summed plane by plane, in f32."""
+    chi2 = torch.zeros_like(planes[0])
+    for g in planes:
+        chi2 = chi2 + g * g
+    return chi2
+
+
+def unit_residuals(spec: SimSpec, draws: Draws, resid_code) -> torch.Tensor:
+    """Unit-variance residual draws ``(sims, max_n)`` of the family
+    ``resid_code`` (per sim, or None for the spec's own), as the reference's
+    ``_unit_residual_draws`` (:172): slot 0 is z (and, through its words,
+    the uniform U(-sqrt 3, sqrt 3)); slots 1..round(df) are the chi-square
+    planes of t(df), scaled by sqrt((df - 2) / df), and of chi-square(df),
+    centred and scaled by 1 / sqrt(2 df), sign-flipped for left skew."""
+    f32 = marginals.f32
+    z = draws.normals(rng.CLASS_RESID, 0)
+    codes = resid_codes(spec)
+    cand = {RESID_NORMAL: z}
+    if chi2_planes(spec):
+        df, df_int = _df(spec.scenario.residual_df)
+        chi2 = _chi2([draws.normals(rng.CLASS_RESID, 1 + s) for s in range(df_int)])
+        cand[RESID_HIGH_KURTOSIS] = _t_scaled(z, chi2, df) * f32(1.0 / np.sqrt(df / (df - 2.0)))
+        centred = (chi2 - f32(df)) * f32(1.0 / np.sqrt(2.0 * df))
+        cand[RESID_RIGHT_SKEWED], cand[RESID_LEFT_SKEWED] = centred, -centred
+    if RESID_UNIFORM in codes:
+        u = draws.uniform(rng.CLASS_RESID, 0)
+        cand[RESID_UNIFORM] = (2.0 * u - 1.0) * f32(marginals.SQRT3)
+    if resid_code is None:
+        return cand[spec.residual]
+    out = z
+    for code in codes:
+        out = torch.where((resid_code == code)[:, None], cand[code], out)
+    return out
+
+
+def re_draws(spec: SimSpec, draws: Draws) -> torch.Tensor:
+    """Unit-variance random-intercept draws ``(sims, clusters)`` under the
+    scenario's RE distribution, as the reference's ``_re_draw`` (:391):
+    CLUSTER column 0, or the standardized t(df) of columns 0..round(df),
+    scaled by sqrt((df - 2) / df)."""
+    z = draws.normals(rng.CLASS_CLUSTER, 0)
+    planes = heavy_re_planes(spec)
+    if not planes:
+        return z
+    df, _ = _df(spec.scenario.random_effect_df)
+    chi2 = _chi2([draws.normals(rng.CLASS_CLUSTER, 1 + s) for s in range(planes)])
+    return _t_scaled(z, chi2, df) * marginals.f32(np.sqrt((df - 2.0) / df))
+
+
+def beta_jitter(spec: SimSpec, beta: torch.Tensor, draws: Draws) -> torch.Tensor:
+    """The per-sim effects ``(sims, P)`` under heterogeneity (the
+    reference's :585-603): ``beta + z * s`` with ``s = het |beta|`` on the
+    effect columns and, on the intercept, 0 for a continuous outcome and
+    ``het`` otherwise; effects clipped toward zero, never across it, the
+    intercept unclipped."""
+    het = marginals.f32(_het(spec))
+    delta = draws.normals(rng.CLASS_HET, 0)
+    s0 = 0.0 if spec.outcome == "continuous" else het
+    s = torch.cat([torch.full((1,), s0, dtype=torch.float32, device=beta.device),
+                   het * torch.abs(beta[1:])])
+    raw = beta + delta * s
+    clipped = torch.where(beta > 0, torch.clamp(raw, min=0.0),
+                          torch.where(beta < 0, torch.clamp(raw, max=0.0), raw))
+    return torch.cat([raw[:, :1], clipped[:, 1:]], dim=1)
+
+
+def heteroskedastic(spec: SimSpec, arr: Dict[str, torch.Tensor], eps: torch.Tensor,
+                    lp_clean: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """The residuals scaled by ``sqrt(exp(gamma z) exp(-gamma^2 / 2))``,
+    ``gamma = ln(lambda) / 4``, with z the driver (``lp_clean`` or a design
+    column) standardized by the lowering's f64 mean and sd, as the
+    reference's :620-640. The reference's f64 centre and sd promote the
+    driver, the multiplier and the scaled residuals to f64 (x64 on), so the
+    residuals come back in f64 and y is rounded to f32 once, after ``eta +
+    eps``; where the sd is 0 the residuals are kept."""
+    gamma = _het_gamma(spec)
+    if spec.het_driver is None:
+        center, std, driver = arr["het_lp_mean"], arr["het_lp_std"], lp_clean
+    else:
+        d = spec.het_driver
+        center, std, driver = arr["het_col_mean"][d], arr["het_col_std"][d], X[..., d]
+    center = center.to(device=eps.device, dtype=torch.float64)
+    std = std.to(device=eps.device, dtype=torch.float64)
+    active = std > FLOAT_NEAR_ZERO
+    zdrv = torch.where(active, (driver.to(torch.float64) - center) / std, 0.0)
+    mult = torch.exp(marginals.f32(gamma) * zdrv) * marginals.f32(np.exp(-gamma * gamma / 2.0))
+    eps = eps.to(torch.float64)
+    return torch.where(active, eps * torch.sqrt(mult), eps)
 
 
 # ---------------------------------------------------------------------------
@@ -292,35 +620,36 @@ def _factor_levels(spec: SimSpec, arr: Dict[str, torch.Tensor], f: int, words, s
     return (u[..., None] >= cdf[:-1]).sum(-1)
 
 
-def generate_from_normals(spec: SimSpec, arr: Dict[str, torch.Tensor], Z: torch.Tensor,
-                          second: torch.Tensor = None, *, plain: bool = False):
-    """``(X, y, ids)`` from the filled normals ``Z (sims, n_streams, rows)``
-    laid out as :func:`stream_plan` says and the second fill ``second
-    (sims, streams, max_n)`` laid out as :func:`outcome_plan` says (the
-    RESID words or open uniforms of a logit or count outcome, then the
-    FACTOR words of the sampled factors). ``plain=True`` draws counts
+def generate_from_draws(spec: SimSpec, arr: Dict[str, torch.Tensor], draws: Draws, sims: int,
+                        device, *, plain: bool = False):
+    """``(X, y, ids)`` from the filled streams ``draws``, in the order of
+    the reference's ``generate`` (:484-665). ``plain=True`` draws counts
     through the plain version of K8 on any device."""
     max_n = spec.max_n
-    sims = Z.shape[0]
-    device = Z.device
+    L, var_codes, resid_code, tau2_eff = design_draw(spec, arr, draws, sims, device)
     cols = [torch.ones((sims, max_n), dtype=torch.float32, device=device)]
     if spec.n_cont > 0:
-        z = Z[:, : spec.n_cont, :max_n].transpose(1, 2)  # (sims, max_n, n_cont)
-        L = arr["corr_chol"].to(device=device, dtype=torch.float32)
-        mixed = torch.matmul(z, L.T)  # f32; TF32 is off (package __init__)
+        z = torch.stack([draws.normals(rng.CLASS_XNORM, j) for j in range(spec.n_cont)], -1)
+        # f32; TF32 is off (package __init__); a per-sim L under correlation noise
+        mixed = torch.matmul(z, L.transpose(-1, -2))
         params = np.asarray(arr["var_params"].cpu(), np.float32)
+        pool = [DIST_CODES[d] for d in spec.scenario.new_distributions]
         for j in range(spec.n_cont):
-            cols.append(
-                marginals.apply_marginal_static(mixed[:, :, j], spec.var_types[j], params[j])
-            )
-    plan2 = outcome_plan(spec)
-    first = int(_resid_mode(spec) is not None)  # the factor words follow any RESID stream
-    words_at = {f: first + i for i, f in enumerate(sampled_factors(spec))}
+            if var_codes is not None and j in swappable_cols(spec):
+                col = marginals.apply_marginal(mixed[..., j], var_codes[:, j], params[j],
+                                               [spec.var_types[j]] + pool)
+            else:
+                col = marginals.apply_marginal_static(mixed[..., j], spec.var_types[j], params[j])
+            cols.append(col)
     for f, n_levels in enumerate(spec.factor_levels):  # reference-coded dummies
-        words = second[:, words_at[f]] if f in words_at else None
+        words = draws.words(rng.CLASS_FACTOR, f) if f in sampled_factors(spec) else None
         lvl = _factor_levels(spec, arr, f, words, sims, device)
         for d in range(n_levels - 1):
             cols.append((lvl == d + 1).to(torch.float32))
+    if spec.cluster is not None and spec.cluster.between_cols:  # cluster-level columns
+        rep = rep_rows(spec, device)
+        for c in spec.cluster.between_cols:
+            cols[c] = cols[c][:, rep]
     for comps in spec.interactions:
         prod = cols[comps[0]]
         for cidx in comps[1:]:
@@ -329,27 +658,33 @@ def generate_from_normals(spec: SimSpec, arr: Dict[str, torch.Tensor], Z: torch.
     X = torch.stack(cols, dim=-1)  # (sims, max_n, P)
 
     beta = arr["effects"].to(device=device, dtype=torch.float32)
-    lp = torch.matmul(X, beta)  # (sims, max_n)
+    lp_clean = torch.matmul(X, beta)  # (sims, max_n)
+    if _het(spec) > FLOAT_NEAR_ZERO:
+        lp = torch.matmul(X, beta_jitter(spec, beta, draws)[..., None])[..., 0]
+    else:
+        lp = lp_clean
 
     ids = cluster_ids(spec, device)
-    s_resid = Z.shape[1] - 1
     if spec.cluster is not None:
-        m = spec.cluster.n_clusters_at(max_n)
-        u = Z[:, spec.n_cont, :m] * re_chol_intercept(spec.cluster.tau_squared)
+        scale = re_chol_intercept(tau2_eff)
+        u = re_draws(spec, draws) * (scale[:, None] if torch.is_tensor(scale) else scale)
         eta = lp + u[:, ids.long()]
     else:
         eta = lp
     one, zero = torch.ones_like(eta), torch.zeros_like(eta)
     if spec.outcome == "continuous":
-        y = eta + Z[:, s_resid, :max_n]
+        eps = unit_residuals(spec, draws, resid_code)
+        if _het_gamma(spec) > FLOAT_NEAR_ZERO:
+            y = (eta.to(torch.float64) + heteroskedastic(spec, arr, eps, lp_clean, X)).to(
+                torch.float32)
+        else:
+            y = eta + eps
     elif spec.outcome == "binary" and spec.link == "probit":
-        y = torch.where(Z[:, s_resid, :max_n] < eta, one, zero)
+        y = torch.where(draws.normals(rng.CLASS_RESID, 0) < eta, one, zero)
     elif spec.outcome == "binary":
-        y = torch.where(rng.u32_to_uniform(second[:, 0]) < torch.sigmoid(eta), one, zero)
+        y = torch.where(draws.uniform(rng.CLASS_RESID, 0) < torch.sigmoid(eta), one, zero)
     else:  # count
-        u = second[:, 0]
-        if plan2[0] == rng.MODE_WORDS:  # filled with factor words: the same open uniforms
-            u = rng.u32_to_open_uniform(u)
+        u = draws.open_uniform(rng.CLASS_RESID, 0)
         y = (poisson_quantile_plain if plain else poisson_quantile)(u, eta)
     return X, y, ids.unsqueeze(0).expand(sims, max_n)
 
@@ -386,7 +721,6 @@ def generate_batch(spec: SimSpec, arr: Dict[str, torch.Tensor], seed_lo: int, se
     """
     check_supported(spec)
     fill = rng.fill_streams_plain if plain else rng.fill_streams
-    Z = fill(seed_lo, seed_hi, sim_ids, stream_plan(spec), rng.MODE_NORMAL)
-    plan2 = outcome_plan(spec)
-    second = fill(seed_lo, seed_hi, sim_ids, plan2[1], plan2[0]) if plan2 is not None else None
-    return generate_from_normals(spec, arr, Z, second, plain=plain)
+    fills = [(plan, fill(seed_lo, seed_hi, sim_ids, plan[1], plan[0])) for plan in fill_plan(spec)]
+    return generate_from_draws(spec, arr, Draws(fills), sim_ids.shape[0], sim_ids.device,
+                               plain=plain)

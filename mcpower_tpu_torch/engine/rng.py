@@ -16,8 +16,8 @@ Two forms of the same streams:
   ``_mul_hilo`` splits one factor into 16-bit halves and every sum is masked
   back to 32 bits;
 * :func:`fill_streams`, the batched fill the generation path calls: for a
-  CUDA tensor it launches kernel K1 (``csrc/philox_fill.cu``), for a CPU
-  tensor it runs :func:`fill_streams_plain`.
+  CUDA tensor it launches kernel K1 (``csrc/philox_fill.cu``), one launch
+  per MAX_STREAMS streams; for a CPU tensor it runs :func:`fill_streams_plain`.
 """
 
 from __future__ import annotations
@@ -233,9 +233,9 @@ MODE_WORDS, MODE_OPEN_UNIFORM, MODE_NORMAL = 0, 1, 2
 MAX_STREAMS = 32
 
 
-def _check_streams(streams: Sequence[Tuple[int, int, int]]) -> int:
-    if not 0 < len(streams) <= MAX_STREAMS:
-        raise ValueError(f"fill_streams takes 1..{MAX_STREAMS} streams, got {len(streams)}")
+def _check_streams(streams: Sequence[Tuple[int, int, int]], limit: int = None) -> int:
+    if not streams or (limit and len(streams) > limit):
+        raise ValueError(f"fill_streams takes 1..{limit or 'any'} streams, got {len(streams)}")
     for cls, col, rows in streams:
         if not (0 <= cls and 0 <= col <= _MASK and 0 < rows < 2**31):
             raise ValueError(f"bad stream (class, column, rows) = {(cls, col, rows)}")
@@ -276,9 +276,30 @@ _FILL_ARGS = [
 ]
 
 
+def fill_in_launches(fill, seed_lo: int, seed_hi: int, sim_ids: torch.Tensor, streams,
+                     mode: int):
+    """``fill`` of the streams in parts of at most MAX_STREAMS, joined along
+    the stream axis with every part's rows padded to the longest stream:
+    the same tensor as one fill of them all."""
+    streams = list(streams)
+    _check_streams(streams)
+    if len(streams) <= MAX_STREAMS:
+        return fill(seed_lo, seed_hi, sim_ids, streams, mode)
+    max_rows = max(r for _, _, r in streams)
+    parts = [fill(seed_lo, seed_hi, sim_ids, streams[i : i + MAX_STREAMS], mode)
+             for i in range(0, len(streams), MAX_STREAMS)]
+    return torch.cat([torch.nn.functional.pad(z, (0, max_rows - z.shape[-1])) for z in parts],
+                     dim=1)
+
+
 def fill_streams_kernel(seed_lo: int, seed_hi: int, sim_ids: torch.Tensor, streams, mode: int):
-    """Kernel K1 (``csrc/philox_fill.cu``): the same fill on the card."""
-    max_rows = _check_streams(streams)
+    """Kernel K1 (``csrc/philox_fill.cu``): the same fill on the card, one
+    launch per MAX_STREAMS streams (the stream table K1 holds)."""
+    return fill_in_launches(_k1_launch, seed_lo, seed_hi, sim_ids, streams, mode)
+
+
+def _k1_launch(seed_lo: int, seed_hi: int, sim_ids: torch.Tensor, streams, mode: int):
+    max_rows = _check_streams(streams, MAX_STREAMS)
     if mode not in (MODE_WORDS, MODE_OPEN_UNIFORM, MODE_NORMAL):
         raise ValueError(f"unknown fill mode {mode}")
     sim_ids = sim_ids.to(torch.int64).contiguous()

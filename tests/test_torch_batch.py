@@ -114,6 +114,9 @@ def _lmm(**cluster):
 
 # Factor designs and posthoc contrasts run (tests/test_torch_factors.py);
 # here they are 16-level factors, too wide for the fit kernels (p = 18).
+# Scenario knobs, skewed residuals and marginals run too
+# (tests/test_torch_scenarios.py); here each sits on a design that still
+# raises: a GLMM, random slopes, extra groupings, uploaded data, p = 19.
 UNSUPPORTED = {
     "glm": dict(outcome="continuous", estimator="glm"),
     "glmm": dict(outcome="binary", estimator="glm",
@@ -123,11 +126,16 @@ UNSUPPORTED = {
     "factors": dict(factor_levels=[16], effects=np.zeros(18)),
     "posthoc": dict(factor_levels=[16], effects=np.zeros(18),
                     posthoc=(PosthocStatic(0, 16, ((3, 4),)),)),
-    "heterogeneity": dict(scenario=ScenarioStatic(heterogeneity=0.2)),
-    "heteroskedasticity": dict(scenario=ScenarioStatic(heteroskedasticity_ratio=2.0)),
-    "scenario_swaps": dict(scenario=ScenarioStatic(distribution_change_prob=0.5)),
-    "residual": dict(residual="right_skewed"),
-    "marginal": dict(var_types=["normal", "right_skewed"]),
+    "heterogeneity": dict(outcome="binary", estimator="glm",
+                          cluster=ClusterStatic("fixed_clusters", 20, 0.25),
+                          scenario=ScenarioStatic(heterogeneity=0.2)),
+    "heteroskedasticity": dict(_lmm(slopes=(SlopeStatic(1, 0.1, 0.0),)),
+                               scenario=ScenarioStatic(heteroskedasticity_ratio=2.0)),
+    "scenario_swaps": dict(_lmm(extra_groupings=(ExtraGroupingStatic("crossed", 10, 0.15),)),
+                           scenario=ScenarioStatic(distribution_change_prob=0.5)),
+    "residual": dict(residual="right_skewed", upload_frame=np.zeros((10, 2))),
+    "marginal": dict(var_types=["normal", "right_skewed"], factor_levels=[16],
+                     effects=np.zeros(18)),
     "upload": dict(upload_frame=np.zeros((10, 2))),
 }
 

@@ -10,7 +10,7 @@ Two comparisons, on the headline LMM and the OLS design:
   up to a few thousand ULP (measured: 4.6e-4 on X, 2.3e-4 on y). The port
   computes the ppf operation by operation, as ``rng.norm_ppf_f32`` is written
   (tests/test_torch_rng.py holds it to that form);
-* the generation body alone (``generate_from_normals``) fed with the
+* the generation body alone (``generate_from_draws``) fed with the
   reference's own normals: mix, marginals, random intercept and residual
   agree to f32 rounding (measured max 4.8e-7).
 """
@@ -89,7 +89,9 @@ def test_generation_body_on_the_reference_normals(design):
         return jax.vmap(one)(sids)
 
     Z = torch.tensor(np.asarray(normals(jnp.asarray(SIMS))))
-    X, y, ids = [v.numpy() for v in datagen.generate_from_normals(spec, design["arr"], Z)]
+    draws = datagen.Draws([((rng.MODE_NORMAL, plan), Z)])
+    X, y, ids = [v.numpy() for v in
+                 datagen.generate_from_draws(spec, design["arr"], draws, len(SIMS), "cpu")]
     rX, ry, rids = design["ref"]
     np.testing.assert_array_equal(ids, rids)
     assert np.abs(X - rX).max() <= BODY_ABS

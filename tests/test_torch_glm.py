@@ -166,7 +166,7 @@ def test_outcome_fills_follow_the_reference_streams():
         else:
             assert second == (mode, [(rng.CLASS_RESID, 0, spec.max_n)])
             assert all(cls == rng.CLASS_XNORM for cls, _, _ in plan)
-        assert datagen.n_streams(spec) == 3
+        assert sum(len(streams) for _, streams in datagen.fill_plan(spec)) == 3
 
 
 def test_poisson_quantile_matches_the_reference():

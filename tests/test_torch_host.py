@@ -216,17 +216,42 @@ def test_a_91_point_grid_passes_the_gate_and_matches_the_reference():
         np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]), err_msg=key)
 
 
-@pytest.mark.parametrize("n_pred,item", [(16, r"wide fits, p > 16 \(ROADMAP B10\)"),
-                                         (32, r"more than 32 generated streams \(ROADMAP A10\)")])
+@pytest.mark.parametrize("n_pred,item", [
+    (16, r"wide fits, p > 16 \(ROADMAP B10\)"),
+    # K1 fills at most 32 streams a launch and rng.fill_streams splits longer
+    # plans: a residual swap of df 31 reads the residual normals and 31
+    # chi-square planes, 34 long streams with the 2 predictors' normals
+    pytest.param(2, None, id=r"32-more than 32 generated streams \(ROADMAP A10\)"),
+])
 def test_wide_designs_raise_in_the_preflight(monkeypatch, n_pred, item):
-    """p = 17 (16 predictors and the intercept) and 33 streams (32 predictor
-    normals and the residual) fail before any run, not in a kernel."""
+    """p = 17 (16 predictors and the intercept) fails before any run, not
+    in a kernel. More than 32 generated streams no longer limit a design:
+    the df-31 residual swap passes the gate, fills its long normals in two
+    K1 launches, and its result tree at 8 sims equals the reference's."""
+    names = [f"x{i}" for i in range(1, n_pred + 1)]
+
+    def model(cls):
+        m = cls("y ~ " + " + ".join(names))
+        m.set_effects(", ".join(f"{n}=0.1" for n in names))
+        m.set_scenario_configs({"df31": dict(residual_change_prob=0.5, residual_df=31,
+                                             heterogeneity=0.0, heteroskedasticity_ratio=1.0,
+                                             correlation_noise_sd=0.0, icc_noise_sd=0.0,
+                                             distribution_change_prob=0.0,
+                                             sampled_factor_proportions=False,
+                                             random_effect_dist="normal")})
+        return m
+
+    if item is None:
+        kw = dict(scenarios=["df31"], n_sims=8, seed=5, verbose=False)
+        spec = adapter.contract_to_lowered(types.SimulationContract.from_dict(
+            model(MCPower).to_simulation_spec("df31")), [200])[0]
+        assert len(datagen.stream_plan(spec)) == 34 and datagen.k1_launches(spec) == 3
+        got = model(MCPower).find_power(200, device="cpu", **kw)
+        chip_smoke.compare_trees("34 streams", got, model(RefMCPower).find_power(200, **kw))
+        return
     calls = []
     from mcpower_tpu_torch.orchestrator import runner
     monkeypatch.setattr(runner.batch, "run_batch", lambda *a, **k: calls.append(1))
-    names = [f"x{i}" for i in range(1, n_pred + 1)]
-    m = MCPower("y ~ " + " + ".join(names))
-    m.set_effects(", ".join(f"{n}=0.1" for n in names))
     with pytest.raises(NotImplementedError, match=item):
-        m.find_power(200, n_sims=8, verbose=False, device="cpu")
+        model(MCPower).find_power(200, n_sims=8, verbose=False, device="cpu")
     assert calls == []

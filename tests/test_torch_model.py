@@ -2,8 +2,8 @@
 ``chip_smoke.py`` (``model_ols_power``, ``model_ols_sample_size``): whole
 result trees at 64 sims on the CPU, the golden values of the chip run
 recomputed with the reference, and the calls that must raise: the default
-device without a card, scenarios, uploaded data, the debug report and
-designs outside the port."""
+device without a card, scenarios of a design outside the port, uploaded
+data, the debug report and designs outside the port."""
 
 import sys
 from pathlib import Path
@@ -74,12 +74,23 @@ def runs(monkeypatch):
     return calls
 
 
+def _glmm():
+    m = MCPower("y ~ x1 + x2 + (1|cluster)", family="logit")
+    m.set_cluster("cluster", ICC=0.2, n_clusters=20)
+    m.set_baseline_probability(0.3)
+    m.set_effects("x1=0.3, x2=0.2")
+    return m
+
+
 def test_scenarios_raise_before_any_run(runs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        _ols().find_power(200, scenarios=True, n_sims=8, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        _ols().find_sample_size(from_size=50, to_size=100, scenarios=True, n_sims=8,
-                                verbose=False, device="cpu")
+    """Scenarios run (tests/test_torch_model_scenarios.py); on a design
+    outside the port, a GLMM, every scenario is checked before the first
+    runs, so the call raises naming A9 with nothing run."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        _glmm().find_power(200, scenarios=True, n_sims=8, verbose=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        _glmm().find_sample_size(from_size=100, to_size=200, scenarios=True, n_sims=8,
+                                 verbose=False, device="cpu")
     assert runs == []
     _ols().find_power(200, n_sims=8, verbose=False, device="cpu")
     assert runs == ["cpu"]
@@ -88,12 +99,15 @@ def test_scenarios_raise_before_any_run(runs):
 @pytest.mark.parametrize("formula,family,types,item", [
     ("y ~ x1 + g", "logit", "g=(factor,16)", "B10"),
     ("y ~ x1 + g", "ols", "g=(factor,16)", "B10"),
-    ("y ~ x1 + x2", "ols", "x2=right_skewed", "A10"),
+    ("y ~ x1 + x2 + (1 + x1|cluster)", "lme", "x2=right_skewed", "A11"),
 ])
 def test_designs_outside_the_port_raise_before_any_run(runs, formula, family, types, item):
     m = MCPower(formula, family=family)
     if family == "logit":
         m.set_baseline_probability(0.3)
+    if "|" in formula:  # a random slope on x1
+        m.set_cluster("cluster", tau_squared=0.25, n_clusters=20, random_slopes=["x1"],
+                      slope_variance=0.1)
     if types:
         m.set_variable_type(types)
     m.set_effects(", ".join(f"{n}=0.2" for n in m.effect_names))

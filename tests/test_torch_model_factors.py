@@ -6,9 +6,9 @@ which excludes the factor at its smallest N and runs the separation
 fallback above it). Each flow runs once per package at the chip run's
 1,024 sims: the whole result trees must be equal (at most one flip per
 count, ``chip_smoke.compare_trees``) and the golden values of the chip run
-must be the reference's. Then the preflight: a factor design runs, and
-designs wider than p = 16 and ``scenarios=True`` still raise, naming B10 and
-A10."""
+must be the reference's. Then the preflight: a factor design runs,
+designs wider than p = 16 still raise, naming B10, and ``scenarios=True``
+runs."""
 
 import sys
 from pathlib import Path
@@ -86,13 +86,16 @@ def test_a_factor_design_passes_the_preflight_and_warns_as_the_reference(runs):
 
 
 def test_wide_designs_and_scenarios_still_raise(runs):
+    """A design wider than p = 16 raises B10 before any run; README flow 1's
+    last line, ``scenarios=True``, now runs its three scenarios."""
     m = MCPower("y ~ x1 + g")
     m.set_variable_type("g=(factor,17)")  # p = 18
     m.set_effects(", ".join(f"{n}=0.1" for n in m.effect_names))
     with pytest.raises(NotImplementedError, match=r"p > 16 \(ROADMAP B10\)"):
         m.find_power(200, n_sims=8, verbose=False, device="cpu")
-    readme = chip_smoke.build_model(MCPower, "readme")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        readme.find_sample_size(from_size=50, to_size=500, scenarios=True, n_sims=8,
-                                verbose=False, device="cpu")
     assert runs == []
+    readme = chip_smoke.build_model(MCPower, "readme")
+    res = readme.find_sample_size(from_size=50, to_size=500, scenarios=True, n_sims=8,
+                                  verbose=False, device="cpu")
+    assert sorted(res["scenarios"]) == ["doomer", "optimistic", "realistic"]
+    assert runs == ["cpu"] * 3

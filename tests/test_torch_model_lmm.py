@@ -70,16 +70,23 @@ def test_the_default_device_is_the_card(monkeypatch, method):
 
 
 @pytest.mark.parametrize("change,item", [
-    ("scenarios", "A10"),
+    ("scenarios", "A9"),
     ("slopes", "A11"),
 ])
 def test_unported_lmm_designs_raise_before_any_run(monkeypatch, change, item):
+    """Random slopes raise A11; the LMM's scenarios run
+    (tests/test_torch_model_scenarios.py), and the same model as a
+    clustered logit (a GLMM) under ``scenarios=True`` raises A9."""
     calls = []
     monkeypatch.setattr(runner.batch, "run_batch", lambda *a, **k: calls.append(1))
     m = _lmm()
     kw = {}
     if change == "scenarios":
         kw["scenarios"] = True
+        m = MCPower("y ~ x1 + x2 + (1|cluster)", family="logit")
+        m.set_cluster("cluster", ICC=0.2, n_clusters=20)
+        m.set_baseline_probability(0.3)
+        m.set_effects("x1=0.3, x2=0.2")
     else:
         m.set_cluster("cluster", tau_squared=0.25, n_clusters=20, random_slopes=["x1"],
                       slope_variance=0.1)

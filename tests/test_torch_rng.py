@@ -116,8 +116,10 @@ def test_batch_fill_matches_reference_streams(name):
     """fill_streams (the main path's fill; on the CPU its plain version, which
     chip_smoke.py holds kernel K1 against on the card) against the
     reference's fills under run_one_sim's key (counter (sim, 0, SIMKEY, 0),
-    64-bit seed), at every table of chip_smoke.K1_CHECKS: the three arms'
-    stream plans, and rows 13, 3 and 201 at sim ids from 2**31 - 2."""
+    64-bit seed), at every table of chip_smoke.K1_CHECKS: the arms' stream
+    plans, rows 13, 3 and 201 at sim ids from 2**31 - 2, the words fill of a
+    sampled factor, the realistic LMM's three fills and 33 streams (two K1
+    launches on the card)."""
     import jax
 
     plan, sim0, seed_hi = chip_smoke.k1_table(lower, ClusterStatic, datagen, name)
