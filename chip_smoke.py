@@ -11,10 +11,10 @@ Run from the repository root with no arguments:
 Phases, each fatal on failure (exit code != 0, no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build kernels K1-K4, K6 and K8 from ``mcpower_tpu_torch/csrc`` (one nvcc
+2. build kernels K1-K4 and K6-K8 from ``mcpower_tpu_torch/csrc`` (one nvcc
    per source, all started together) and print their register and spill
-   use, per instantiation (of p for K2-K4 and K6, of mode and store width
-   for K1), the static SASS instruction count of K1 and K3
+   use, per instantiation (of p for K2-K4 and K6, of the width bucket for
+   K7, of mode and store width for K1), the static SASS instruction count of K1 and K3
    (``cuobjdump``), and K6's launch geometry and resident blocks per SM at
    p = 1..16 at the GLM arm's and the logit sample-size flow's launch;
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -39,7 +39,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    realistic LMM (its long normals with a heavy-tailed intercept and the
    residual swap's chi-square planes, its short normals, the words of its
    swap uniforms) and at a plan of 33 streams, which
-   ``rng.fill_streams_kernel`` splits into two K1 launches (counted);
+   ``rng.fill_streams_kernel`` splits into two K1 launches (counted); K7 at
+   every case of ``K7_CHECKS`` (the GLMM arms' 2,000 cells at nagq 7 and 1,
+   a launch of README flow 3, and off the path probit, Poisson, nagq 25, the
+   FD Hessian, a three-point grid, blocked clusters, 40 clusters, p = 1 and
+   p = 16, boundary cells and the cold start), flags identical and values
+   within ``K7_REL``;
 4. drive the main path through ``lower`` and ``run_batch(device="cuda")``:
    the 10,000-replicate random-intercept LMM headline (base seed 2137), the
    OLS arm, the 8-point power curve and the GLM arm (logit, Bonferroni),
@@ -49,13 +54,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
    entry); then the scenario arm (``SCENARIO_ARMS``: heterogeneity and a
    residual swap, 40,000 sims, counted on its own), its power held within
    1 pp of a NumPy oracle of 400,000 draws and its 1,024-sim counts
-   against the reference's;
+   against the reference's; then the GLMM arms of ``GLMM_DESIGNS``
+   (bench.py's ``glmm_agq7`` and its Laplace twin, 2,000 sims in one chunk,
+   each counted on its own: K1 twice and K7 once) and their 1,024-sim
+   counts against the reference's;
 5. time each kernel (K1 and K2 at the LMM, OLS and curve arms' shapes, K1
    also at the realistic LMM's long and short normal fills, K3
    at the OLS and curve shapes and at a launch of the README model's
    sample-size flow, K4 at the LMM's, K6 at the GLM arm's, at a launch of
    the logit sample-size flow and at both launches of the logit factor
-   flow, K8 at a launch of the Poisson flow) on the device, from
+   flow, K8 at a launch of the Poisson flow, K7 at the GLMM arms' cells and
+   at a launch of README flow 3) on the device, from
    torch.profiler's kernel events, and per call through its wrapper (CUDA
    events, launch overhead included), each call on inputs that are not in
    L2, beside its plain version, its bound
@@ -67,9 +76,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and K6 are built too, checked against this tree's and timed beside them
    in turns (other, this, this, other); K1 at the realistic LMM's long
    normals with its cluster streams padded in one launch against them in a
-   launch of their own; then each arm's wall, and a profile of each arm
-   (wall median of 7 calls, busy share, largest device items);
-6. drive the fourteen user flows of ``MODEL_FLOWS`` through
+   launch of their own; then each arm's wall (the GLMM arms' too), and a
+   profile of each arm (wall median of 7 calls, busy share, largest device
+   items);
+6. drive the nineteen user flows of ``MODEL_FLOWS`` through
    ``mcpower_tpu_torch.MCPower`` on the card (the random-intercept LMM's
    and the OLS model's ``find_power`` and ``find_sample_size``, the logit
    model's ``find_power`` and ``find_sample_size``, the Poisson model's
@@ -77,7 +87,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    as written, the Tukey ANOVA, the logit model with a rare factor
    level's ``find_sample_size``, and ``scenarios=True`` (optimistic,
    realistic, doomer) on README flow 1's ``find_sample_size`` as written,
-   the LMM's and the logit model's ``find_power``; 10,000 sims, base seed
+   the LMM's and the logit model's ``find_power``; README flow 3's GLMM
+   ``find_power(480)`` as written, its ``find_sample_size(from_size=240,
+   to_size=720)``, ``agq=7``, ``wald_se="hessian"`` and ``scenarios=True``,
+   each launching K7 once a chunk; 10,000 sims, base seed
    2137), each with every launch count set to 0 before it and read after
    (the logit factor flow must launch K6 twice a chunk, the second the
    fallback's; K1 as often a chunk as each scenario's fill plan says); check
@@ -89,7 +102,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    chunk count, the busy share and the same design's one-chunk
    ``run_batch`` wall (per scenario);
 7. print the ``kernels`` JSON line (launches on each kernel's path: the
-   arms' for K1-K4 and K6, the Poisson flow's for K8; and by arm and by
+   arms' for K1-K4 and K6, the GLMM arms' for K7, the Poisson flow's for K8; and by arm and by
    flow, with K6's fallback launches by flow and K1's launches a chunk of
    each flow's scenarios), then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -155,6 +168,26 @@ DESIGNS = {
         correction="bonferroni",
     ),
 }
+
+# The random-intercept GLMM arms (kernel K7): bench.py's glmm_agq7 arm
+# (bench.py:168-178, timed there at 2,000 sims) and its Laplace twin
+# (benchmarks/throughput.py:119-125's glmm_base, the same design at nagq 1),
+# each driven as one chunk of GLMM_SIMS sims.
+GLMM_DESIGNS = {
+    name: dict(
+        grid=[200],
+        var_types=["normal", "normal"],
+        corr=[[1.0, 0.3], [0.3, 1.0]],
+        effects=[-0.3, 0.3, 0.2],
+        target_cols=[1, 2],
+        outcome="binary",
+        estimator="glm",
+        cluster=dict(sizing_mode="fixed_clusters", sizing_value=20, tau_squared=0.25),
+        nagq=nagq,
+    )
+    for name, nagq in (("glmm_agq7", 7), ("glmm_laplace", 1))
+}
+GLMM_SIMS = 2_000
 
 # The scenario arm (tests/test_ols_power.py:198): one normal predictor,
 # beta 0.55, N = 100, alpha 5e-7, heterogeneity 0.3 and a residual swap
@@ -450,6 +483,74 @@ K6_CHECKS = {
 K6_ROWS = 300
 
 
+# K7's cases (phase 3), each held against the plain fit
+# (glmmfit.glmm_intercept_plain) on the same generated f32 X and y: the
+# GLMM arms' cells (2,000 sims, nagq 7 and 1), a launch of README flow 3 (one
+# chunk of N_SIMS / 8 sims, N = 480, 24 clusters, p = 2, lowered by the
+# flow itself), and off the path probit, Poisson (tests/test_glmm.py:118's
+# design, its counts through K8), nagq 25, the FD Hessian at p = 3, a
+# three-point grid, blocked clusters, 40 clusters (more than a warp's
+# lanes), p = 1 and p = 16, boundary cells (tau^2 = 0.02) and the cold
+# start of truth_start=False.
+_GLMM_BASE = GLMM_DESIGNS["glmm_laplace"]
+K7_DESIGNS = {
+    "glmm_probit": dict(_GLMM_BASE, link="probit", effects=[-0.2, 0.3, 0.2]),
+    "glmm_poisson": dict(grid=[300], var_types=["normal"], effects=[0.6931471805599453, 0.2],
+                         target_cols=[1], outcome="count", estimator="glm",
+                         cluster=dict(sizing_mode="fixed_clusters", sizing_value=30,
+                                      tau_squared=0.2)),
+    "glmm_agq25": dict(_GLMM_BASE, nagq=25),
+    "glmm_hessian": dict(_GLMM_BASE, wald_se="hessian"),
+    "glmm_grid3": dict(_GLMM_BASE, grid=[60, 120, 200]),
+    "glmm_blocked": dict(_GLMM_BASE, grid=[100, 200],
+                         cluster=dict(sizing_mode="fixed_size", sizing_value=10, tau_squared=0.25)),
+    "glmm_m40": dict(_GLMM_BASE, grid=[200, 400],
+                     cluster=dict(sizing_mode="fixed_clusters", sizing_value=40, tau_squared=0.25)),
+    "glmm_p1": dict(grid=[200], var_types=[], effects=[-0.3], target_cols=[], outcome="binary",
+                    estimator="glm", cluster=_GLMM_BASE["cluster"]),
+    "glmm_p16": dict(grid=[400], var_types=["normal"] * 15, effects=[-0.3] + [0.05] * 15,
+                     target_cols=list(range(1, 16)), outcome="binary", estimator="glm",
+                     cluster=_GLMM_BASE["cluster"]),
+    "glmm_boundary": dict(_GLMM_BASE, cluster=dict(_GLMM_BASE["cluster"], tau_squared=0.02)),
+    "glmm_cold_start": dict(_GLMM_BASE, truth_start=False),
+}
+K7_CHECKS = {
+    "glmm_agq7": GLMM_SIMS, "glmm_laplace": GLMM_SIMS, "readme_flow_launch": N_SIMS // 8,
+    **{name: GOLDEN_SIMS for name in K7_DESIGNS}, "glmm_p16": 64,
+}
+# The same PIRLS, deviances and Brent steps in the same order and the same
+# libdevice transcendentals: measured bit-identical (0) in every output at
+# every case on the H100; the band leaves room for another toolkit.
+K7_REL = 1e-10
+
+
+def k7_args(spec, arr, X, y):
+    """K7's arguments for a lowered GLMM design and its generated rows (the
+    order glmmfit.glmm_grid_stats passes them)."""
+    import torch
+
+    from mcpower_tpu_torch.engine import glmfit, glmmfit
+
+    fit = list(spec.effective_fit_cols)
+    beta0 = (arr["effects"].to(torch.float64)[fit] if spec.scenario.truth_start
+             else torch.zeros(len(fit), dtype=torch.float64, device=X.device))
+    return (glmfit.link_code(spec.outcome, spec.link), X, y, fit, list(spec.grid),
+            glmmfit.layout_of(spec), beta0, max(int(spec.nagq), 1), spec.wald_se == "hessian")
+
+
+def flow_lowered(name: str):
+    """The (spec, arrays) of each scenario flow ``name`` lowers to, from a
+    run of 8 sims through the port's plain path on the CPU."""
+    from mcpower_tpu_torch import MCPower
+    from mcpower_tpu_torch import model as model_mod
+    from mcpower_tpu_torch.engine import batch
+    from mcpower_tpu_torch.orchestrator import runner
+
+    with stage_clock(model_mod, runner, batch) as clock:
+        run_flow(MCPower, name, 8, device="cpu")
+    return clock.take()["lowered"]
+
+
 def k6_synthetic(name: str, sims: int, seed: int = SEED):
     """f32 ``X (sims, 300, p)`` with an intercept column and 0/1 ``y (sims,
     300)`` for the synthetic K6_CHECKS case ``name``, from ``seed``."""
@@ -485,7 +586,7 @@ def k8_synthetic(torch, rows: int, seed: int = SEED, dev="cpu"):
 
 # Counts of the JAX reference (mcpower_tpu.engine.batch.run_batch) at
 # GOLDEN_SIMS sims, base seed SEED; tests/test_torch_batch.py recomputes
-# them so they cannot go stale.
+# them so they cannot go stale (the GLMM arms': tests/test_torch_glmm_batch.py).
 GOLDEN = {
     "lmm_headline": {
         "boundary_hi": [0], "boundary_hit": [5], "converged": [1024],
@@ -541,6 +642,36 @@ GOLDEN = {
         "sig_corr": [[551, 223, 131]], "sig_unc": [[713, 381, 249]], "singular": [0],
         "n_done": 1024,
     },
+    "glmm_agq7": {
+        "boundary_hit": [165],
+        "converged": [1024],
+        "glm_baseline": [442.78],
+        "joint_corr": [77],
+        "joint_unc": [77],
+        "nsig_hist_corr": [[408, 539, 77]],
+        "nsig_hist_unc": [[408, 539, 77]],
+        "pinned_comp": [[165]],
+        "sig_corr": [[464, 229]],
+        "sig_unc": [[464, 229]],
+        "singular": [165],
+        "tau2_hat": [263.8836983635589],
+        "n_done": 1024,
+    },
+    "glmm_laplace": {
+        "boundary_hit": [165],
+        "converged": [1024],
+        "glm_baseline": [442.78],
+        "joint_corr": [77],
+        "joint_unc": [77],
+        "nsig_hist_corr": [[409, 538, 77]],
+        "nsig_hist_unc": [[409, 538, 77]],
+        "pinned_comp": [[165]],
+        "sig_corr": [[464, 228]],
+        "sig_unc": [[464, 228]],
+        "singular": [165],
+        "tau2_hat": [248.82575843569634],
+        "n_done": 1024,
+    },
 }
 # The user flows of phase 6: ``MCPower`` built as a user writes it, then one
 # call. The OLS model is the README's first flow with the factor replaced by
@@ -574,6 +705,10 @@ MODELS = {
                          types="group=(factor,0.8,0.1,0.1)", corr=None,
                          effects="x1=0.4, group[2]=0.5, group[3]=0.5",
                          baseline_probability=0.2),
+    # README flow 3 (README.md:38-43) as written: a clustered logistic GLMM
+    "glmm": dict(formula="y ~ dose + (1|clinic)", family="logit", cluster_name="clinic",
+                 cluster=dict(ICC=0.15, n_clusters=24), types=None, corr=None,
+                 effects="dose=0.35", baseline_probability=0.3),
 }
 # flow -> (model, method, arguments, the kernels its path must launch)
 MODEL_FLOWS = {
@@ -614,6 +749,19 @@ MODEL_FLOWS = {
     "model_logit_scenarios": ("logit", "find_power",
                               dict(sample_size=300, correction="bonferroni", scenarios=True),
                               ("philox_fill", "glm_irls")),
+    # README flow 3 (the random-intercept GLMM, kernel K7): its find_power as
+    # written, a sample-size search, AGQ at 7 nodes, the FD Hessian Wald
+    # covariance and its three scenarios
+    "model_glmm_power": ("glmm", "find_power", dict(sample_size=480),
+                         ("philox_fill", "glmm_intercept")),
+    "model_glmm_sample_size": ("glmm", "find_sample_size", dict(from_size=240, to_size=720),
+                               ("philox_fill", "glmm_intercept")),
+    "model_glmm_agq": ("glmm", "find_power", dict(sample_size=480, agq=7),
+                       ("philox_fill", "glmm_intercept")),
+    "model_glmm_hessian": ("glmm", "find_power", dict(sample_size=480, wald_se="hessian"),
+                           ("philox_fill", "glmm_intercept")),
+    "model_glmm_scenarios": ("glmm", "find_power", dict(sample_size=480, scenarios=True),
+                             ("philox_fill", "glmm_intercept")),
 }
 
 
@@ -623,7 +771,7 @@ def build_model(mcpower_cls, model: str):
     c = MODELS[model]
     m = mcpower_cls(c["formula"], family=c["family"])
     if c["cluster"]:
-        m.set_cluster("cluster", **c["cluster"])
+        m.set_cluster(c.get("cluster_name", "cluster"), **c["cluster"])
     if c["types"]:
         m.set_variable_type(c["types"])
     if c["corr"]:
@@ -648,7 +796,8 @@ def flow_summary(res) -> Dict:
     """The golden values of a flow's result: significant counts per test
     (uncorrected and corrected), joint, overall, posthoc and factor
     exclusion counts and the separation fallback's count per N (where the
-    design has them), the mean tau^2 estimate of an LMM, and for a
+    design has them), the mean tau^2 estimate of an LMM or a GLMM, a GLMM's
+    boundary counts, and for a
     sample-size search the first N reaching the target and the fitted
     crossing per test; of a run of several scenarios, these per scenario."""
     if "scenarios" in res:
@@ -662,8 +811,11 @@ def flow_summary(res) -> Dict:
         out["separation_fallback_counts"] = [int(round(r * res["n_sims"]))
                                              for r in glm["separation_fallback_rate"]]
     mle = res.get("estimator_extras", {}).get("mle", {})
-    if "tau_squared_hat_mean" in mle:
-        out["tau_squared_hat_mean"] = mle["tau_squared_hat_mean"]
+    for extras in (mle, glm):  # the LMM's, or a GLMM's
+        if "tau_squared_hat_mean" in extras:
+            out["tau_squared_hat_mean"] = extras["tau_squared_hat_mean"]
+    if "boundary_component_counts" in glm:
+        out["boundary_component_counts"] = glm["boundary_component_counts"]
     if "first_achieved" in res:
         out["first_achieved"] = res["first_achieved"]
         out["fitted"] = {k: v["n_star"] for k, v in res["fitted"].items()}
@@ -695,13 +847,30 @@ def _leaves(v, keys=()):
 # estimates (every other number is a function of the counts).
 _COUNT_KEY = re.compile(r"count|histogram|boundary_hits$|^n_sims$")
 _FIT_KEYS = ("tau_estimate", "tau_squared_hat_mean")
+# The realized outcome mean of a GLM: two runs can draw an outcome row apart
+# (an f32 rounding at its threshold: the reference's FMA-contracted normals,
+# or the card's and the CPU's libm under a scenario's extra draws), which
+# moves it by 1 / (sims N) and may or may not flip a count.
+_OUTCOME_MEAN_KEYS = ("baseline_prob_realized",)
+
+
+def _row_step(tree: Dict, keys) -> float:
+    """1 / (sims x smallest N) of the result holding the leaf at ``keys``:
+    what one outcome row moves its realized mean by."""
+    node, step = tree, None
+    for k in keys:
+        if isinstance(node, dict) and "n_sims" in node and "sample_sizes" in node:
+            step = 1.0 / (node["n_sims"] * min(node["sample_sizes"]))
+        node = node.get(k) if isinstance(node, dict) else None
+    return step
 
 
 def compare_trees(name: str, got: Dict, want: Dict, max_flips: int = None,
                   tau_rel: float = None) -> list:
     """Hold a whole result tree against another: the same keys at every
     level, every count within ``max_flips`` (MAX_FLIPS), the fitted variance
-    estimates within ``tau_rel`` (TAU2_REL) relative, and, where every count
+    estimates within ``tau_rel`` (TAU2_REL) relative, a GLM's realized
+    outcome mean within ``max_flips`` outcome rows, and, where every count
     is equal, every other value equal (numbers to 1e-9 relative): rates,
     intervals, first N and crossing fits are functions of the counts. Returns
     the flips found, as text."""
@@ -721,6 +890,10 @@ def compare_trees(name: str, got: Dict, want: Dict, max_flips: int = None,
                   f"{name} {path}: {g} vs {w}")
         elif keys[-1] in _FIT_KEYS:
             check(abs(g - w) <= tau_rel * abs(w), f"{name} {path}: {g} vs {w} (> {tau_rel} rel)")
+        elif keys[-1] in _OUTCOME_MEAN_KEYS:
+            step = _row_step(want, keys)
+            check(g == w or (step is not None and abs(g - w) <= max_flips * step * (1 + 1e-9)),
+                  f"{name} {path}: {g} vs {w}, more than {max_flips} outcome rows apart")
         else:
             derived.append((path, g, w))
     for path, g, w in derived if not flips else ():
@@ -814,7 +987,8 @@ def stage_clock(model_mod, runner_mod, batch_mod):
 
 
 # flow_summary of the JAX reference's MCPower (mcpower_tpu) at GOLDEN_SIMS
-# sims; tests/test_torch_model*.py recompute them so they cannot go stale.
+# sims; tests/test_torch_model*.py recompute them so they cannot go stale
+# (the GLMM flows': tests/test_torch_model_glmm*.py).
 # model_lmm_power lowers to DESIGNS["lmm_headline"], so its counts are that
 # design's GOLDEN counts.
 MODEL_GOLDEN = {
@@ -1086,6 +1260,70 @@ MODEL_GOLDEN = {
             "overall_counts": [780],
         },
     },
+    "model_glmm_power": {
+        "success_counts_uncorrected": [[938]],
+        "success_counts_corrected": [[938]],
+        "joint_counts_uncorrected": [938],
+        "joint_counts_corrected": [938],
+        "tau_squared_hat_mean": [0.5530672534266242],
+        "boundary_component_counts": [[2]],
+    },
+    "model_glmm_sample_size": {
+        "success_counts_uncorrected": [[640], [724], [799], [864], [899], [938], [961], [980], [1000], [1006], [1016]],
+        "success_counts_corrected": [[640], [724], [799], [864], [899], [938], [961], [980], [1000], [1006], [1016]],
+        "joint_counts_uncorrected": [640, 724, 799, 864, 899, 938, 961, 980, 1000, 1006, 1016],
+        "joint_counts_corrected": [640, 724, 799, 864, 899, 938, 961, 980, 1000, 1006, 1016],
+        "tau_squared_hat_mean": [0.5487463975068307, 0.5514313323851757, 0.5509628342639047, 0.5546585087309146, 0.5546549430609116, 0.5530605876954059, 0.5503367954755797, 0.5496896525803292, 0.5496802001615022, 0.5517262384267957, 0.553944516568886],
+        "boundary_component_counts": [[11], [6], [4], [2], [2], [2], [0], [0], [0], [0], [0]],
+        "first_achieved": {
+            "dose": 384,
+        },
+        "fitted": {
+            "dose": 350.9169230769231,
+        },
+    },
+    "model_glmm_agq": {
+        "success_counts_uncorrected": [[938]],
+        "success_counts_corrected": [[938]],
+        "joint_counts_uncorrected": [938],
+        "joint_counts_corrected": [938],
+        "tau_squared_hat_mean": [0.565170302335327],
+        "boundary_component_counts": [[2]],
+    },
+    "model_glmm_hessian": {
+        "success_counts_uncorrected": [[928]],
+        "success_counts_corrected": [[928]],
+        "joint_counts_uncorrected": [928],
+        "joint_counts_corrected": [928],
+        "tau_squared_hat_mean": [0.5530672534266242],
+        "boundary_component_counts": [[2]],
+    },
+    "model_glmm_scenarios": {
+        "optimistic": {
+            "success_counts_uncorrected": [[938]],
+            "success_counts_corrected": [[938]],
+            "joint_counts_uncorrected": [938],
+            "joint_counts_corrected": [938],
+            "tau_squared_hat_mean": [0.5530672534266242],
+            "boundary_component_counts": [[2]],
+        },
+        "realistic": {
+            "success_counts_uncorrected": [[877]],
+            "success_counts_corrected": [[877]],
+            "joint_counts_uncorrected": [877],
+            "joint_counts_corrected": [877],
+            "tau_squared_hat_mean": [0.531850240753931],
+            "boundary_component_counts": [[6]],
+        },
+        "doomer": {
+            "success_counts_uncorrected": [[780]],
+            "success_counts_corrected": [[780]],
+            "joint_counts_uncorrected": [780],
+            "joint_counts_corrected": [780],
+            "tau_squared_hat_mean": [0.5029337071289814],
+            "boundary_component_counts": [[43]],
+        },
+    },
 }
 
 # The f32 generation path's log may differ by an ULP between XLA:CPU and
@@ -1093,6 +1331,15 @@ MODEL_GOLDEN = {
 # per count entry, and this relative band on the tau^2 sum.
 MAX_FLIPS = 1
 TAU2_REL = 2e-3
+# The GLMM's tau^2 sum (the arms' and the flows'). Its Brent search (the
+# reference's) re-fits the same parabola after a parabolic step it rejected,
+# and the safeguard p < q (b - x) then compares two roundings of one number:
+# a cell whose f32 deviances differ from the reference's in the 7th digit
+# may take the other branch there, and the two branches can end at optima
+# far apart (a glmm_laplace cell: tau^2 0.175 in the reference, 0.360 in
+# the port, whose objective is 0.56 higher there). 3 such cells of 1,024
+# moved the glmm_laplace sum by 2.2e-3 on the H100 (1.4e-3 on the CPU).
+GLMM_TAU2_REL = 5e-3
 
 # Kernel tolerances on the card, against the plain versions on the same
 # inputs. Relative errors are max |kernel - plain| / max |plain| per output.
@@ -1137,6 +1384,8 @@ KERNEL_META = {
     "glm_irls": ("mcpower_tpu_torch/csrc/glm_irls.cu", "mcpower_tpu/engine/glmfit.py:82"),
     "poisson_quantile": ("mcpower_tpu_torch/csrc/poisson_quantile.cu",
                          "mcpower_tpu/engine/datagen.py:217"),
+    "glmm_intercept": ("mcpower_tpu_torch/csrc/glmm_intercept.cu",
+                       "mcpower_tpu/engine/glmmfit.py:909"),
 }
 # Kernels that the arms of DESIGNS launch; K8 draws count outcomes, which
 # only the Poisson flow of phase 6 has.
@@ -1161,7 +1410,7 @@ def lower_design(lower_mod, cluster_cls, name: str):
     """``lower_mod.lower`` on design ``name``; works for either package. A
     ``truth_start`` entry becomes the scenario's."""
     kw = dict({**DESIGNS, **SCENARIO_ARMS, **SCENARIO_DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS,
-               **FACTOR_DESIGNS, **K6_DESIGNS}[name])
+               **FACTOR_DESIGNS, **K6_DESIGNS, **GLMM_DESIGNS, **K7_DESIGNS}[name])
     for key in ("corr", "effects"):
         if key in kw:
             kw[key] = np.asarray(kw[key], dtype=np.float64)
@@ -1403,6 +1652,54 @@ def k8_bound(u, eta, y) -> Tuple[float, str]:
     f64 = float(walk.sum()) * F64_EXP_INSTR + steps * (F64_DIV_INSTR + 2)
     f32 = u.numel() * F32_EXP_OPS + float((lam > 20.0).sum()) * (PPF_F32_OPS_PER_NORMAL + 12)
     return bound(nbytes(u, eta, y), {"f32": f32, "f64": f64})
+
+
+def k7_bound(args, outs) -> Tuple[float, str]:
+    """Every cell's fit as K7 runs it: 48 f64 and 112 f32 PIRLS steps (the
+    cold, optimum, probe and final fits; the Brent phases), each per row the
+    linear predictor, the link's transcendental, two divisions, the cluster
+    sums and X'WX and X'Wz, per cluster c_j, the Schur sums and the u update,
+    per cell a p x p solve; 18 f64 deviance tails (a log and a division a
+    row, a log1p a cluster); under AGQ the f64 nodes of three full
+    deviances and the 14 hybrid ones (f64 centre, f32 node deltas); the
+    final pass with two Cholesky factors and the inverse; under the Hessian
+    the 1 + 2p + 2p(p - 1) profiled deviances of 21 passes each. Steps are
+    counted in full (a cell stops early only on a step that is not finite).
+    Bytes: each sim's fit columns and y up to the last grid point, beta0 and
+    every output."""
+    from mcpower_tpu_torch.engine import glmmfit
+
+    code, X, y, fit, grid, layout, beta0, nagq, hessian = args
+    p, m, sims = len(fit), layout[2], X.shape[0]
+    rows = float(sims * sum(grid))
+    cells = float(sims * len(grid))
+    step_row = p * p + 7 * p + 6
+    clus = p * (p + 1) + 4 * p + 2
+    solve = p ** 3 // 3 + 2 * p * p
+    it64 = 4 * glmmfit.N_PIRLS
+    it32 = (glmmfit.BRENT_FULL_GLMM * glmmfit.N_PIRLS
+            + (glmmfit.BRENT_ITERS_GLMM - glmmfit.BRENT_FULL_GLMM) * glmmfit.N_PIRLS_WARM)
+    f32 = it32 * (rows * (step_row + 2 * F32_EXP_OPS) + cells * m * (clus + F32_EXP_OPS)
+                  + cells * (solve + 2 * p * F32_EXP_OPS))
+    f64 = it64 * (rows * (step_row + F64_EXP_INSTR + 2 * F64_DIV_INSTR)
+                  + cells * m * (clus + F64_DIV_INSTR)
+                  + cells * (solve + p * (F64_SQRT_INSTR + F64_DIV_INSTR)))
+    tails = 1 + glmmfit.BRENT_ITERS_GLMM + 3
+    ll_row = 2 * p + 2 + F64_EXP_INSTR + F64_LOG_INSTR
+    f64 += tails * (rows * (ll_row + F64_DIV_INSTR) + cells * m * (F64_LOG_INSTR + 4))
+    if nagq > 1:
+        f64 += 3 * nagq * (rows * ll_row + cells * m * (F64_EXP_INSTR + 8))
+        f64 += glmmfit.BRENT_ITERS_GLMM * rows * ll_row
+        f32 += glmmfit.BRENT_ITERS_GLMM * ((nagq + 1) * rows * (2 * F32_EXP_OPS + 3)
+                                           + cells * m * nagq * (F32_EXP_OPS + 8))
+    f64 += rows * (step_row + F64_EXP_INSTR + F64_DIV_INSTR) + cells * (
+        2 * p ** 3 // 3 + p ** 3 + 2 * p * F64_SQRT_INSTR)
+    if hessian:
+        evals = 1 + 2 * p + 2 * p * (p - 1)
+        f64 += evals * (glmmfit.N_U_NEWTON + 1) * (
+            rows * (2 * p + 4 + F64_EXP_INSTR + F64_DIV_INSTR) + cells * m * 2 * F64_DIV_INSTR)
+    read = float(sims * max(grid) * (p + 1) * 4)
+    return bound(read + nbytes(beta0, *outs), {"f32": f32, "f64": f64})
 
 
 def rel_err_finite(name: str, a, b) -> float:
@@ -1796,7 +2093,8 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
                   flush=True)
 
         card = run(GOLDEN_SIMS)
-        flips = compare_trees(name, flow_summary(card), MODEL_GOLDEN[name])
+        flips = compare_trees(name, flow_summary(card), MODEL_GOLDEN[name],
+                              tau_rel=GLMM_TAU2_REL if name.startswith("model_glmm") else None)
         tree_flips = compare_trees(name, card, run(GOLDEN_SIMS, "cpu"))
         print(f"golden {name} at {GOLDEN_SIMS} sims against the JAX MCPower: "
               f"{'identical' if not flips else 'flips ' + '; '.join(flips)}; whole result tree "
@@ -1862,7 +2160,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(repo))
     from mcpower_tpu_torch import model as model_mod
     from mcpower_tpu_torch.engine import (
-        batch, datagen, glmfit, kernels, lower, mixedfit, olsfit, rng, waldstats,
+        batch, datagen, glmfit, glmmfit, kernels, lower, mixedfit, olsfit, rng, waldstats,
     )
     from mcpower_tpu_torch.engine.spec import ClusterStatic
     from mcpower_tpu_torch.orchestrator import runner
@@ -2169,6 +2467,41 @@ def main(argv=None) -> int:
                and ((torch.exp(eta8) > 20) & (u8 >= datagen.U_TOP)).any()),
           "K8's synthetic rows miss a case")
     records["poisson_quantile"] = {"max_abs_err": k8_err}
+
+    # K7 on generated GLMM rows; the Poisson design draws its counts
+    # through K8 (generate_batch without plain=)
+    k7_args_by = {}
+    readme_launch = flow_lowered("model_glmm_power")[0]
+    k7_err = 0.0
+    for name, n in K7_CHECKS.items():
+        spec_, arr_ = readme_launch if name == "readme_flow_launch" else \
+            lower_design(lower, ClusterStatic, name)
+        arr_d = datagen.to_device(arr_, dev)
+        X_, y_, _ = datagen.generate_batch(spec_, arr_d, SEED, 0, sim_ids[:n],
+                                           plain=spec_.outcome != "count")
+        args = k7_args(spec_, arr_d, X_, y_)
+        k7_args_by[name] = args
+        got = glmmfit.glmm_intercept_kernel(*args)
+        want = glmmfit.glmm_intercept_plain(*args)
+        for i, flag in ((2, "converged"), (3, "boundary")):
+            n_diff = int((got[i] != want[i]).sum())
+            check(n_diff == 0, f"K7 {name}: {flag} flags differ in {n_diff} cells")
+        cells = want[2].numel()
+        n_conv, n_bnd = int(want[2].sum()), int(want[3].sum())
+        check(n_conv > 0.9 * cells, f"K7 {name}: only {n_conv} of {cells} converged")
+        if name == "glmm_boundary":
+            check(n_bnd > 0.3 * cells, f"K7 {name}: only {n_bnd} of {cells} cells at the boundary")
+        rels = {k: rel_err_finite(f"K7 {name} {k}", g, w)
+                for k, g, w in zip(("beta", "cov", "tau2", "ybar"), got[:2] + got[4:], want[:2] + want[4:])}
+        k7_err = max(k7_err, max(float((g - w)[torch.isfinite(w)].abs().max())
+                                 for g, w in zip(got[:2] + got[4:], want[:2] + want[4:])))
+        print(f"K7 glmm_intercept {name} cells {tuple(got[2].shape)} p {len(args[3])} m "
+              f"{args[5][2]} ({'round robin' if args[5][0] else 'blocked'}) link {args[0]} nagq "
+              f"{args[7]}{' hessian' if args[8] else ''}: flags identical ({n_conv} converged, "
+              f"{n_bnd} at the boundary); rel err " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()),
+              flush=True)
+        check(max(rels.values()) <= K7_REL, f"K7 {name}: rel err {max(rels.values()):.3e} > {K7_REL}")
+    records["glmm_intercept"] = {"max_abs_err": k7_err}
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if opts.checks_only:
@@ -2212,7 +2545,8 @@ def main(argv=None) -> int:
             want = np.asarray(want)
             check(got.shape == want.shape, f"{name} {key}: shape {got.shape} != {want.shape}")
             if key in ("tau2_hat", "glm_baseline"):
-                band = TAU2_REL if key == "tau2_hat" else GLM_BASELINE_REL
+                band = (GLM_BASELINE_REL if key == "glm_baseline" else
+                        GLMM_TAU2_REL if name in GLMM_DESIGNS else TAU2_REL)
                 rel = float(np.abs(got - want).max() / np.abs(want).max())
                 check(rel <= band, f"{name} {key} rel {rel:.2e} > {band}")
                 continue
@@ -2265,6 +2599,34 @@ def main(argv=None) -> int:
         check_golden(name, spec_, arr_)
         for k in launches:
             launches[k] += launches_by_arm[name][k]
+
+    # The GLMM arms: one chunk of GLMM_SIMS sims each, through K1 and K7
+    glmm_specs = {name: lower_design(lower, ClusterStatic, name) for name in GLMM_DESIGNS}
+    glmm_arm_s = {}
+    for name, (spec_, arr_) in glmm_specs.items():
+        batch.run_batch(spec_, arr_, GLMM_SIMS, 1, chunk_size=GLMM_SIMS, device=dev)  # warm-up
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        counts = batch.run_batch(spec_, arr_, GLMM_SIMS, SEED, chunk_size=GLMM_SIMS, device=dev)
+        glmm_arm_s[name] = time.perf_counter() - t0
+        launches_by_arm[name] = kernels.counts()
+        got_l = launches_by_arm[name]
+        check(got_l["glmm_intercept"] == 1 and got_l["philox_fill"] == 2,
+              f"{name}: K7 launched {got_l['glmm_intercept']} times (1 expected), K1 "
+              f"{got_l['philox_fill']} (2 expected)")
+        check(int(counts["n_done"]) == GLMM_SIMS, f"{name}: n_done {counts['n_done']}")
+        conv = np.asarray(counts["converged"])
+        check(bool((conv > 0.9 * GLMM_SIMS).all()), f"{name}: converged {conv.tolist()}")
+        for key, v in counts.items():
+            check(bool(np.isfinite(np.asarray(v, dtype=np.float64)).all()), f"{name}: {key} not finite")
+        power = np.asarray(counts["sig_unc"])[-1] / GLMM_SIMS
+        print(f"arm {name}: {glmm_arm_s[name] * 1e3:.1f} ms for {GLMM_SIMS} sims through the "
+              f"kernels (one chunk; launches {got_l}); power at N={spec_.max_n}: "
+              f"{np.round(power, 4).tolist()}, boundary fits "
+              f"{int(np.asarray(counts['boundary_hit'])[-1])}", flush=True)
+        check_golden(name, spec_, arr_)
+        for k in launches:
+            launches[k] += got_l[k]
 
     # --- phase 5: timings at the main path's shapes ---
     reps = 20
@@ -2376,6 +2738,16 @@ def main(argv=None) -> int:
     timing.append(("poisson_quantile", f"Poisson flow rows ({flow_chunk} sims x 150)",
                    datagen.poisson_quantile_kernel, datagen.poisson_quantile_plain, (u_f, eta_f),
                    k8_bound(u_f, eta_f, datagen.poisson_quantile_kernel(u_f, eta_f)), None))
+    # K7 at the GLMM arms' cells and at a launch of README flow 3
+    for key, case, shape in (
+            ("glmm_intercept agq7", "glmm_agq7", "GLMM AGQ arm cells {}, N 200, m 20, p 3, nagq 7"),
+            ("glmm_intercept laplace", "glmm_laplace", "GLMM Laplace arm cells {}, N 200, m 20, p 3"),
+            ("glmm_intercept readme", "readme_flow_launch",
+             "README flow 3 launch, cells {}, N 480, m 24, p 2")):
+        args_ = k7_args_by[case]
+        out_ = glmmfit.glmm_intercept_kernel(*args_)
+        timing.append((key, shape.format(tuple(out_[2].shape)), glmmfit.glmm_intercept_kernel,
+                       glmmfit.glmm_intercept_plain, args_, k7_bound(args_, out_), None))
     timed = {}
     with ClockSampler() as clocks:  # a process; ended however the block exits
         for key, shape, fk, fp, inputs, (bound_ms, bound_by), lib in timing:
@@ -2461,6 +2833,8 @@ def main(argv=None) -> int:
 
     for name in ("reml_intercept", "glm_irls", "poisson_quantile"):
         records[name].update(timed[name])
+    records["glmm_intercept"].update(timed["glmm_intercept agq7"], by_shape={
+        shape: timed[f"glmm_intercept {shape}"] for shape in ("agq7", "laplace", "readme")})
     records["glm_irls"]["by_shape"] = {"arm": timed["glm_irls"], "flow": timed["glm_irls flow"],
                                        "factor_flow": timed["glm_irls factor"],
                                        "factor_flow_fallback": timed["glm_irls fallback"]}
@@ -2497,6 +2871,24 @@ def main(argv=None) -> int:
               f"of the median wall, {prof['launches']} kernels; largest device items (ms): "
               f"{items}", flush=True)
 
+    for name, (spec_, arr_) in glmm_specs.items():  # the GLMM arms' walls and profiles
+        t0 = time.perf_counter()
+        batch.run_batch(spec_, arr_, GLMM_SIMS, SEED, chunk_size=GLMM_SIMS, device=dev, plain=True)
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch.run_batch(spec_, arr_, GLMM_SIMS, SEED, chunk_size=GLMM_SIMS, device=dev)
+        again_s = time.perf_counter() - t0
+        print(f"arm {name} ({GLMM_SIMS} sims, wall): kernels {glmm_arm_s[name] * 1e3:.1f} ms and "
+              f"{again_s * 1e3:.1f} ms, plain {plain_s * 1e3:.1f} ms", flush=True)
+        prof = profile_arm(lambda: batch.run_batch(spec_, arr_, GLMM_SIMS, SEED,
+                                                   chunk_size=GLMM_SIMS, device=dev))
+        items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
+        print(f"profile {name} ({GLMM_SIMS} sims): wall median {prof['median_ms']:.3f} ms (range "
+              f"{prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {PROFILE_REPS} calls), device kernel "
+              f"time {prof['device_ms']:.3f} ms, busy {prof['device_ms'] / prof['median_ms']:.1%} "
+              f"of the median wall, {prof['launches']} kernels; largest device items (ms): "
+              f"{items}", flush=True)
+
     # --- phase 6: the user flows through MCPower ---
     print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     flows = run_user_flows(smi, specs)
@@ -2506,8 +2898,9 @@ def main(argv=None) -> int:
     for name, (source, replaces) in KERNEL_META.items():
         r = records[name]
         # K8's path is the Poisson flow's; every other kernel's the arms'
+        # (K7's the GLMM arms')
         path_launches = (flows["model_poisson_power"]["launches"][name]
-                         if name not in ARM_KERNELS else launches[name])
+                         if name == "poisson_quantile" else launches[name])
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches, **r,

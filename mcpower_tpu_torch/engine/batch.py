@@ -9,7 +9,7 @@ sampled factor levels; a scenario's short SCENARIO and HET streams), the
 scenario's per-sim design, the design and outcome, the fit (K2 + K3 for
 OLS, K2 + K4 for the random-intercept LMM, K6
 for an unclustered GLM, with a second K6 launch for the separation fallback
-of a design with factors), t^2 thresholds and corrections (with the
+of a design with factors, K7 for the random-intercept GLMM), t^2 thresholds and corrections (with the
 reduced-df crit rows of cells whose sparse factor levels were excluded),
 posthoc contrasts, and the reduction of per-sim flags to int32 counts before
 they leave the device.
@@ -26,7 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import corrections, datagen, glmfit, mixedfit, olsfit
+from . import corrections, datagen, glmfit, glmmfit, mixedfit, olsfit
 from .spec import SimSpec, factor_dependent_cols
 
 
@@ -83,13 +83,16 @@ def run_sims(spec: SimSpec, arr: Dict[str, torch.Tensor], seed_lo: int, seed_hi:
         excluded = min_counts < spec.factor_min_level_count
         colmask, dropped = _exclusion_colmask(spec, excluded)
 
+    # The clustered fits take no column mask, as the reference's (batch.py:101-125):
+    # exclusion moves only their crit rows, through `dropped`.
     if spec.estimator == "ols":
         stats = olsfit.ols_grid_stats(spec, X, y, colmask=colmask, plain=plain)
+    elif spec.cluster is not None and spec.outcome != "continuous":  # "glm" or "mle": a GLMM
+        stats = glmmfit.glmm_grid_stats(spec, arr, X, y, plain=plain)
     elif spec.estimator == "glm":  # unclustered: generate_batch has checked the scope
         stats = glmfit.glm_grid_stats(spec, arr, X, y, colmask=colmask, min_counts=min_counts,
                                       plain=plain)
-    else:  # "mle" with a cluster; the reference fits it without the mask (batch.py:125):
-        # exclusion moves only its crit rows, through `dropped`
+    else:  # "mle" with a cluster and a continuous outcome
         stats = mixedfit.mixed_grid_stats(spec, X, y, plain=plain)
 
     t2 = stats["t2"]  # (sims, G, k)

@@ -92,9 +92,7 @@ def unsupported(spec: SimSpec) -> str:
     """Why the port cannot run ``spec`` yet, naming the ROADMAP item that
     will port it; '' when the spec is inside the port."""
     if spec.estimator == "glm" or spec.outcome != "continuous":
-        if spec.cluster is not None:
-            return "GLMM fits (ROADMAP A9)"
-        if spec.estimator != "glm":
+        if spec.estimator != "glm" and (spec.estimator != "mle" or spec.cluster is None):
             return f"estimator {spec.estimator!r} with a {spec.outcome} outcome"
         if spec.outcome not in ("binary", "count"):
             return f"a GLM of a {spec.outcome} outcome"
@@ -113,6 +111,14 @@ def unsupported(spec: SimSpec) -> str:
         return "the mle estimator without a cluster"
     if len(spec.effective_fit_cols) > kernels.MAX_FIT_P:
         return f"wide fits, p > {kernels.MAX_FIT_P} (ROADMAP B10)"
+    if c is not None and spec.outcome != "continuous":  # a GLMM: kernel K7's limits
+        from .glmmfit import MAX_AGQ, MAX_CLUSTERS
+
+        if not 1 <= int(spec.nagq) <= MAX_AGQ:
+            return f"a GLMM at nagq {spec.nagq}; kernel K7 takes 1..{MAX_AGQ} nodes"
+        if c.n_clusters_at(spec.max_n) > MAX_CLUSTERS:
+            return (f"a GLMM of {c.n_clusters_at(spec.max_n)} clusters; kernel K7 takes at "
+                    f"most {MAX_CLUSTERS}")
     return ""
 
 

@@ -1,0 +1,614 @@
+"""Batched random-intercept GLMM: penalized IRLS, Laplace or adaptive
+Gauss-Hermite deviance, and a warm-carried Brent search over log tau^2.
+
+The port of ``mcpower_tpu.engine.glmmfit``'s random-intercept arm
+(``_intercept_glmm_grid_stats``, :909-1264) for logit, probit and Poisson
+outcomes. For fixed tau^2 the joint (beta, u) mode comes from PIRLS with u
+absorbed per cluster (u_i = c_i (t_i - s_i' beta), c_i = 1 / (W_i +
+1/tau^2)), so a step is per-cluster sums and a p x p Schur solve. The
+search over log tau^2 in [-14, 7] is the reference's two-phase Brent: a cold
+f64 first evaluation, 6 evaluations of f32 PIRLS at 12 iterations and 8 at
+5, each carrying (beta, u) from the last evaluation, the deviance always in
+f64 from the mode (AGQ: an f64 centre node plus f32 node deltas). Then the
+f64 fit at the optimum, the tau^2 = 0 probe, the final fit and its Schur
+covariance, or under ``wald_se="hessian"`` the covariance from central
+differences of the beta-profiled Laplace deviance.
+
+On the card the whole per-cell fit is kernel K7 (``csrc/glmm_intercept.cu``,
+one warp per (sim, grid) cell, a lane per cluster).
+:func:`glmm_intercept_plain` is its plain PyTorch version, with the sim and
+grid axes as batch axes. Both sum every row quantity the same way: first
+over each cluster's rows in row order, then over clusters as K7's lanes hold
+them (lane l takes clusters l, l + 32, ... in turn, then the lanes combine
+in ``smallchol.lane_sum``'s pair tree), so that the two perform the same
+operations in the same order and agree bit for bit on the card.
+
+Slopes and extra groupings (the reference's Nelder-Mead paths) are not
+ported yet (ROADMAP A11, A12).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import kernels, smallchol, waldstats
+from .glmfit import LINK_POISSON, MU_EPS, _deviance_terms, _mu_var_dmu, link_code
+from .mixedfit import BOUNDARY_LOG_GAMMA, LOG_GAMMA_HI, LOG_GAMMA_LO, _CGOLD, _brent_minimize
+from .spec import SimSpec
+
+# The reference's budgets and their reasoning (glmmfit.py:45-60): PIRLS
+# iterations of the cold, probe and final fits and of the first Brent phase,
+# of the warm second phase, and the split of the 14 Brent steps.
+N_PIRLS = 12
+N_PIRLS_WARM = 5
+BRENT_FULL_GLMM = 6
+BRENT_ITERS_GLMM = 14
+# FD Hessian: step in beta and u-Newton passes per evaluation (:65, :1215).
+HESSIAN_STEP = 1e-4
+N_U_NEWTON = 20
+# K7's limits (datagen.unsupported names them before any run): quadrature
+# nodes, held per cluster in a lane's local array, and clusters, whose
+# per-cluster state K7 keeps in device memory per cell.
+MAX_AGQ = 25
+MAX_CLUSTERS = 1024
+MAX_P = kernels.MAX_FIT_P
+
+_LOG_2PI = 1.8378770664093453
+_SQRT2 = math.sqrt(2.0)
+
+
+def _tri(p: int):
+    """(a, b), b <= a, in packed lower-triangle order."""
+    return [(a, b) for a in range(p) for b in range(a + 1)]
+
+
+def gh_nodes(nagq: int):
+    """Gauss-Hermite nodes (physicists' weight e^{-x^2}) for AGQ, from
+    numpy on the host as the reference takes them (:1020-1028): ``x``,
+    ``log w``, the centre node ``k0`` and the search's f32 node offsets
+    ``dw = ((log w + x^2) - log w[k0]) - x[k0]^2``."""
+    x, w = np.polynomial.hermite.hermgauss(nagq)
+    lw = np.log(w)
+    k0 = int(np.argmin(np.abs(x)))
+    dw = ((lw + x ** 2) - lw[k0]) - x[k0] ** 2
+    return x, lw, k0, dw.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# The plain version of K7
+# ---------------------------------------------------------------------------
+
+
+class _Cells:
+    """The (sim, grid) cells of one launch in the plain version's layout:
+    ``X (S, 1, n, p)`` in f64 and f32, ``y (S, 1, n)``, the row mask ``(G,
+    n)`` and the active clusters ``(G, m)``."""
+
+    def __init__(self, code: int, X, y, fit, grid, layout):
+        self.code = code
+        self.rr, self.period, self.m = layout
+        max_n = X.shape[1]
+        Xf = X[..., list(fit)]
+        self.X = {torch.float64: Xf.to(torch.float64)[:, None],
+                  torch.float32: Xf.to(torch.float32)[:, None]}
+        self.y = {torch.float64: y.to(torch.float64)[:, None],
+                  torch.float32: y.to(torch.float32)[:, None]}
+        rows = torch.arange(max_n, device=X.device)
+        ns = torch.as_tensor(list(grid), device=X.device)
+        mask = (rows < ns[:, None]).to(torch.float64)
+        self.mask = {torch.float64: mask, torch.float32: mask.to(torch.float32)}
+        self.active = self.seg(mask) > 0.0  # (G, m)
+        self.ns = ns.to(torch.float64)
+        self.p = Xf.shape[-1]
+
+    def seg(self, v: torch.Tensor) -> torch.Tensor:
+        """(..., n) -> (..., m): each cluster's rows added in row order."""
+        if self.rr:  # row r in cluster r % m
+            b = v.reshape(*v.shape[:-1], -1, self.m)
+            acc = torch.zeros_like(b[..., 0, :])
+            for k in range(b.shape[-2]):
+                acc = acc + b[..., k, :]
+            return acc
+        b = v.reshape(*v.shape[:-1], self.m, self.period)  # rows of cluster j: a block
+        acc = torch.zeros_like(b[..., 0])
+        for k in range(self.period):
+            acc = acc + b[..., k]
+        return acc
+
+    def lanes(self, v: torch.Tensor) -> torch.Tensor:
+        """(..., m) -> (...): the sum over clusters in K7's lane order."""
+        pad = -self.m % smallchol.LANES
+        return smallchol.lane_sum(torch.nn.functional.pad(v, (0, pad)))
+
+    def per_row(self, u: torch.Tensor) -> torch.Tensor:
+        """(..., m) -> (..., n): each row's cluster value."""
+        n = self.mask[torch.float64].shape[-1]
+        if self.rr:
+            return u.repeat(*([1] * (u.dim() - 1)), n // self.m)
+        return u.repeat_interleave(self.period, dim=-1)
+
+    def where_active(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.where(self.active, v, torch.zeros_like(v))
+
+
+def _cols_dot(s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., p, m) x (..., p) -> (..., m), the columns added in turn."""
+    out = torch.zeros_like(s[..., 0, :])
+    for a in range(s.shape[-2]):
+        out = out + s[..., a, :] * b[..., a:a + 1]
+    return out
+
+
+def _loglik_rows(code: int, y: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
+    """Per-row conditional log-likelihood (the reference's ``_loglik_rows``,
+    :108): binomial ``log mu`` or ``log(1 - mu)`` by y (the reference's y
+    log mu + (1 - y) log(1 - mu) at y in {0, 1}), Poisson ``y eta - e^eta``
+    at the clipped eta."""
+    if code == LINK_POISSON:
+        eta_c = torch.clamp(eta, -30.0, 30.0)
+        return y * eta_c - torch.exp(eta_c)
+    mu = _mu_var_dmu(code, eta)[0]
+    return torch.where(y > 0.5, torch.log(mu), torch.log(1.0 - mu))
+
+
+def _schur(cells: _Cells, A, ss, ridge):
+    """a_xx = (X'WX - sum c s s') + ridge I from the lane sums, ``A`` and
+    ``ss`` packed ``(..., NT)``."""
+    p = cells.p
+    M = A.new_zeros(A.shape[:-1] + (p, p))
+    for k, (i, j) in enumerate(_tri(p)):
+        v = A[..., k] - ss[..., k]
+        if i == j:
+            v = v + ridge
+        M[..., i, j] = M[..., j, i] = v
+    return M
+
+
+def _step_sums(cells: _Cells, dtype, beta, u, inv_tau2):
+    """One PIRLS step's sums at (beta, u): per-cluster s, t and c, and the
+    lane sums of X'WX, X'Wz, sum c s s' and sum c s t. Every divisor is a
+    tensor: torch divides by a Python number through its reciprocal."""
+    p, tri = cells.p, _tri(cells.p)
+    X, y, mask = cells.X[dtype], cells.y[dtype], cells.mask[dtype]
+    eta = smallchol.rowmv(X, beta) + cells.per_row(u)
+    mu, var, dmu = _mu_var_dmu(cells.code, eta)
+    w = dmu * dmu / torch.clamp(var, min=MU_EPS) * mask
+    z = eta + (y - mu) / dmu
+    wz = w * z
+    xs = [X[..., a].expand_as(w) for a in range(p)]
+    q = [w] + [w * xa for xa in xs] + [wz] + [(xs[a] * w) * xs[b] for a, b in tri] \
+        + [xa * wz for xa in xs]
+    q = cells.seg(torch.stack(q, dim=-2))  # (..., K, m)
+    W, s, t = q[..., 0, :], q[..., 1:1 + p, :], q[..., 1 + p, :]
+    c = cells.where_active(torch.ones_like(W) / (W + inv_tau2[..., None]))
+    cs = [c * s[..., a, :] for a in range(p)]
+    per = torch.cat([q[..., 2 + p:, :],
+                     torch.stack([cs[a] * s[..., b, :] for a, b in tri]
+                                 + [cs[a] * t for a in range(p)], dim=-2)], dim=-2)
+    sums = cells.lanes(per)  # (..., 2 NT + 2p)
+    nt = len(tri)
+    return (s, t, c), sums[..., :nt], sums[..., nt:nt + p], sums[..., nt + p:2 * nt + p], \
+        sums[..., 2 * nt + p:]
+
+
+def _pirls(cells: _Cells, dtype, tau2, beta, u, iters: int):
+    """``iters`` PIRLS steps in ``dtype`` from (beta, u), a cell frozen on a
+    step that is not finite (the reference's ``make_pirls``, :947-1013);
+    then in f64 at the mode the row weights' cluster sums ``W (..., m)`` and
+    the Laplace deviance. ``tau2 (...)`` f64."""
+    inv64 = torch.ones_like(tau2) / torch.clamp(tau2, min=1e-12)
+    inv = inv64.to(dtype)
+    ridge = torch.tensor(1e-10 if dtype == torch.float64 else 1e-6, dtype=dtype,
+                         device=beta.device)
+    for _ in range(iters):
+        (s, t, c), A, b, ss, st = _step_sums(cells, dtype, beta, u, inv)
+        beta_new = smallchol.cho_solve(smallchol.chol(_schur(cells, A, ss, ridge)), b - st)
+        u_new = c * (t - _cols_dot(s, beta_new))
+        ok = torch.isfinite(beta_new).all(-1) & torch.isfinite(u_new).all(-1)
+        beta = torch.where(ok[..., None], beta_new, beta)
+        u = torch.where(ok[..., None], u_new, u)
+    W, dev_cond = _tail(cells, beta.to(torch.float64), u.to(torch.float64))
+    u64 = u.to(torch.float64)
+    laplace = (dev_cond + cells.lanes(cells.where_active(u64 * u64)) * inv64
+               + cells.lanes(cells.where_active(torch.log1p(tau2[..., None] * W))))
+    return beta, u, W, laplace
+
+
+def _tail(cells: _Cells, beta, u):
+    """f64 at (beta, u): the cluster sums of the row weights and the
+    conditional deviance."""
+    X, y, mask = cells.X[torch.float64], cells.y[torch.float64], cells.mask[torch.float64]
+    eta = smallchol.rowmv(X, beta) + cells.per_row(u)
+    mu, var, dmu = _mu_var_dmu(cells.code, eta)
+    w = dmu * dmu / torch.clamp(var, min=MU_EPS) * mask
+    dt = _deviance_terms(cells.code, y.expand_as(mu), mu) * mask
+    q = cells.seg(torch.stack([w, dt], dim=-2))
+    return q[..., 0, :], 2.0 * cells.lanes(q[..., 1, :])
+
+
+def _logsumexp(v: torch.Tensor) -> torch.Tensor:
+    """log sum exp over axis -2 (nodes): the max, then the exponentials
+    added in node order."""
+    mx = v.amax(-2)
+    acc = torch.zeros_like(mx)
+    for k in range(v.shape[-2]):
+        acc = acc + torch.exp(v[..., k, :] - mx)
+    return torch.log(acc) + mx
+
+
+def _agq_deviance(cells: _Cells, gh, tau2, beta, u, W):
+    """-2 sum_i log of the adaptive-GH integral at the mode, all in f64 (the
+    reference's ``agq_deviance``, :1030)."""
+    x, lw = gh
+    inv = (torch.ones_like(tau2) / torch.clamp(tau2, min=1e-12))[..., None]
+    sigma = torch.ones_like(W) / torch.sqrt(W + inv)  # (..., m)
+    ss = _SQRT2 * sigma
+    lp = smallchol.rowmv(cells.X[torch.float64], beta)
+    u_k = u[..., None, :] + ss[..., None, :] * x[:, None]  # (..., k, m)
+    eta = lp[..., None, :] + cells.per_row(u_k)
+    ll = _loglik_rows(cells.code, cells.y[torch.float64][..., None, :], eta) \
+        * cells.mask[torch.float64][:, None, :]
+    ll_i = cells.seg(ll)  # (..., k, m)
+    logt = torch.log(torch.clamp(tau2, min=1e-12))[..., None, None]
+    prior = (-0.5 * (u_k * u_k)) * inv[..., None] - 0.5 * (logt + _LOG_2PI)
+    stacked = ((lw + x * x)[:, None] + ll_i) + prior
+    log_int = _logsumexp(stacked) + torch.log(ss)
+    return -2.0 * cells.lanes(cells.where_active(log_int))
+
+
+def _agq_deviance_hybrid(cells: _Cells, gh, dw32, k0: int, tau2, beta, u, W):
+    """The search's AGQ deviance: an f64 centre node plus f32 node deltas
+    (the reference's ``agq_deviance_hybrid``, :1053); ``beta``, ``u`` the
+    f64 casts of the f32 mode, ``W`` its f64 cluster weights."""
+    x, lw = gh
+    f32 = torch.float32
+    inv = (torch.ones_like(tau2) / torch.clamp(tau2, min=1e-12))[..., None]
+    sigma = torch.ones_like(W) / torch.sqrt(W + inv)
+    ss = _SQRT2 * sigma
+    y64, m64 = cells.y[torch.float64], cells.mask[torch.float64]
+    eta_c = smallchol.rowmv(cells.X[torch.float64], beta) + cells.per_row(u)
+    ll_c = cells.lanes(cells.seg(_loglik_rows(cells.code, y64, eta_c) * m64))
+    logt = torch.log(torch.clamp(tau2, min=1e-12))[..., None]
+    prior_c = (-0.5 * (u * u)) * inv - 0.5 * (logt + _LOG_2PI)
+    s0 = ((lw[k0] + x[k0] * x[k0]) + prior_c) + torch.log(ss)
+    eta_c32 = eta_c.to(f32)
+    y32, m32 = cells.y[f32], cells.mask[f32]
+    shift = ss.to(f32)[..., None, :] * x.to(f32)[:, None]  # (..., k, m)
+    eta_k = eta_c32[..., None, :] + cells.per_row(shift)
+    dll = (_loglik_rows(cells.code, y32[..., None, :], eta_k)
+           - _loglik_rows(cells.code, y32, eta_c32)[..., None, :]) * m32[:, None, :]
+    dll_i = cells.seg(dll)
+    u32 = u.to(f32)[..., None, :]
+    uk = u32 + shift
+    dprior = (-0.5 * (uk * uk - u32 * u32)) * inv.to(f32)[..., None]
+    delta = (dw32[:, None] + dll_i) + dprior
+    lse = _logsumexp(delta).to(torch.float64)
+    return -2.0 * (cells.lanes(cells.where_active(s0 + lse)) + ll_c)
+
+
+def _final_stats(cells: _Cells, beta, u, tau2):
+    """The f64 fit's Schur complement at the mode, ridged and unridged:
+    ``(X'WX - sum c s s') + 1e-10 I`` and that less the ridge."""
+    p, tri = cells.p, _tri(cells.p)
+    X, y, mask = cells.X[torch.float64], cells.y[torch.float64], cells.mask[torch.float64]
+    eta = smallchol.rowmv(X, beta) + cells.per_row(u)
+    mu, var, dmu = _mu_var_dmu(cells.code, eta)
+    w = dmu * dmu / torch.clamp(var, min=MU_EPS) * mask
+    xs = [X[..., a].expand_as(w) for a in range(p)]
+    q = cells.seg(torch.stack([w] + [w * xa for xa in xs] + [(xs[a] * w) * xs[b] for a, b in tri],
+                              dim=-2))
+    W, s = q[..., 0, :], q[..., 1:1 + p, :]
+    inv = torch.ones_like(tau2) / torch.clamp(tau2, min=1e-12)
+    c = cells.where_active(torch.ones_like(W) / (W + inv[..., None]))
+    cs = [c * s[..., a, :] for a in range(p)]
+    per = torch.cat([q[..., 1 + p:, :], torch.stack([cs[a] * s[..., b, :] for a, b in tri], -2)],
+                    dim=-2)
+    sums = cells.lanes(per)
+    nt = len(tri)
+    ridge = torch.tensor(1e-10, dtype=torch.float64, device=beta.device)
+    a_xx = _schur(cells, sums[..., :nt], sums[..., nt:], ridge)
+    return a_xx, a_xx - torch.diag_embed(ridge.expand(p))
+
+
+def _dev_beta(cells: _Cells, beta_q, u, tau2c):
+    """The beta-profiled Laplace deviance at ``beta_q (..., V, p)`` (the
+    reference's ``dev_beta``, :1215-1235): u re-optimised from the mode's
+    ``u (..., m)`` by N_U_NEWTON u-only Newton passes."""
+    X, y, mask = cells.X[torch.float64], cells.y[torch.float64], cells.mask[torch.float64]
+    X, y, mask = X[:, :, None], y[:, :, None], mask[:, None]
+    tc = tau2c[..., None, None]  # (..., 1, 1)
+    inv = torch.ones_like(tc) / tc
+    lp = smallchol.rowmv(X, beta_q)  # (..., V, n)
+    u_q = u[..., None, :].expand(lp.shape[:-1] + (cells.m,))
+    for _ in range(N_U_NEWTON):
+        eta = lp + cells.per_row(u_q)
+        mu, var, dmu = _mu_var_dmu(cells.code, eta)
+        w = dmu * dmu / torch.clamp(var, min=MU_EPS) * mask
+        r = (y - mu) * mask
+        q = cells.seg(torch.stack([r, w], dim=-2))
+        g = q[..., 0, :] - u_q / tc
+        h = q[..., 1, :] + inv
+        u_q = torch.where(cells.active[:, None], u_q + g / h, torch.zeros_like(u_q))
+    eta = lp + cells.per_row(u_q)
+    mu, var, dmu = _mu_var_dmu(cells.code, eta)
+    w = dmu * dmu / torch.clamp(var, min=MU_EPS) * mask
+    dt = _deviance_terms(cells.code, y.expand_as(mu), mu) * mask
+    q = cells.seg(torch.stack([w, dt], dim=-2))
+    act = cells.active[:, None]
+    zero = torch.zeros_like(u_q)
+    return (2.0 * cells.lanes(q[..., 1, :])
+            + cells.lanes(torch.where(act, u_q * u_q, zero)) / tc[..., 0]
+            + cells.lanes(torch.where(act, torch.log1p(tc * q[..., 0, :]), zero)))
+
+
+def hessian_offsets(p: int) -> np.ndarray:
+    """The central stencil of ``_fd_hessian_cov`` (:65): 0, +-e_i, then
+    (+e_i +e_j, +e_i -e_j, -e_i +e_j, -e_i -e_j) per pair i < j."""
+    eye = np.eye(p)
+    offs = [np.zeros(p)]
+    for i in range(p):
+        offs.extend([eye[i], -eye[i]])
+    for i in range(p):
+        for j in range(i + 1, p):
+            offs.extend([eye[i] + eye[j], eye[i] - eye[j], -eye[i] + eye[j], -eye[i] - eye[j]])
+    return np.array(offs)
+
+
+def _fd_hessian_cov(cells: _Cells, beta, u, tau2c, cov_fallback):
+    """cov = 2 H^-1 from central differences of the profiled deviance,
+    the rx covariance where that is not finite (:65-105)."""
+    p = beta.shape[-1]
+    h = HESSIAN_STEP
+    offs = torch.as_tensor(hessian_offsets(p) * h, dtype=torch.float64, device=beta.device)
+    vals = _dev_beta(cells, beta[..., None, :] + offs, u, tau2c)  # (..., V)
+    f0 = vals[..., 0]
+    H = beta.new_zeros(beta.shape[:-1] + (p, p))
+    hh = torch.full_like(f0, h * h)
+    for i in range(p):
+        H[..., i, i] = ((vals[..., 1 + 2 * i] - 2.0 * f0) + vals[..., 2 + 2 * i]) / hh
+    base = 1 + 2 * p
+    hh4 = torch.full_like(f0, 4.0 * h * h)
+    k = 0
+    for i in range(p):
+        for j in range(i + 1, p):
+            v = vals[..., base + 4 * k:base + 4 * k + 4]
+            hij = (((v[..., 0] - v[..., 1]) - v[..., 2]) + v[..., 3]) / hh4
+            H[..., i, j] = H[..., j, i] = hij
+            k += 1
+    eye = torch.diag_embed(torch.full_like(beta, 1e-10))
+    cov_h = 2.0 * smallchol.cho_inverse(smallchol.chol(H + eye))
+    ok = torch.isfinite(cov_h).flatten(-2).all(-1)
+    return torch.where(ok[..., None, None], cov_h, cov_fallback)
+
+
+def glmm_intercept_plain(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequence[int],
+                         grid: Sequence[int], layout: Tuple[bool, int, int],
+                         beta0: torch.Tensor, nagq: int = 1, hessian: bool = False,
+                         log_tau2: torch.Tensor = None):
+    """Every (sim, grid) cell's random-intercept GLMM fit.
+
+    ``X (sims, max_n, P)`` and ``y (sims, max_n)`` f32; ``fit`` the pf fit
+    columns; ``grid`` G ascending row counts; ``layout`` (round robin, its
+    period, m clusters at max_n); ``beta0 (pf,)`` f64, the start of every
+    cell; ``nagq`` 1 (Laplace) or the AGQ nodes; ``hessian`` the FD Wald
+    covariance; ``log_tau2 (sims, G)``, where given, replaces the search's
+    optimum (the cold first evaluation's carry then starts the fit), to hold
+    the fit apart from the search. Returns f64 ``beta (sims, G, pf)``, ``cov (sims, G, pf,
+    pf)``, bool ``converged`` and ``boundary (sims, G)``, f64 ``tau2_hat``
+    and ``ybar (sims, G)``.
+    """
+    cells = _Cells(code, X, y, fit, grid, layout)
+    sims, G, pf, m = X.shape[0], len(grid), len(fit), cells.m
+    dev_ = X.device
+    f64, f32 = torch.float64, torch.float32
+    if nagq > 1:
+        x, lw, k0, dw = gh_nodes(nagq)
+        gh = (torch.as_tensor(x, dtype=f64, device=dev_), torch.as_tensor(lw, dtype=f64, device=dev_))
+        dw32 = torch.as_tensor(dw, device=dev_)
+
+    def dev_at(lt, beta, u, iters):
+        tau2 = torch.exp(lt.to(dev_)).expand(sims, G)
+        beta, u, W, lap = _pirls(cells, f64, tau2, beta, u, iters)
+        if nagq > 1:
+            lap = _agq_deviance(cells, gh, tau2, beta, u, W)
+        return lap, beta, u
+
+    def dev_at32(lt, beta, u, iters):
+        tau2 = torch.exp(lt.to(dev_)).expand(sims, G)
+        beta, u, W, lap = _pirls(cells, f32, tau2, beta, u, iters)
+        if nagq > 1:
+            lap = _agq_deviance_hybrid(cells, gh, dw32, k0, tau2, beta.to(f64), u.to(f64), W)
+        return lap, beta, u
+
+    beta_start = beta0.to(device=dev_, dtype=f64).expand(sims, G, pf)
+    u_start = torch.zeros((sims, G, m), dtype=f64, device=dev_)
+
+    def init_eval(lt, _aux):
+        f, b, u = dev_at(lt, beta_start, u_start, N_PIRLS)
+        return f, (b.to(f32), u.to(f32))
+
+    def make_eval(iters):
+        def ev(lt, aux):
+            f, b, u = dev_at32(lt, aux[0], aux[1], iters)
+            return f, (b, u)
+        return ev
+
+    lt_hat, _, (beta_c, u_c) = _brent_minimize(
+        LOG_GAMMA_LO, LOG_GAMMA_HI, (None, None),
+        ((BRENT_FULL_GLMM, make_eval(N_PIRLS)),
+         (BRENT_ITERS_GLMM - BRENT_FULL_GLMM, make_eval(N_PIRLS_WARM))),
+        init_eval=init_eval) if log_tau2 is None else (log_tau2.to(dev_), None, init_eval(
+            torch.tensor(LOG_GAMMA_LO + _CGOLD * (LOG_GAMMA_HI - LOG_GAMMA_LO), dtype=f64),
+            None)[1])
+    dev_int, beta_c, u_c = dev_at(lt_hat, beta_c.to(f64), u_c.to(f64), N_PIRLS)
+    lo = torch.tensor(LOG_GAMMA_LO, dtype=f64, device=dev_)
+    dev_zero, _, _ = dev_at(lo, beta_c, u_c, N_PIRLS)
+    boundary = (dev_zero <= dev_int + 1e-10) | (lt_hat < BOUNDARY_LOG_GAMMA)
+    tau2_hat = torch.where(boundary, torch.zeros_like(lt_hat), torch.exp(lt_hat))
+    tau2c = torch.clamp(tau2_hat, min=1e-12)
+
+    beta, u, _, _ = _pirls(cells, f64, tau2c, beta_c, u_c, N_PIRLS)
+    a_xx, raw = _final_stats(cells, beta, u, tau2c)
+    chol = smallchol.chol(a_xx)
+    cov = smallchol.cho_inverse(chol)
+    if hessian:
+        cov = _fd_hessian_cov(cells, beta, u, tau2c, cov)
+    converged = (torch.isfinite(beta).all(-1) & smallchol.chol_ok(chol)
+                 & smallchol.rank_ok(raw) & torch.isfinite(dev_int))
+    ysum = cells.lanes(cells.seg(cells.y[f64] * cells.mask[f64]))
+    ybar = ysum / cells.ns
+    return beta, cov, converged, boundary, tau2_hat, ybar
+
+
+# ---------------------------------------------------------------------------
+# K7 on the card
+# ---------------------------------------------------------------------------
+
+_GLMM_ARGS = [
+    ctypes.c_void_p,  # X (sims, max_n, P) f32
+    ctypes.c_void_p,  # y (sims, max_n) f32
+    ctypes.c_int,  # sims
+    ctypes.c_int,  # max_n
+    ctypes.c_int,  # P
+    ctypes.POINTER(ctypes.c_int),  # fit columns (host)
+    ctypes.c_int,  # pf
+    ctypes.c_void_p,  # grid (G,) int32, device
+    ctypes.c_int,  # G
+    ctypes.c_int,  # round robin (1) or blocked (0)
+    ctypes.c_int,  # period: m (round robin) or the cluster size (blocked)
+    ctypes.c_int,  # m
+    ctypes.c_int,  # link code
+    ctypes.c_void_p,  # beta0 (pf,) f64, device
+    ctypes.c_int,  # nagq
+    ctypes.POINTER(ctypes.c_double),  # gh x (nagq,) host
+    ctypes.POINTER(ctypes.c_double),  # gh log w (nagq,) host
+    ctypes.POINTER(ctypes.c_float),  # gh dw (nagq,) f32 host
+    ctypes.c_int,  # k0
+    ctypes.c_int,  # hessian
+    ctypes.c_void_p,  # scratch (sims * G, m, pf + 5) f64
+    ctypes.c_void_p,  # beta out (sims, G, pf) f64
+    ctypes.c_void_p,  # cov out (sims, G, pf, pf) f64
+    ctypes.c_void_p,  # tau2_hat out (sims, G) f64
+    ctypes.c_void_p,  # ybar out (sims, G) f64
+    ctypes.c_void_p,  # flags out (sims, G) uint8: bit0 converged, bit1 boundary
+    ctypes.c_void_p,  # cudaStream_t
+]
+
+SCRATCH_SLOTS = 6  # per cluster: u, W, t, c, the step's new u, a saved u; then s (pf)
+
+
+def glmm_intercept_kernel(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequence[int],
+                          grid: Sequence[int], layout: Tuple[bool, int, int],
+                          beta0: torch.Tensor, nagq: int = 1, hessian: bool = False):
+    """Kernel K7: :func:`glmm_intercept_plain` on the card, one warp per
+    (sim, grid) cell."""
+    fit, grid = [int(c) for c in fit], [int(n) for n in grid]
+    rr, period, m = bool(layout[0]), int(layout[1]), int(layout[2])
+    pf, G = len(fit), len(grid)
+    if not 1 <= pf <= MAX_P:
+        raise ValueError(f"glmm_intercept kernel takes 1 <= p <= {MAX_P}, got {pf}")
+    if not 1 <= nagq <= MAX_AGQ:
+        raise ValueError(f"glmm_intercept kernel takes 1 <= nagq <= {MAX_AGQ}, got {nagq}")
+    if not 1 <= m <= MAX_CLUSTERS:
+        raise ValueError(f"glmm_intercept kernel takes 1 <= m <= {MAX_CLUSTERS}, got {m}")
+    if X.dtype != torch.float32 or y.dtype != torch.float32:
+        raise ValueError("glmm_intercept kernel takes f32 X and y")
+    sims, max_n, P = X.shape
+    if y.shape != (sims, max_n) or beta0.shape != (pf,):
+        raise ValueError(f"glmm_intercept: X {tuple(X.shape)}, y {tuple(y.shape)}, beta0 "
+                         f"{tuple(beta0.shape)} for p {pf}")
+    if G == 0 or any(not 0 < n <= max_n for n in grid) or any(not 0 <= c < P for c in fit):
+        raise ValueError(f"glmm_intercept: grid {grid} or fit columns {fit} out of range")
+    if (rr and max_n % m) or (not rr and (period < 1 or max_n != m * period)):
+        raise ValueError(f"glmm_intercept: layout {layout} does not tile {max_n} rows")
+    dev_ = X.device
+    X, y = X.contiguous(), y.contiguous()
+    beta0 = beta0.to(device=dev_, dtype=torch.float64).contiguous()
+    grid_t = torch.tensor(grid, dtype=torch.int32, device=dev_)
+    kw = dict(dtype=torch.float64, device=dev_)
+    beta = torch.empty((sims, G, pf), **kw)
+    cov = torch.empty((sims, G, pf, pf), **kw)
+    tau2, ybar = torch.empty((sims, G), **kw), torch.empty((sims, G), **kw)
+    flags = torch.empty((sims, G), dtype=torch.uint8, device=dev_)
+    scratch = torch.empty((sims * G, m, pf + SCRATCH_SLOTS), **kw)
+    kernels.require_cuda("glmm_intercept", X, y, grid_t, beta0, scratch, beta, cov, tau2, ybar,
+                         flags)
+    if nagq > 1:
+        x, lw, k0, dw = gh_nodes(nagq)
+    else:
+        x, lw, k0, dw = np.zeros(1), np.zeros(1), 0, np.zeros(1, np.float32)
+    if sims:
+        k = kernels.KERNELS["glmm_intercept"]
+        fn = k.fn("mcp_glmm_intercept", _GLMM_ARGS)
+        k.check(fn(
+            kernels.ptr(X), kernels.ptr(y), sims, max_n, P, (ctypes.c_int * pf)(*fit), pf,
+            kernels.ptr(grid_t), G, int(rr), period, m, code, kernels.ptr(beta0), nagq,
+            (ctypes.c_double * len(x))(*x.tolist()), (ctypes.c_double * len(lw))(*lw.tolist()),
+            (ctypes.c_float * len(dw))(*dw.tolist()), k0, int(hessian), kernels.ptr(scratch),
+            kernels.ptr(beta), kernels.ptr(cov), kernels.ptr(tau2), kernels.ptr(ybar),
+            kernels.ptr(flags), kernels.stream_of(X)))
+    return beta, cov, (flags & 1).bool(), (flags & 2).bool(), tau2, ybar
+
+
+def glmm_intercept(code, X, y, fit, grid, layout, beta0, nagq: int = 1, hessian: bool = False):
+    """K7 for CUDA tensors, the plain version for CPU tensors."""
+    if X.is_cuda:
+        return glmm_intercept_kernel(code, X, y, fit, grid, layout, beta0, nagq, hessian)
+    if X.device.type != "cpu":
+        raise ValueError(f"glmm_intercept: no kernel for device {X.device}")
+    return glmm_intercept_plain(code, X, y, fit, grid, layout, beta0, nagq, hessian)
+
+
+# ---------------------------------------------------------------------------
+# The arm
+# ---------------------------------------------------------------------------
+
+
+def layout_of(spec: SimSpec) -> Tuple[bool, int, int]:
+    """(round robin, period, m at max_n) of the primary grouping."""
+    c = spec.cluster
+    return (c.sizing_mode == "fixed_clusters", max(int(c.sizing_value), 1),
+            c.n_clusters_at(spec.max_n))
+
+
+def glmm_grid_stats(spec: SimSpec, arr: Dict[str, torch.Tensor], X: torch.Tensor,
+                    y: torch.Tensor, *, plain: bool = False) -> Dict[str, torch.Tensor]:
+    """All random-intercept GLMM statistics for a batch of sims across the
+    grid (the reference's ``glmm_grid_stats``, :140): ``t2``, ``overall``
+    (the joint Wald chi^2), ``converged``, ``boundary_hit`` and ``singular``
+    (the tau^2 = 0 pin), ``tau2_hat``, ``glm_baseline`` (the realized
+    outcome mean) and ``pinned_comp``; ``posthoc_t2`` for a posthoc spec.
+    ``plain=True`` runs the plain version of K7 on any device.
+    """
+    c = spec.cluster
+    if c is None:
+        raise ValueError("a GLMM needs a cluster spec")
+    if c.slopes:
+        raise NotImplementedError("not ported yet: GLMM random slopes (ROADMAP A11)")
+    if c.extra_groupings:
+        raise NotImplementedError("not ported yet: GLMM extra groupings (ROADMAP A12)")
+    fit = list(spec.effective_fit_cols)
+    if spec.scenario.truth_start:
+        beta0 = arr["effects"].to(device=X.device, dtype=torch.float64)[fit]
+    else:
+        beta0 = torch.zeros(len(fit), dtype=torch.float64, device=X.device)
+    beta, cov, converged, boundary, tau2_hat, ybar = (
+        glmm_intercept_plain if plain else glmm_intercept
+    )(link_code(spec.outcome, spec.link), X, y, fit, spec.grid, layout_of(spec), beta0,
+      max(int(spec.nagq), 1), spec.wald_se == "hessian")
+    out = {
+        "t2": waldstats.t2_targets(spec, beta, cov),
+        "overall": waldstats.overall_wald_chi2(spec, beta, cov),
+        "converged": converged,
+        "boundary_hit": boundary,
+        "singular": boundary,
+        "tau2_hat": tau2_hat,
+        "glm_baseline": ybar,
+        "pinned_comp": (boundary & converged)[..., None],
+    }
+    return waldstats.add_posthoc(out, spec, beta, cov)

@@ -84,6 +84,20 @@ def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
 
 
+def chol_ok(L: torch.Tensor) -> torch.Tensor:
+    """True where the factorization succeeded: finite, positive pivots (the
+    reference's ``chol_ok``, :322)."""
+    d = torch.diagonal(L, dim1=-2, dim2=-1)
+    return (torch.isfinite(d) & (d > 0.0)).all(-1)
+
+
+def rank_ok(A: torch.Tensor, eps_rank: float = EPS_RANK) -> torch.Tensor:
+    """Numerically full rank by the pivot ratio of chol(A) (the reference's
+    ``rank_ok``, :349). Pass the UNRIDGED matrix: a 1e-10 ridge lifts an
+    exactly singular pivot to ~1e-5 relative and hides it."""
+    return chol_rank_ok(chol(A), eps_rank)
+
+
 def chol_rank_ok(L: torch.Tensor, eps_rank: float = EPS_RANK) -> torch.Tensor:
     """Finite positive pivots and min(diag) >= eps_rank * max(diag)."""
     d = torch.diagonal(L, dim1=-2, dim2=-1)

@@ -75,8 +75,9 @@ def runs(monkeypatch):
 
 
 def _glmm():
-    m = MCPower("y ~ x1 + x2 + (1|cluster)", family="logit")
-    m.set_cluster("cluster", ICC=0.2, n_clusters=20)
+    """A GLMM with a random slope on x1: outside the port (A11)."""
+    m = MCPower("y ~ x1 + x2 + (1 + x1|cluster)", family="logit")
+    m.set_cluster("cluster", ICC=0.2, n_clusters=20, random_slopes=["x1"], slope_variance=0.1)
     m.set_baseline_probability(0.3)
     m.set_effects("x1=0.3, x2=0.2")
     return m
@@ -84,11 +85,11 @@ def _glmm():
 
 def test_scenarios_raise_before_any_run(runs):
     """Scenarios run (tests/test_torch_model_scenarios.py); on a design
-    outside the port, a GLMM, every scenario is checked before the first
-    runs, so the call raises naming A9 with nothing run."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    outside the port, a GLMM with random slopes, every scenario is checked
+    before the first runs, so the call raises naming A11 with nothing run."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         _glmm().find_power(200, scenarios=True, n_sims=8, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         _glmm().find_sample_size(from_size=100, to_size=200, scenarios=True, n_sims=8,
                                  verbose=False, device="cpu")
     assert runs == []

@@ -70,21 +70,23 @@ def test_the_default_device_is_the_card(monkeypatch, method):
 
 
 @pytest.mark.parametrize("change,item", [
-    ("scenarios", "A9"),
+    ("scenarios", "A12"),
     ("slopes", "A11"),
 ])
 def test_unported_lmm_designs_raise_before_any_run(monkeypatch, change, item):
     """Random slopes raise A11; the LMM's scenarios run
     (tests/test_torch_model_scenarios.py), and the same model as a
-    clustered logit (a GLMM) under ``scenarios=True`` raises A9."""
+    clustered logit with a crossed second grouping (a GLMM with an extra
+    grouping) under ``scenarios=True`` raises A12."""
     calls = []
     monkeypatch.setattr(runner.batch, "run_batch", lambda *a, **k: calls.append(1))
     m = _lmm()
     kw = {}
     if change == "scenarios":
         kw["scenarios"] = True
-        m = MCPower("y ~ x1 + x2 + (1|cluster)", family="logit")
+        m = MCPower("y ~ x1 + x2 + (1|cluster) + (1|rater)", family="logit")
         m.set_cluster("cluster", ICC=0.2, n_clusters=20)
+        m.set_cluster("rater", ICC=0.1, n_clusters=10)
         m.set_baseline_probability(0.3)
         m.set_effects("x1=0.3, x2=0.2")
     else:

@@ -8,8 +8,9 @@ flip per count, ``chip_smoke.compare_trees``), the golden values of the chip
 run must be the reference's, and the scenarios must order optimistic >=
 realistic >= doomer where the reference's do. Then a custom scenario of
 ``set_scenario_configs`` (a uniform residual swap and a heteroskedasticity
-driver), and a GLMM under ``scenarios=True``, which raises A9 before any
-run."""
+driver), and a GLMM with a crossed second grouping under
+``scenarios=True``, which raises A12 before any run (random-intercept GLMMs
+under scenarios run: tests/test_torch_model_glmm.py)."""
 
 import sys
 from pathlib import Path
@@ -103,10 +104,11 @@ def test_a_custom_scenario_matches_the_reference():
 def test_a_glmm_under_scenarios_raises_before_any_run(monkeypatch):
     calls = []
     monkeypatch.setattr(runner.batch, "run_batch", lambda *a, **k: calls.append(1))
-    m = MCPower("y ~ x1 + x2 + (1|cluster)", family="logit")
+    m = MCPower("y ~ x1 + x2 + (1|cluster) + (1|rater)", family="logit")
     m.set_cluster("cluster", ICC=0.2, n_clusters=20)
+    m.set_cluster("rater", ICC=0.1, n_clusters=10)
     m.set_baseline_probability(0.3)
     m.set_effects("x1=0.3, x2=0.2")
-    with pytest.raises(NotImplementedError, match="GLMM fits \\(ROADMAP A9\\)"):
+    with pytest.raises(NotImplementedError, match="extra groupings \\(ROADMAP A12\\)"):
         m.find_power(200, scenarios=True, n_sims=8, verbose=False, device="cpu")
     assert calls == []
