@@ -6,17 +6,20 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (``--checks-only`` stops after phase 3; ``--compare LABEL=DIR`` adds phase
-5's A/B against K1, K3 and K6 built from another ``csrc`` directory.)
+5's A/B against K1, K3, K6 and K7 built from another ``csrc`` directory.)
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build kernels K1-K4 and K6-K8 from ``mcpower_tpu_torch/csrc`` (one nvcc
    per source, all started together) and print their register and spill
-   use, per instantiation (of p for K2-K4 and K6, of the width bucket for
-   K7, of mode and store width for K1), the static SASS instruction count of K1 and K3
-   (``cuobjdump``), and K6's launch geometry and resident blocks per SM at
-   p = 1..16 at the GLM arm's and the logit sample-size flow's launch;
+   use, per instantiation (of p for K2-K4 and K6, of p = 1..4 and the p <= 8
+   and p <= 16 buckets for K7, of mode and store width for K1), the static
+   SASS instruction count of K1 and K3
+   (``cuobjdump``), K6's launch geometry and resident blocks per SM at
+   p = 1..16 at the GLM arm's and the logit sample-size flow's launch, and
+   K7's (warps a cell, cells a block, resident cells per SM, waves, the
+   staged or streamed path) at its timed shapes;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (10,000 sims; the LMM's N = 200, p = 3, m = 20, G = 1,
    the curve design's p = 7, G = 8 and the GLM arm's N = 300, p = 4), and
@@ -42,9 +45,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``rng.fill_streams_kernel`` splits into two K1 launches (counted); K7 at
    every case of ``K7_CHECKS`` (the GLMM arms' 2,000 cells at nagq 7 and 1,
    a launch of README flow 3, and off the path probit, Poisson, nagq 25, the
-   FD Hessian, a three-point grid, blocked clusters, 40 clusters, p = 1 and
-   p = 16, boundary cells and the cold start), flags identical and values
-   within ``K7_REL``;
+   FD Hessian, a three-point grid, blocked clusters, 40 clusters, p = 1, 4, 6
+   and 16, boundary cells, the cold start, a launch of README flow 3's
+   sample-size flow and 1,024 clusters on K7's streamed path), every output
+   bit-identical (flags, beta, cov, tau^2, ybar), with K7's launch geometry
+   at each;
 4. drive the main path through ``lower`` and ``run_batch(device="cuda")``:
    the 10,000-replicate random-intercept LMM headline (base seed 2137), the
    OLS arm, the 8-point power curve and the GLM arm (logit, Bonferroni),
@@ -64,7 +69,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    sample-size flow, K4 at the LMM's, K6 at the GLM arm's, at a launch of
    the logit sample-size flow and at both launches of the logit factor
    flow, K8 at a launch of the Poisson flow, K7 at the GLMM arms' cells and
-   at a launch of README flow 3) on the device, from
+   at a launch of README flow 3's power and sample-size flows) on the device, from
    torch.profiler's kernel events, and per call through its wrapper (CUDA
    events, launch overhead included), each call on inputs that are not in
    L2, beside its plain version, its bound
@@ -72,9 +77,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    rate for their type; K6's counts the steps its cells ran, from the
    kernel's step counter) and, for K2, one ``torch.bmm`` that computes the
    same statistics at the OLS shape; with ``--compare LABEL=DIR`` (another
-   ``csrc`` directory, such as the parent commit's; repeatable) its K1, K3
-   and K6 are built too, checked against this tree's and timed beside them
-   in turns (other, this, this, other); K1 at the realistic LMM's long
+   ``csrc`` directory, such as the parent commit's; repeatable) its K1, K3,
+   K6 and K7 are built too, checked against this tree's (K7 bit for bit)
+   and timed beside them in turns (other, this, this, other); K1 at the realistic LMM's long
    normals with its cluster streams padded in one launch against them in a
    launch of their own; then each arm's wall (the GLMM arms' too), and a
    profile of each arm (wall median of 7 calls, busy share, largest device
@@ -491,7 +496,11 @@ K6_ROWS = 300
 # design, its counts through K8), nagq 25, the FD Hessian at p = 3, a
 # three-point grid, blocked clusters, 40 clusters (more than a warp's
 # lanes), p = 1 and p = 16, boundary cells (tau^2 = 0.02) and the cold
-# start of truth_start=False.
+# start of truth_start=False; then a launch of README flow 3's
+# find_sample_size (one chunk of N_SIMS / 8 sims on its 11-point grid, N
+# 240..720, as the flow lowers it), 1,024 clusters of two rows (p = 3), a
+# cell too large for K7's shared-memory plan, so its streamed path, and p =
+# 4 and p = 6 (K7's p = 4 and p <= 8 instantiations).
 _GLMM_BASE = GLMM_DESIGNS["glmm_laplace"]
 K7_DESIGNS = {
     "glmm_probit": dict(_GLMM_BASE, link="probit", effects=[-0.2, 0.3, 0.2]),
@@ -513,15 +522,27 @@ K7_DESIGNS = {
                      cluster=_GLMM_BASE["cluster"]),
     "glmm_boundary": dict(_GLMM_BASE, cluster=dict(_GLMM_BASE["cluster"], tau_squared=0.02)),
     "glmm_cold_start": dict(_GLMM_BASE, truth_start=False),
+    "glmm_p4": dict(grid=[200], var_types=["normal"] * 3, effects=[-0.3, 0.3, 0.2, 0.1],
+                    target_cols=[1, 2, 3], outcome="binary", estimator="glm",
+                    cluster=_GLMM_BASE["cluster"]),
+    "glmm_p6": dict(grid=[300], var_types=["normal"] * 5, effects=[-0.3, 0.3, 0.2, 0.1, 0.1, -0.1],
+                    target_cols=[1, 2, 3, 4, 5], outcome="binary", estimator="glm",
+                    cluster=_GLMM_BASE["cluster"]),
+    "glmm_m1024": dict(_GLMM_BASE, grid=[2048],
+                       cluster=dict(sizing_mode="fixed_clusters", sizing_value=1024,
+                                    tau_squared=0.25)),
 }
+# Cases lowered by a README flow 3 call: (flow, sims).
+K7_FLOW_CASES = {"readme_flow_launch": ("model_glmm_power", N_SIMS // 8),
+                 "readme_sample_size_launch": ("model_glmm_sample_size", N_SIMS // 8)}
 K7_CHECKS = {
-    "glmm_agq7": GLMM_SIMS, "glmm_laplace": GLMM_SIMS, "readme_flow_launch": N_SIMS // 8,
-    **{name: GOLDEN_SIMS for name in K7_DESIGNS}, "glmm_p16": 64,
+    "glmm_agq7": GLMM_SIMS, "glmm_laplace": GLMM_SIMS,
+    **{name: sims for name, (_, sims) in K7_FLOW_CASES.items()},
+    **{name: GOLDEN_SIMS for name in K7_DESIGNS}, "glmm_p6": 256, "glmm_p16": 64,
+    "glmm_m1024": 64,
 }
-# The same PIRLS, deviances and Brent steps in the same order and the same
-# libdevice transcendentals: measured bit-identical (0) in every output at
-# every case on the H100; the band leaves room for another toolkit.
-K7_REL = 1e-10
+# The cases that must take K7's streamed path (the others its staged one).
+K7_STREAMED = ("glmm_m1024",)
 
 
 def k7_args(spec, arr, X, y):
@@ -536,6 +557,46 @@ def k7_args(spec, arr, X, y):
              else torch.zeros(len(fit), dtype=torch.float64, device=X.device))
     return (glmfit.link_code(spec.outcome, spec.link), X, y, fit, list(spec.grid),
             glmmfit.layout_of(spec), beta0, max(int(spec.nagq), 1), spec.wald_se == "hessian")
+
+
+def k7_is_pr10(k) -> bool:
+    """Whether K7 build ``k`` is PR 10's, whose launcher takes a per-cell
+    scratch from its caller (its source has no geometry entry)."""
+    return "mcp_glmm_intercept_geometry" not in (k.csrc / k.source).read_text()
+
+
+def k7_pr10_call(k, code, X, y, fit, grid, layout, beta0, nagq=1, hessian=False):
+    """PR 10's K7 build ``k`` on K7's arguments, launched as PR 10's wrapper
+    launched it (its scratch (sims * G, m, pf + 6) f64 from the caller);
+    counted on ``k``. The outputs of ``glmmfit.glmm_intercept_kernel``."""
+    import ctypes
+
+    import torch
+
+    from mcpower_tpu_torch.engine import glmmfit, kernels
+
+    fit, grid = [int(c) for c in fit], [int(n) for n in grid]
+    rr, period, m = bool(layout[0]), int(layout[1]), int(layout[2])
+    pf, G = len(fit), len(grid)
+    sims, max_n, P = X.shape
+    dev_ = X.device
+    kw = dict(dtype=torch.float64, device=dev_)
+    beta0 = beta0.to(**kw).contiguous()
+    grid_t = torch.tensor(grid, dtype=torch.int32, device=dev_)
+    beta, cov = torch.empty((sims, G, pf), **kw), torch.empty((sims, G, pf, pf), **kw)
+    tau2, ybar = torch.empty((sims, G), **kw), torch.empty((sims, G), **kw)
+    flags = torch.empty((sims, G), dtype=torch.uint8, device=dev_)
+    scratch = torch.empty((sims * G, m, pf + 6), **kw)
+    x, lw, k0, dw = (glmmfit.gh_nodes(nagq) if nagq > 1 else
+                     (np.zeros(1), np.zeros(1), 0, np.zeros(1, np.float32)))
+    fn = k.fn("mcp_glmm_intercept", glmmfit._GLMM_ARGS)
+    k.check(fn(kernels.ptr(X), kernels.ptr(y), sims, max_n, P, (ctypes.c_int * pf)(*fit), pf,
+               kernels.ptr(grid_t), G, int(rr), period, m, code, kernels.ptr(beta0), nagq,
+               (ctypes.c_double * len(x))(*x.tolist()), (ctypes.c_double * len(lw))(*lw.tolist()),
+               (ctypes.c_float * len(dw))(*dw.tolist()), k0, int(hessian), kernels.ptr(scratch),
+               kernels.ptr(beta), kernels.ptr(cov), kernels.ptr(tau2), kernels.ptr(ybar),
+               kernels.ptr(flags), kernels.stream_of(X)))
+    return beta, cov, (flags & 1).bool(), (flags & 2).bool(), tau2, ybar
 
 
 def flow_lowered(name: str):
@@ -1949,11 +2010,13 @@ def kernel_swapped(kernels_mod, name: str, k):
         kernels_mod.KERNELS[name] = mine
 
 
-def _c_entry_points(source: Path) -> list:
-    """The ``extern "C"`` declarations of a kernel source, whitespace
-    collapsed: the interface its wrapper calls."""
+def _c_entry_points(source: Path, name: str) -> list:
+    """The ``extern "C"`` declaration of kernel ``name``'s launch entry
+    (``mcp_<name>``) in a source, whitespace collapsed: the interface its
+    wrapper launches."""
     text = source.read_text()
-    return [" ".join(m.split()) for m in re.findall(r'extern "C"[^{]*', text)]
+    return [" ".join(m.split()) for m in re.findall(r'extern "C"[^{]*', text)
+            if f" mcp_{name}(" in m]
 
 
 def other_kernels(kernels_mod, csrc: Path, label: str, names) -> Dict[str, object]:
@@ -1964,7 +2027,7 @@ def other_kernels(kernels_mod, csrc: Path, label: str, names) -> Dict[str, objec
     out = {}
     for n in names:
         k = kernels_mod.KERNELS[n]
-        if _c_entry_points(csrc / k.source) != _c_entry_points(k.csrc / k.source):
+        if _c_entry_points(csrc / k.source, n) != _c_entry_points(k.csrc / k.source, n):
             print(f"--compare {label}: {k.source} has another C interface than this tree's; "
                   f"not compared", flush=True)
             continue
@@ -1998,6 +2061,31 @@ def k6_occupancy(kernels_mod) -> list:
         lines.append(f"  K6 residency per SM at the {tag} ({sims} sims, max_n {max_n}, G {G}): "
                      + "; ".join(row))
     return lines
+
+
+# K7's launch shapes (sims, max_n, pf, G, m, nagq, hessian): its timed
+# shapes, the p = 16 check and the streamed check.
+K7_SHAPES = {
+    "GLMM Laplace arm": (GLMM_SIMS, 200, 3, 1, 20, 1, 0),
+    "GLMM AGQ arm": (GLMM_SIMS, 200, 3, 1, 20, 7, 0),
+    "README flow 3 power launch": (N_SIMS // 8, 480, 2, 1, 24, 1, 0),
+    "README flow 3 sample-size launch": (N_SIMS // 8, 720, 2, 11, 24, 1, 0),
+    "README flow 3 Hessian launch": (N_SIMS // 8, 480, 2, 1, 24, 1, 1),
+    "p = 16 check": (64, 400, 16, 1, 20, 1, 0),
+    "1,024-cluster check": (64, 2048, 3, 1, 1024, 1, 0),
+}
+
+
+def k7_geometry_line(glmmfit_mod, tag: str, shape) -> str:
+    """One line of K7's launch geometry at ``shape`` (K7_SHAPES' order),
+    from its C launcher (``mcp_glmm_intercept_geometry``)."""
+    g = glmmfit_mod.glmm_intercept_geometry(*shape)
+    return (f"  K7 geometry at the {tag} ({shape[0]} sims, max_n {shape[1]}, p {shape[2]}, G "
+            f"{shape[3]}, m {shape[4]}, nagq {shape[5]}{', hessian' if shape[6] else ''}): "
+            f"{'staged' if g['staged'] else 'streamed'}, {g['warps_per_cell']} warps a cell, "
+            f"{g['cells_per_block']} cells a block ({g['threads']} threads, {g['smem']} B shared), "
+            f"{g['cells_per_sm']} cells resident per SM, {g['blocks']} blocks in {g['waves']} "
+            f"wave(s), scratch {g['scratch']} B")
 
 
 def _ptxas_summary(log: str) -> str:
@@ -2145,7 +2233,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", default=[], metavar="LABEL=DIR",
                     help="a csrc directory of another tree (the parent commit's, say): build its "
-                         "K1, K3 and K6 too and time them beside this tree's, in turns; repeatable")
+                         "K1, K3, K6 and K7 too and time them beside this tree's, in turns; "
+                         "repeatable")
     ap.add_argument("--checks-only", action="store_true",
                     help="stop after phase 3 (build, ptxas, each kernel against its plain "
                          "version), print no result line")
@@ -2179,13 +2268,14 @@ def main(argv=None) -> int:
 
     # --- phase 2: build ---
     took = kernels.build_all()
-    others = {}  # label -> K1, K3 and K6 built from that csrc, for phase 5's A/B
+    others = {}  # label -> K1, K3, K6 and K7 built from that csrc, for phase 5's A/B
     for spec in opts.compare:
         label, _, path = spec.partition("=")
         csrc = Path(path).resolve()
         check(label.isidentifier() and (csrc / "philox_fill.cu").exists(),
               f"--compare {spec}: want LABEL=DIR with DIR/philox_fill.cu")
-        others[label] = other_kernels(kernels, csrc, label, ("philox_fill", "ols_solve", "glm_irls"))
+        others[label] = other_kernels(kernels, csrc, label,
+                                      ("philox_fill", "ols_solve", "glm_irls", "glmm_intercept"))
     procs = {(lb, n): k.start_build() for lb, ks in others.items() for n, k in ks.items()}
     for (lb, n), proc in procs.items():
         others[lb][n].finish_build(proc)
@@ -2205,6 +2295,8 @@ def main(argv=None) -> int:
 
     for line in k6_occupancy(kernels):
         print(line, flush=True)
+    for tag, shape in K7_SHAPES.items():
+        print(k7_geometry_line(glmmfit, tag, shape), flush=True)
 
     # --- phase 3: each kernel against its plain version ---
     specs = {name: lower_design(lower, ClusterStatic, name) for name in DESIGNS}
@@ -2471,36 +2563,42 @@ def main(argv=None) -> int:
     # K7 on generated GLMM rows; the Poisson design draws its counts
     # through K8 (generate_batch without plain=)
     k7_args_by = {}
-    readme_launch = flow_lowered("model_glmm_power")[0]
+    flow_cases = {name: flow_lowered(flow)[0] for name, (flow, _) in K7_FLOW_CASES.items()}
     k7_err = 0.0
     for name, n in K7_CHECKS.items():
-        spec_, arr_ = readme_launch if name == "readme_flow_launch" else \
+        spec_, arr_ = flow_cases[name] if name in flow_cases else \
             lower_design(lower, ClusterStatic, name)
         arr_d = datagen.to_device(arr_, dev)
         X_, y_, _ = datagen.generate_batch(spec_, arr_d, SEED, 0, sim_ids[:n],
                                            plain=spec_.outcome != "count")
         args = k7_args(spec_, arr_d, X_, y_)
         k7_args_by[name] = args
+        geo = glmmfit.glmm_intercept_geometry(X_.shape[0], X_.shape[1], len(args[3]),
+                                              len(args[4]), args[5][2], args[7], args[8])
+        check(bool(geo["staged"]) == (name not in K7_STREAMED),
+              f"K7 {name}: took the {'staged' if geo['staged'] else 'streamed'} path")
         got = glmmfit.glmm_intercept_kernel(*args)
         want = glmmfit.glmm_intercept_plain(*args)
-        for i, flag in ((2, "converged"), (3, "boundary")):
-            n_diff = int((got[i] != want[i]).sum())
-            check(n_diff == 0, f"K7 {name}: {flag} flags differ in {n_diff} cells")
         cells = want[2].numel()
         n_conv, n_bnd = int(want[2].sum()), int(want[3].sum())
         check(n_conv > 0.9 * cells, f"K7 {name}: only {n_conv} of {cells} converged")
         if name == "glmm_boundary":
             check(n_bnd > 0.3 * cells, f"K7 {name}: only {n_bnd} of {cells} cells at the boundary")
-        rels = {k: rel_err_finite(f"K7 {name} {k}", g, w)
-                for k, g, w in zip(("beta", "cov", "tau2", "ybar"), got[:2] + got[4:], want[:2] + want[4:])}
+        # every output bit for bit: the same entries finite, the rest equal
+        diffs = {k: int((~((g == w) | (g.isnan() & w.isnan()))).sum())
+                 for k, g, w in zip(("beta", "cov", "converged", "boundary", "tau2", "ybar"),
+                                    got, want)}
         k7_err = max(k7_err, max(float((g - w)[torch.isfinite(w)].abs().max())
                                  for g, w in zip(got[:2] + got[4:], want[:2] + want[4:])))
         print(f"K7 glmm_intercept {name} cells {tuple(got[2].shape)} p {len(args[3])} m "
               f"{args[5][2]} ({'round robin' if args[5][0] else 'blocked'}) link {args[0]} nagq "
-              f"{args[7]}{' hessian' if args[8] else ''}: flags identical ({n_conv} converged, "
-              f"{n_bnd} at the boundary); rel err " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()),
-              flush=True)
-        check(max(rels.values()) <= K7_REL, f"K7 {name}: rel err {max(rels.values()):.3e} > {K7_REL}")
+              f"{args[7]}{' hessian' if args[8] else ''}, "
+              f"{'staged' if geo['staged'] else 'streamed'}, {geo['warps_per_cell']} warps a cell, "
+              f"{geo['cells_per_sm']} cells per SM: "
+              f"{n_conv} converged, {n_bnd} at the boundary; entries that differ from the plain "
+              "version: " + ", ".join(f"{k} {v}" for k, v in diffs.items()), flush=True)
+        check(not any(diffs.values()),
+              f"K7 {name}: outputs differ from the plain version's {diffs}")
     records["glmm_intercept"] = {"max_abs_err": k7_err}
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2743,7 +2841,9 @@ def main(argv=None) -> int:
             ("glmm_intercept agq7", "glmm_agq7", "GLMM AGQ arm cells {}, N 200, m 20, p 3, nagq 7"),
             ("glmm_intercept laplace", "glmm_laplace", "GLMM Laplace arm cells {}, N 200, m 20, p 3"),
             ("glmm_intercept readme", "readme_flow_launch",
-             "README flow 3 launch, cells {}, N 480, m 24, p 2")):
+             "README flow 3 launch, cells {}, N 480, m 24, p 2"),
+            ("glmm_intercept sample_size", "readme_sample_size_launch",
+             "README flow 3 sample-size launch, cells {}, N 240..720, m 24, p 2")):
         args_ = k7_args_by[case]
         out_ = glmmfit.glmm_intercept_kernel(*args_)
         timing.append((key, shape.format(tuple(out_[2].shape)), glmmfit.glmm_intercept_kernel,
@@ -2792,8 +2892,9 @@ def main(argv=None) -> int:
         f"{k} {v['ms']:.4f}" + "".join(f" ({lb} {v[lb + '_ms']:.4f})" for lb in others)
         for k, v in by_mode.items() if k != "write_yardstick"), flush=True)
 
-    # Each compared build's K1, K3 and K6 beside this tree's, same inputs, in
-    # turns (other, this, this, other), each on cold-L2 inputs.
+    # Each compared build's K1, K3, K6 and K7 beside this tree's, same inputs,
+    # in turns (other, this, this, other), each on cold-L2 inputs. A K7 of
+    # PR 10's is launched as PR 10's wrapper launched it.
     for key, shape, fk, fp, inputs, _, _ in timing:
         name = key.split()[0]
         copies = input_copies(inputs)
@@ -2801,8 +2902,11 @@ def main(argv=None) -> int:
             if name not in ks:
                 continue
             kw = dict(iters=True) if name == "glm_irls" else {}
+            fo = fk
+            if name == "glmm_intercept" and k7_is_pr10(ks[name]):
+                fo = lambda *a, k=ks[name]: k7_pr10_call(k, *a)  # noqa: E731
             with kernel_swapped(kernels, name, ks[name]):
-                theirs = fk(*copies[0], **kw)
+                theirs = fo(*copies[0], **kw)
             ours = fk(*copies[0], **kw)
             if name == "philox_fill":
                 check(torch.equal(theirs, ours), f"A/B {key}: {lb}'s K1 gives other values")
@@ -2815,15 +2919,21 @@ def main(argv=None) -> int:
                       f"{max(rels):.3e})")
                 print(f"A/B {key}: {lb}'s K6 has the same flags and step counts, max rel err "
                       f"{max(rels):.3e}", flush=True)
+            elif name == "glmm_intercept":
+                n_diff = sum(int((~((a == b) | (a.isnan() & b.isnan()))).sum())
+                             for a, b in zip(theirs, ours))
+                check(n_diff == 0, f"A/B {key}: {lb}'s K7 differs in {n_diff} entries")
+                print(f"A/B {key}: {lb}'s K7 gives the same bits in every output", flush=True)
             else:
                 ok = ours[3]
                 check(torch.equal(theirs[3], ok) and max(
                     rel_err(a[ok], b[ok]) for a, b in zip(theirs[:3], ours[:3])) <= K3_REL,
                     f"A/B {key}: {lb}'s K3 disagrees")
             turns = []
-            for k in (ks[name], kernels.KERNELS[name], kernels.KERNELS[name], ks[name]):
+            for k, f in ((ks[name], fo), (kernels.KERNELS[name], fk), (kernels.KERNELS[name], fk),
+                         (ks[name], fo)):
                 with kernel_swapped(kernels, name, k):
-                    turns.append(device_ms(fk, copies, reps, name + "_kernel", launches=1))
+                    turns.append(device_ms(f, copies, reps, name + "_kernel", launches=1))
             o1, n1, n2, o2 = turns
             timed[key].setdefault("compare", {})[lb] = dict(ms=(o1 + o2) / 2.0, turns=[o1, o2],
                                                              this_turns=[n1, n2])
@@ -2834,7 +2944,8 @@ def main(argv=None) -> int:
     for name in ("reml_intercept", "glm_irls", "poisson_quantile"):
         records[name].update(timed[name])
     records["glmm_intercept"].update(timed["glmm_intercept agq7"], by_shape={
-        shape: timed[f"glmm_intercept {shape}"] for shape in ("agq7", "laplace", "readme")})
+        shape: timed[f"glmm_intercept {shape}"]
+        for shape in ("agq7", "laplace", "readme", "sample_size")})
     records["glm_irls"]["by_shape"] = {"arm": timed["glm_irls"], "flow": timed["glm_irls flow"],
                                        "factor_flow": timed["glm_irls factor"],
                                        "factor_flow_fallback": timed["glm_irls fallback"]}

@@ -14,8 +14,9 @@ f64 fit at the optimum, the tau^2 = 0 probe, the final fit and its Schur
 covariance, or under ``wald_se="hessian"`` the covariance from central
 differences of the beta-profiled Laplace deviance.
 
-On the card the whole per-cell fit is kernel K7 (``csrc/glmm_intercept.cu``,
-one warp per (sim, grid) cell, a lane per cluster).
+On the card the whole per-cell fit is kernel K7 (``csrc/glmm_intercept.cu``:
+one to four warps a (sim, grid) cell, its rows spread over its threads and
+its cluster sums taken by its first warp, a lane per cluster).
 :func:`glmm_intercept_plain` is its plain PyTorch version, with the sim and
 grid axes as batch axes. Both sum every row quantity the same way: first
 over each cluster's rows in row order, then over clusters as K7's lanes hold
@@ -52,8 +53,10 @@ BRENT_ITERS_GLMM = 14
 HESSIAN_STEP = 1e-4
 N_U_NEWTON = 20
 # K7's limits (datagen.unsupported names them before any run): quadrature
-# nodes, held per cluster in a lane's local array, and clusters, whose
-# per-cluster state K7 keeps in device memory per cell.
+# nodes, whose values K7 keeps per cluster, and clusters. A cell whose
+# clusters, rows and width outgrow K7's shared-memory plan (1,024 clusters,
+# say) takes its streamed path, with its state in a device scratch that
+# ``glmm_intercept_geometry`` sizes.
 MAX_AGQ = 25
 MAX_CLUSTERS = 1024
 MAX_P = kernels.MAX_FIT_P
@@ -490,7 +493,7 @@ _GLMM_ARGS = [
     ctypes.POINTER(ctypes.c_float),  # gh dw (nagq,) f32 host
     ctypes.c_int,  # k0
     ctypes.c_int,  # hessian
-    ctypes.c_void_p,  # scratch (sims * G, m, pf + 5) f64
+    ctypes.c_void_p,  # scratch: glmm_intercept_geometry's bytes, or null (the staged path)
     ctypes.c_void_p,  # beta out (sims, G, pf) f64
     ctypes.c_void_p,  # cov out (sims, G, pf, pf) f64
     ctypes.c_void_p,  # tau2_hat out (sims, G) f64
@@ -499,14 +502,32 @@ _GLMM_ARGS = [
     ctypes.c_void_p,  # cudaStream_t
 ]
 
-SCRATCH_SLOTS = 6  # per cluster: u, W, t, c, the step's new u, a saved u; then s (pf)
+_GEOMETRY_KEYS = ("cells_per_sm", "threads", "smem", "staged", "warps_per_cell",
+                  "cells_per_block", "waves", "blocks")
+
+
+def glmm_intercept_geometry(sims: int, max_n: int, pf: int, G: int, m: int, nagq: int = 1,
+                            hessian: bool = False) -> Dict[str, int]:
+    """The launch geometry K7's C launcher takes for a shape: cells
+    resident per SM, threads and dynamic shared memory a block, the staged
+    (1) or streamed (0) path, warps a cell, cells a block, waves on the card,
+    blocks, and ``scratch`` the bytes of device scratch the launch needs (0
+    on the staged path). Builds and loads K7; needs a CUDA device."""
+    out, scratch = (ctypes.c_int * len(_GEOMETRY_KEYS))(), ctypes.c_longlong(0)
+    k = kernels.KERNELS["glmm_intercept"]
+    fn = k.fn("mcp_glmm_intercept_geometry", [ctypes.c_int] * 7
+              + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)])
+    err = fn(sims, max_n, pf, G, m, nagq, int(hessian), out, ctypes.byref(scratch))
+    if err != 0:
+        raise RuntimeError(f"glmm_intercept geometry failed with CUDA error {err}")
+    return dict(zip(_GEOMETRY_KEYS, out), scratch=scratch.value)
 
 
 def glmm_intercept_kernel(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequence[int],
                           grid: Sequence[int], layout: Tuple[bool, int, int],
                           beta0: torch.Tensor, nagq: int = 1, hessian: bool = False):
-    """Kernel K7: :func:`glmm_intercept_plain` on the card, one warp per
-    (sim, grid) cell."""
+    """Kernel K7: :func:`glmm_intercept_plain` on the card, each (sim,
+    grid) cell's rows over one to four warps."""
     fit, grid = [int(c) for c in fit], [int(n) for n in grid]
     rr, period, m = bool(layout[0]), int(layout[1]), int(layout[2])
     pf, G = len(fit), len(grid)
@@ -535,21 +556,22 @@ def glmm_intercept_kernel(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequ
     cov = torch.empty((sims, G, pf, pf), **kw)
     tau2, ybar = torch.empty((sims, G), **kw), torch.empty((sims, G), **kw)
     flags = torch.empty((sims, G), dtype=torch.uint8, device=dev_)
-    scratch = torch.empty((sims * G, m, pf + SCRATCH_SLOTS), **kw)
-    kernels.require_cuda("glmm_intercept", X, y, grid_t, beta0, scratch, beta, cov, tau2, ybar,
-                         flags)
+    kernels.require_cuda("glmm_intercept", X, y, grid_t, beta0, beta, cov, tau2, ybar, flags)
     if nagq > 1:
         x, lw, k0, dw = gh_nodes(nagq)
     else:
         x, lw, k0, dw = np.zeros(1), np.zeros(1), 0, np.zeros(1, np.float32)
     if sims:
+        nbytes = glmm_intercept_geometry(sims, max_n, pf, G, m, nagq, hessian)["scratch"]
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev_) if nbytes else None
         k = kernels.KERNELS["glmm_intercept"]
         fn = k.fn("mcp_glmm_intercept", _GLMM_ARGS)
         k.check(fn(
             kernels.ptr(X), kernels.ptr(y), sims, max_n, P, (ctypes.c_int * pf)(*fit), pf,
             kernels.ptr(grid_t), G, int(rr), period, m, code, kernels.ptr(beta0), nagq,
             (ctypes.c_double * len(x))(*x.tolist()), (ctypes.c_double * len(lw))(*lw.tolist()),
-            (ctypes.c_float * len(dw))(*dw.tolist()), k0, int(hessian), kernels.ptr(scratch),
+            (ctypes.c_float * len(dw))(*dw.tolist()), k0, int(hessian),
+            kernels.ptr(scratch) if scratch is not None else None,
             kernels.ptr(beta), kernels.ptr(cov), kernels.ptr(tau2), kernels.ptr(ybar),
             kernels.ptr(flags), kernels.stream_of(X)))
     return beta, cov, (flags & 1).bool(), (flags & 2).bool(), tau2, ybar
