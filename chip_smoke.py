@@ -11,10 +11,12 @@ Run from the repository root with no arguments:
 Phases, each fatal on failure (exit code != 0, no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build kernels K1-K4 and K6-K8 from ``mcpower_tpu_torch/csrc`` (one nvcc
+2. build kernels K1-K4 and K6-K9 from ``mcpower_tpu_torch/csrc`` (one nvcc
    per source, all started together) and print their register and spill
-   use, per instantiation (of p for K2-K4 and K6, of p = 1..4 and the p <= 8
-   and p <= 16 buckets for K7, of mode and store width for K1), the static
+   use, per instantiation (of p for K2-K4 and K6, K2's slope mode on a line
+   of its own, of p = 1..4 and the p <= 8 and p <= 16 buckets for K7, of q =
+   2..4 and p = 2, 3, 4 and the p <= 8 and p <= 16 buckets for K9, of mode
+   and store width for K1), the static
    SASS instruction count of K1 and K3
    (``cuobjdump``), K6's launch geometry and resident blocks per SM at
    p = 1..16 at the GLM arm's and the logit sample-size flow's launch, and
@@ -49,7 +51,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and 16, boundary cells, the cold start, a launch of README flow 3's
    sample-size flow and 1,024 clusters on K7's streamed path), every output
    bit-identical (flags, beta, cov, tau^2, ybar), with K7's launch geometry
-   at each;
+   at each; K2's slope mode (p = 3, q = 2 and p = 16, q = 4) within
+   ``K2_REL``; K9 at every case of ``K9_CHECKS`` (a launch of README flow
+   2's power and sample-size flows, ``benchmarks/throughput.py``'s
+   lmm_slopes at 10,000 sims and lmm_multislope, and off the path a null
+   slope, q = 4, q = 4 at p = 16 and 1,024 clusters on K9's streamed path),
+   every output bit-identical (flags, pins, beta, cov, tau^2);
 4. drive the main path through ``lower`` and ``run_batch(device="cuda")``:
    the 10,000-replicate random-intercept LMM headline (base seed 2137), the
    OLS arm, the 8-point power curve and the GLM arm (logit, Bonferroni),
@@ -62,14 +69,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
    against the reference's; then the GLMM arms of ``GLMM_DESIGNS``
    (bench.py's ``glmm_agq7`` and its Laplace twin, 2,000 sims in one chunk,
    each counted on its own: K1 twice and K7 once) and their 1,024-sim
-   counts against the reference's;
+   counts against the reference's; then the random-slope arm
+   (``SLOPE_DESIGNS``: lmm_slopes, 10,000 sims in one chunk through K1, K2's
+   slope mode and K9, each once) and its 1,024-sim counts against the
+   reference's (pin counts within ``SLOPE_PIN_FLIPS``);
 5. time each kernel (K1 and K2 at the LMM, OLS and curve arms' shapes, K1
    also at the realistic LMM's long and short normal fills, K3
    at the OLS and curve shapes and at a launch of the README model's
    sample-size flow, K4 at the LMM's, K6 at the GLM arm's, at a launch of
    the logit sample-size flow and at both launches of the logit factor
    flow, K8 at a launch of the Poisson flow, K7 at the GLMM arms' cells and
-   at a launch of README flow 3's power and sample-size flows) on the device, from
+   at a launch of README flow 3's power and sample-size flows, K9 at a
+   launch of README flow 2 and at the lmm_slopes and lmm_multislope cells,
+   K2's slope mode at the lmm_slopes rows and a README flow 2 launch's) on
+   the device, from
    torch.profiler's kernel events, and per call through its wrapper (CUDA
    events, launch overhead included), each call on inputs that are not in
    L2, beside its plain version, its bound
@@ -81,10 +94,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    K6 and K7 are built too, checked against this tree's (K7 bit for bit)
    and timed beside them in turns (other, this, this, other); K1 at the realistic LMM's long
    normals with its cluster streams padded in one launch against them in a
-   launch of their own; then each arm's wall (the GLMM arms' too), and a
-   profile of each arm (wall median of 7 calls, busy share, largest device
-   items);
-6. drive the nineteen user flows of ``MODEL_FLOWS`` through
+   launch of their own; then each arm's wall (the GLMM and slope arms' too),
+   and a profile of each arm (wall median of 7 calls, busy share, largest
+   device items);
+6. drive the twenty-two user flows of ``MODEL_FLOWS`` through
    ``mcpower_tpu_torch.MCPower`` on the card (the random-intercept LMM's
    and the OLS model's ``find_power`` and ``find_sample_size``, the logit
    model's ``find_power`` and ``find_sample_size``, the Poisson model's
@@ -95,7 +108,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    the LMM's and the logit model's ``find_power``; README flow 3's GLMM
    ``find_power(480)`` as written, its ``find_sample_size(from_size=240,
    to_size=720)``, ``agq=7``, ``wald_se="hessian"`` and ``scenarios=True``,
-   each launching K7 once a chunk; 10,000 sims, base seed
+   each launching K7 once a chunk; README flow 2's random-slope LMM
+   ``find_power(600)`` as written, its ``find_sample_size(from_size=300,
+   to_size=900)`` and ``scenarios=True``, each launching K2 and K9 once a
+   chunk; 10,000 sims, base seed
    2137), each with every launch count set to 0 before it and read after
    (the logit factor flow must launch K6 twice a chunk, the second the
    fallback's; K1 as often a chunk as each scenario's fill plan says); check
@@ -107,7 +123,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    chunk count, the busy share and the same design's one-chunk
    ``run_batch`` wall (per scenario);
 7. print the ``kernels`` JSON line (launches on each kernel's path: the
-   arms' for K1-K4 and K6, the GLMM arms' for K7, the Poisson flow's for K8; and by arm and by
+   arms' for K1-K4 and K6, the GLMM arms' for K7, the slope arm's for K9,
+   the Poisson flow's for K8; and by arm and by
    flow, with K6's fallback launches by flow and K1's launches a chunk of
    each flow's scenarios), then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -544,6 +561,56 @@ K7_CHECKS = {
 # The cases that must take K7's streamed path (the others its staged one).
 K7_STREAMED = ("glmm_m1024",)
 
+# The random-slope LMM (K2's slope mode and kernel K9). The arm:
+# benchmarks/throughput.py's lmm_slopes (:130-139), the LMM headline's design
+# with a random slope on x1 (variance 0.2, corr 0.3 to the intercept; q = 2,
+# p = 3), driven as one chunk of N_SIMS sims in phase 4. Off the arm, held in
+# phase 3 only: throughput.py's lmm_multislope (:236-246: q = 3, p = 5,
+# N = 480), tests/test_slopes.py:110-126's null slope (which pins often),
+# q = 4 (p = 5), q = 4 at p = 16 and 1,024 clusters of two rows, whose f32
+# twins outgrow K9's shared-memory stage (its streamed path).
+_SLOPE = dict(design_col=1, variance=0.2, intercept_corr=0.3)
+SLOPE_DESIGNS = {
+    "lmm_slopes": dict(DESIGNS["lmm_headline"],
+                       cluster=dict(DESIGNS["lmm_headline"]["cluster"], slopes=[_SLOPE])),
+}
+_MULTISLOPE = dict(grid=[480], var_types=["normal"] * 4, corr=np.eye(4).tolist(),
+                   effects=[0.0, 0.15, 0.15, 0.0, 0.0], target_cols=[1, 2], estimator="mle",
+                   cluster=dict(sizing_mode="fixed_clusters", sizing_value=20, tau_squared=0.25,
+                                slopes=[dict(design_col=1, variance=0.10, intercept_corr=0.3),
+                                        dict(design_col=2, variance=0.08, intercept_corr=0.1)]))
+_SLOPE_Q4 = _MULTISLOPE["cluster"]["slopes"] + [dict(design_col=3, variance=0.05,
+                                                     intercept_corr=0.2)]
+K9_DESIGNS = {
+    "lmm_multislope": _MULTISLOPE,
+    "slopes_null": dict(grid=[240], var_types=["normal"], effects=[0.0, 0.4], target_cols=[1],
+                        estimator="mle",
+                        cluster=dict(sizing_mode="fixed_clusters", sizing_value=30,
+                                     tau_squared=0.3,
+                                     slopes=[dict(design_col=1, variance=0.0,
+                                                  intercept_corr=0.0)])),
+    "slopes_q4": dict(_MULTISLOPE, cluster=dict(_MULTISLOPE["cluster"], slopes=_SLOPE_Q4)),
+    "slopes_p16": dict(grid=[240], var_types=["normal"] * 15, effects=[0.0] + [0.05] * 15,
+                       target_cols=list(range(1, 16)), estimator="mle",
+                       cluster=dict(sizing_mode="fixed_clusters", sizing_value=24,
+                                    tau_squared=0.25, slopes=_SLOPE_Q4)),
+    "slopes_m1024": dict(SLOPE_DESIGNS["lmm_slopes"], grid=[2048],
+                         cluster=dict(sizing_mode="fixed_clusters", sizing_value=1024,
+                                      tau_squared=0.25, slopes=[_SLOPE])),
+}
+# Cases lowered by a README flow 2 call: (flow, sims).
+K9_FLOW_CASES = {"readme2_flow_launch": ("model_lmm_slopes_power", N_SIMS // 8),
+                 "readme2_sample_size_launch": ("model_lmm_slopes_sample_size", N_SIMS // 8)}
+K9_CHECKS = {
+    "readme2_flow_launch": N_SIMS // 8, "lmm_slopes": N_SIMS, "lmm_multislope": GOLDEN_SIMS,
+    "slopes_null": GOLDEN_SIMS, "readme2_sample_size_launch": N_SIMS // 8,
+    "slopes_q4": GOLDEN_SIMS, "slopes_p16": 256, "slopes_m1024": 256,
+}
+# The cases that must take K9's streamed path (the others its staged one).
+K9_STREAMED = ("slopes_m1024",)
+# K2's slope mode against its plain version: p = 3, q = 2 and p = 16, q = 4.
+K2_SLOPE_CHECKS = ("lmm_slopes", "slopes_p16")
+
 
 def k7_args(spec, arr, X, y):
     """K7's arguments for a lowered GLMM design and its generated rows (the
@@ -557,6 +624,19 @@ def k7_args(spec, arr, X, y):
              else torch.zeros(len(fit), dtype=torch.float64, device=X.device))
     return (glmfit.link_code(spec.outcome, spec.link), X, y, fit, list(spec.grid),
             glmmfit.layout_of(spec), beta0, max(int(spec.nagq), 1), spec.wald_se == "hessian")
+
+
+def k9_args(spec, suff):
+    """K9's arguments from a lowered slope design's K2 slope-mode statistics
+    (the order mixedfit.mixed_grid_stats passes them)."""
+    import torch
+
+    from mcpower_tpu_torch.engine import mixedfit
+
+    ns = torch.as_tensor(spec.grid, dtype=torch.float64, device=suff["yty"].device)
+    theta0, lower_ = mixedfit.slope_start(spec)
+    return (suff["G"], suff["A"], suff["b"], suff["xtx"], suff["xty"], suff["yty"], ns, theta0,
+            lower_)
 
 
 def k7_is_pr10(k) -> bool:
@@ -718,6 +798,12 @@ GOLDEN = {
         "tau2_hat": [263.8836983635589],
         "n_done": 1024,
     },
+    "lmm_slopes": {
+        "boundary_hit": [41], "converged": [1024], "joint_corr": [449], "joint_unc": [449],
+        "nsig_hist_corr": [[87, 488, 449]], "nsig_hist_unc": [[87, 488, 449]],
+        "pinned_comp": [[1, 40]], "sig_corr": [[665, 721]], "sig_unc": [[665, 721]],
+        "tau2_hat": [254.48892835600924], "n_done": 1024,
+    },
     "glmm_laplace": {
         "boundary_hit": [165],
         "converged": [1024],
@@ -770,6 +856,13 @@ MODELS = {
     "glmm": dict(formula="y ~ dose + (1|clinic)", family="logit", cluster_name="clinic",
                  cluster=dict(ICC=0.15, n_clusters=24), types=None, corr=None,
                  effects="dose=0.35", baseline_probability=0.3),
+    # README flow 2 (README.md:31-36) as written: a random intercept and a
+    # random slope on treatment, 30 sites
+    "lmm_slopes": dict(formula="y ~ treatment + (1+treatment|site)", family="lme",
+                       cluster_name="site",
+                       cluster=dict(ICC=0.2, n_clusters=30, random_slopes=["treatment"],
+                                    slope_variance=0.1),
+                       types=None, corr=None, effects="treatment=0.4"),
 }
 # flow -> (model, method, arguments, the kernels its path must launch)
 MODEL_FLOWS = {
@@ -823,7 +916,22 @@ MODEL_FLOWS = {
                            ("philox_fill", "glmm_intercept")),
     "model_glmm_scenarios": ("glmm", "find_power", dict(sample_size=480, scenarios=True),
                              ("philox_fill", "glmm_intercept")),
+    # README flow 2 (random slopes, K2's slope mode and kernel K9): its
+    # find_power as written, a sample-size search on the 30-site atom and
+    # its three scenarios
+    "model_lmm_slopes_power": ("lmm_slopes", "find_power", dict(sample_size=600),
+                               ("philox_fill", "grid_suffstats", "slope_reml")),
+    "model_lmm_slopes_sample_size": ("lmm_slopes", "find_sample_size",
+                                     dict(from_size=300, to_size=900),
+                                     ("philox_fill", "grid_suffstats", "slope_reml")),
+    "model_lmm_slopes_scenarios": ("lmm_slopes", "find_power",
+                                   dict(sample_size=600, scenarios=True),
+                                   ("philox_fill", "grid_suffstats", "slope_reml")),
 }
+
+
+# The flows of the random-slope LMM, whose pin counts hold to SLOPE_PIN_FLIPS.
+SLOPE_FLOWS = tuple(name for name, flow in MODEL_FLOWS.items() if flow[0] == "lmm_slopes")
 
 
 def build_model(mcpower_cls, model: str):
@@ -847,10 +955,11 @@ def build_model(mcpower_cls, model: str):
 
 def run_flow(mcpower_cls, name: str, n_sims: int, **kw):
     """One call of flow ``name`` at ``n_sims`` sims, base seed SEED; ``kw``
-    goes to the call (the port's ``device=``)."""
+    goes to the call (the port's ``device=``) and overrides the flow's own
+    arguments (``scenarios=`` a list of labels)."""
     model, method, args, _ = MODEL_FLOWS[name]
     return getattr(build_model(mcpower_cls, model), method)(
-        **args, n_sims=n_sims, seed=SEED, verbose=False, **kw)
+        **{**args, **kw}, n_sims=n_sims, seed=SEED, verbose=False)
 
 
 def flow_summary(res) -> Dict:
@@ -877,6 +986,8 @@ def flow_summary(res) -> Dict:
             out["tau_squared_hat_mean"] = extras["tau_squared_hat_mean"]
     if "boundary_component_counts" in glm:
         out["boundary_component_counts"] = glm["boundary_component_counts"]
+    if len(mle.get("boundary_component_counts", [[0]])[0]) > 1:  # per component, with slopes
+        out["boundary_component_counts"] = mle["boundary_component_counts"]
     if "first_achieved" in res:
         out["first_achieved"] = res["first_achieved"]
         out["fitted"] = {k: v["n_star"] for k, v in res["fitted"].items()}
@@ -908,6 +1019,8 @@ def _leaves(v, keys=()):
 # estimates (every other number is a function of the counts).
 _COUNT_KEY = re.compile(r"count|histogram|boundary_hits$|^n_sims$")
 _FIT_KEYS = ("tau_estimate", "tau_squared_hat_mean")
+# Counts of fits with a variance component pinned at 0.
+_PIN_KEYS = ("boundary_component_counts", "boundary_hits")
 # The realized outcome mean of a GLM: two runs can draw an outcome row apart
 # (an f32 rounding at its threshold: the reference's FMA-contracted normals,
 # or the card's and the CPU's libm under a scenario's extra draws), which
@@ -927,16 +1040,18 @@ def _row_step(tree: Dict, keys) -> float:
 
 
 def compare_trees(name: str, got: Dict, want: Dict, max_flips: int = None,
-                  tau_rel: float = None) -> list:
+                  tau_rel: float = None, pin_flips: int = None) -> list:
     """Hold a whole result tree against another: the same keys at every
-    level, every count within ``max_flips`` (MAX_FLIPS), the fitted variance
-    estimates within ``tau_rel`` (TAU2_REL) relative, a GLM's realized
-    outcome mean within ``max_flips`` outcome rows, and, where every count
-    is equal, every other value equal (numbers to 1e-9 relative): rates,
-    intervals, first N and crossing fits are functions of the counts. Returns
-    the flips found, as text."""
+    level, every count within ``max_flips`` (MAX_FLIPS), the variance-pin
+    counts (``_PIN_KEYS``) within ``pin_flips`` (``max_flips``), the fitted
+    variance estimates within ``tau_rel`` (TAU2_REL) relative, a GLM's
+    realized outcome mean within ``max_flips`` outcome rows, and, where every
+    count is equal, every other value equal (numbers to 1e-9 relative):
+    rates, intervals, first N and crossing fits are functions of the counts.
+    Returns the flips found, as text."""
     max_flips = MAX_FLIPS if max_flips is None else max_flips
     tau_rel = TAU2_REL if tau_rel is None else tau_rel
+    pin_flips = max_flips if pin_flips is None else pin_flips
     keys_g, keys_w = tree_keys(got), tree_keys(want)
     check(keys_g == keys_w, f"{name}: result keys differ: {sorted(keys_g ^ keys_w)}")
     leaves_g, leaves_w = _leaves(got), _leaves(want)
@@ -947,7 +1062,8 @@ def compare_trees(name: str, got: Dict, want: Dict, max_flips: int = None,
         if _COUNT_KEY.search(keys[-1]) and isinstance(w, (int, np.integer)):
             if g != w:
                 flips.append(f"{path}: {g} vs {w}")
-            check(isinstance(g, (int, np.integer)) and abs(g - w) <= max_flips,
+            band = pin_flips if keys[-1] in _PIN_KEYS else max_flips
+            check(isinstance(g, (int, np.integer)) and abs(g - w) <= band,
                   f"{name} {path}: {g} vs {w}")
         elif keys[-1] in _FIT_KEYS:
             check(abs(g - w) <= tau_rel * abs(w), f"{name} {path}: {g} vs {w} (> {tau_rel} rel)")
@@ -1359,6 +1475,46 @@ MODEL_GOLDEN = {
         "tau_squared_hat_mean": [0.5530672534266242],
         "boundary_component_counts": [[2]],
     },
+    "model_lmm_slopes_power": {
+        "success_counts_uncorrected": [[1024]], "success_counts_corrected": [[1024]],
+        "joint_counts_uncorrected": [1024], "joint_counts_corrected": [1024],
+        "tau_squared_hat_mean": [0.2523556028895634], "boundary_component_counts": [[0, 2]],
+    },
+    "model_lmm_slopes_sample_size": {
+        "success_counts_uncorrected": [[1019], [1020], [1020], [1023], [1024], [1024], [1024],
+                                       [1024], [1024], [1024], [1024]],
+        "success_counts_corrected": [[1019], [1020], [1020], [1023], [1024], [1024], [1024],
+                                     [1024], [1024], [1024], [1024]],
+        "joint_counts_uncorrected": [1019, 1020, 1020, 1023, 1024, 1024, 1024, 1024, 1024, 1024,
+                                     1024],
+        "joint_counts_corrected": [1019, 1020, 1020, 1023, 1024, 1024, 1024, 1024, 1024, 1024,
+                                   1024],
+        "tau_squared_hat_mean": [0.2518635298986708, 0.2509472030857206, 0.2504877887811412,
+                                 0.25080902093891705, 0.252254089666787, 0.25235560288956393,
+                                 0.2519468578978486, 0.2520433012012934, 0.2517103062425074,
+                                 0.2514945541950263, 0.2514446552990315],
+        "boundary_component_counts": [[0, 47], [0, 20], [0, 12], [0, 7], [0, 3], [0, 2], [0, 1],
+                                      [0, 0], [0, 0], [0, 0], [0, 0]],
+        "first_achieved": {"treatment": 300},
+        "fitted": {"treatment": None},
+    },
+    "model_lmm_slopes_scenarios": {
+        "optimistic": {
+            "success_counts_uncorrected": [[1024]], "success_counts_corrected": [[1024]],
+            "joint_counts_uncorrected": [1024], "joint_counts_corrected": [1024],
+            "tau_squared_hat_mean": [0.2523556028895634], "boundary_component_counts": [[0, 2]],
+        },
+        "realistic": {
+            "success_counts_uncorrected": [[1018]], "success_counts_corrected": [[1018]],
+            "joint_counts_uncorrected": [1018], "joint_counts_corrected": [1018],
+            "tau_squared_hat_mean": [0.2588452392238622], "boundary_component_counts": [[1, 18]],
+        },
+        "doomer": {
+            "success_counts_uncorrected": [[952]], "success_counts_corrected": [[952]],
+            "joint_counts_uncorrected": [952], "joint_counts_corrected": [952],
+            "tau_squared_hat_mean": [0.29494549867546005], "boundary_component_counts": [[4, 90]],
+        },
+    },
     "model_glmm_scenarios": {
         "optimistic": {
             "success_counts_uncorrected": [[938]],
@@ -1401,6 +1557,19 @@ TAU2_REL = 2e-3
 # the port, whose objective is 0.56 higher there). 3 such cells of 1,024
 # moved the glmm_laplace sum by 2.2e-3 on the H100 (1.4e-3 on the CPU).
 GLMM_TAU2_REL = 5e-3
+# The random-slope LMM's pin counts (per component, and any component). A
+# pin is decided by f64 probes at the f32 search's optimum; where a
+# component's variance is truly near 0 (a null slope, the doomer scenario's
+# ICC noise driving tau^2 to 0) the deviance is flat along it, two f32
+# searches whose sums round differently stop at different points of that
+# flat, and the probe's 1e-10 margin can fall either way. Measured on the
+# CPU, the port's plain path against the JAX reference at 1,024 sims
+# (tests/test_torch_model_slopes*.py): at most 3 per entry (the doomer
+# scenario's intercept pins, 1 against 4), 1 at the power and sample-size
+# flows and 0 at the lmm_slopes arm. Twice that is the band, for the golden
+# values and for the card's tree against the CPU's. A standing record in
+# ROADMAP C.
+SLOPE_PIN_FLIPS = 6
 
 # Kernel tolerances on the card, against the plain versions on the same
 # inputs. Relative errors are max |kernel - plain| / max |plain| per output.
@@ -1447,6 +1616,7 @@ KERNEL_META = {
                          "mcpower_tpu/engine/datagen.py:217"),
     "glmm_intercept": ("mcpower_tpu_torch/csrc/glmm_intercept.cu",
                        "mcpower_tpu/engine/glmmfit.py:909"),
+    "slope_reml": ("mcpower_tpu_torch/csrc/slope_reml.cu", "mcpower_tpu/engine/mixedfit.py:385"),
 }
 # Kernels that the arms of DESIGNS launch; K8 draws count outcomes, which
 # only the Poisson flow of phase 6 has.
@@ -1471,12 +1641,17 @@ def lower_design(lower_mod, cluster_cls, name: str):
     """``lower_mod.lower`` on design ``name``; works for either package. A
     ``truth_start`` entry becomes the scenario's."""
     kw = dict({**DESIGNS, **SCENARIO_ARMS, **SCENARIO_DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS,
-               **FACTOR_DESIGNS, **K6_DESIGNS, **GLMM_DESIGNS, **K7_DESIGNS}[name])
+               **FACTOR_DESIGNS, **K6_DESIGNS, **GLMM_DESIGNS, **K7_DESIGNS, **SLOPE_DESIGNS,
+               **K9_DESIGNS}[name])
     for key in ("corr", "effects"):
         if key in kw:
             kw[key] = np.asarray(kw[key], dtype=np.float64)
     if "cluster" in kw:
-        kw["cluster"] = cluster_cls(**kw["cluster"])
+        cl = dict(kw["cluster"])
+        if "slopes" in cl:  # the same package's SlopeStatic
+            slope_cls = sys.modules[cluster_cls.__module__].SlopeStatic
+            cl["slopes"] = tuple(slope_cls(**sl) for sl in cl["slopes"])
+        kw["cluster"] = cluster_cls(**cl)
     if "truth_start" in kw:
         kw["scenario"] = lower_mod.ScenarioStatic(truth_start=kw.pop("truth_start"))
     elif "scenario" in kw:
@@ -1610,6 +1785,9 @@ def k2_bound(spec, X, y, out) -> Tuple[float, str]:
     fma = sims * max_n * (pf * (pf + 1) // 2 + pf + 2)
     if "n_j" in out:
         fma += sims * max_n * (pf + 1)
+    if "G" in out:  # the slope mode's sums of z_k, z_k z_l, z_k x and z_k y
+        qs = out["G"].shape[-1] - 1
+        fma += sims * max_n * (qs * (pf + 2) + qs * (qs + 1) // 2)
     return bound(nbytes(X, y, *out.values()), {"f64": fma})
 
 
@@ -1761,6 +1939,39 @@ def k7_bound(args, outs) -> Tuple[float, str]:
             rows * (2 * p + 4 + F64_EXP_INSTR + F64_DIV_INSTR) + cells * m * 2 * F64_DIV_INSTR)
     read = float(sims * max(grid) * (p + 1) * 4)
     return bound(read + nbytes(beta0, *outs), {"f32": f32, "f64": f64})
+
+
+F32_DIV_OPS = 8  # an f32 division or square root (IEEE-rounded), in f32 operations
+
+
+def k9_bound(args, outs) -> Tuple[float, str]:
+    """Every cell's fit as K9 runs it: d + 1 + 4 x 140 f32 deviance
+    evaluations (the initial simplex and four candidates an iteration) and
+    q + 2 f64 ones (the optimum, the q zero-column probes, the final fit),
+    each per cluster the q x q products Lam' G Lam, the factor of C and its
+    q logs, Lam' A and Lam' b, p + 1 solves and the p (p + 1) / 2 + p + 1
+    terms, per cell the p x p factor, solve, rss and p + 1 logs (a multiply-
+    add two operations: K9 is built without contraction); then the final
+    inverse. Bytes: every input read once, every output written once."""
+    from mcpower_tpu_torch.engine import mixedfit
+
+    G, A, b, xtx, xty, yty = args[:6]
+    q, p, m, cells = G.shape[-1], xtx.shape[-1], G.shape[-3], float(yty.numel())
+    d = q * (q + 1) // 2
+    mac = (q * q * (q + 1) // 2  # Lam' G
+           + sum(q - k for j in range(q) for k in range(j + 1))  # C
+           + q * (q * q - 1) // 6  # its factor
+           + (p + 1) * (q * (q + 1) // 2 + q * q)  # Lam' A, Lam' b and their solves
+           + q * (p * (p + 1) // 2 + p + 1))  # the terms
+    per_cluster = {"f32": 2 * mac + 2 * q * F32_DIV_OPS + q * F32_EXP_OPS,
+                   "f64": 2 * mac + 2 * q * F64_DIV_INSTR + q * F64_LOG_INSTR}
+    pmac = p ** 3 // 6 + p * p + p + p * (p + 1) // 2
+    per_cell = {"f32": 2 * pmac + 3 * p * F32_DIV_OPS + (p + 1) * F32_EXP_OPS,
+                "f64": 2 * pmac + 3 * p * F64_DIV_INSTR + (p + 1) * F64_LOG_INSTR}
+    evals = {"f32": d + 1 + 4 * mixedfit.SLOPE_NM_ITERS, "f64": q + 2}
+    ops = {k: cells * evals[k] * (m * per_cluster[k] + per_cell[k]) for k in evals}
+    ops["f64"] += cells * (p ** 3 + p * p)
+    return bound(nbytes(G, A, b, xtx, xty, yty, *(o for o in outs if hasattr(o, "numel"))), ops)
 
 
 def rel_err_finite(name: str, a, b) -> float:
@@ -1953,8 +2164,32 @@ def _ptxas_by_p(log: str) -> Dict[int, Dict[str, int]]:
 
 
 def _ptxas_lines(name: str, log: str) -> list:
-    """Per-instantiation ptxas lines: by p for K2-K4, by (mode, store) for
-    K1 (``philox_fill_kernelILi<mode>ELb<vec>E``)."""
+    """Per-instantiation ptxas lines: by p for K2-K4 (K2's slope mode on a
+    line of its own, ``...kernelILi<p>ELb1E``), by (mode, store) for K1
+    (``philox_fill_kernelILi<mode>ELb<vec>E``), by (q, p) for K9
+    (``slope_reml_kernelILi<q>ELi<p>E``, p = 8 and 16 its buckets)."""
+    if name == "slope_reml":
+        rows = []
+        for mangled, v in _ptxas_by_kernel(log).items():
+            m = re.search(r"kernelILi(\d+)ELi(\d+)E", mangled)
+            if m:
+                rows.append((int(m.group(1)), int(m.group(2)), v))
+        return [f"  ptxas {name} by q and p (p = 8, 16: the p <= 8, p <= 16 buckets): " + ", ".join(
+            f"q={q} p={pm}: {v['regs']} registers, {v.get('spill', 0)} B spill stores"
+            for q, pm, v in sorted(rows, key=lambda r: r[:2]))] if rows else []
+    if name == "grid_suffstats":
+        out = []
+        for mode, tag in (("0", "by p"), ("1", "slope mode by p")):
+            rows = []
+            for mangled, v in _ptxas_by_kernel(log).items():
+                m = re.search(rf"kernelILi(\d+)ELb{mode}E", mangled)
+                if m:
+                    rows.append((int(m.group(1)), v))
+            if rows:
+                out.append(f"  ptxas {name} {tag}: " + ", ".join(
+                    f"p={q}: {v['regs']} registers, {v.get('spill', 0)} B spill stores"
+                    for q, v in sorted(rows, key=lambda r: r[0])))
+        return out
     if name == "philox_fill":
         rows = []
         for mangled, v in sorted(_ptxas_by_kernel(log).items()):
@@ -2181,9 +2416,11 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
                   flush=True)
 
         card = run(GOLDEN_SIMS)
+        pins = SLOPE_PIN_FLIPS if name in SLOPE_FLOWS else None
         flips = compare_trees(name, flow_summary(card), MODEL_GOLDEN[name],
-                              tau_rel=GLMM_TAU2_REL if name.startswith("model_glmm") else None)
-        tree_flips = compare_trees(name, card, run(GOLDEN_SIMS, "cpu"))
+                              tau_rel=GLMM_TAU2_REL if name.startswith("model_glmm") else None,
+                              pin_flips=pins)
+        tree_flips = compare_trees(name, card, run(GOLDEN_SIMS, "cpu"), pin_flips=pins)
         print(f"golden {name} at {GOLDEN_SIMS} sims against the JAX MCPower: "
               f"{'identical' if not flips else 'flips ' + '; '.join(flips)}; whole result tree "
               f"({len(tree_keys(card))} keys) against the plain path's on the CPU: "
@@ -2600,6 +2837,57 @@ def main(argv=None) -> int:
         check(not any(diffs.values()),
               f"K7 {name}: outputs differ from the plain version's {diffs}")
     records["glmm_intercept"] = {"max_abs_err": k7_err}
+
+    # K2's slope mode on generated slope designs (p = 3, q = 2; p = 16, q = 4)
+    for name in K2_SLOPE_CHECKS:
+        spec_, arr_ = lower_design(lower, ClusterStatic, name)
+        X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
+                                           sim_ids[:GOLDEN_SIMS], plain=True)
+        got = olsfit.grid_suffstats_kernel(spec_, X_, y_, with_slopes=True)
+        want = olsfit.grid_suffstats_plain(spec_, X_, y_, with_slopes=True)
+        check(set(got) == set(want), f"K2 slope mode outputs {sorted(got)} != {sorted(want)}")
+        rel = max(rel_err(got[k], want[k]) for k in want)
+        k2_err = max(k2_err, max((got[k] - want[k]).abs().max().item() for k in want))
+        print(f"K2 grid_suffstats slope mode {name} X {tuple(X_.shape)}, p "
+              f"{len(spec_.effective_fit_cols)}, q {spec_.cluster.q}, m "
+              f"{spec_.cluster.n_clusters_at(spec_.max_n)}: max rel err {rel:.3e}", flush=True)
+        check(rel <= K2_REL, f"K2 slope mode {name}: rel err {rel:.3e} > {K2_REL}")
+    records["grid_suffstats"]["max_abs_err"] = k2_err
+
+    # K9 on the K2 slope-mode statistics of generated rows, bit for bit
+    k9_args_by = {}
+    flow_cases9 = {name: flow_lowered(flow)[0] for name, (flow, _) in K9_FLOW_CASES.items()}
+    k9_err = 0.0
+    for name, n in K9_CHECKS.items():
+        spec_, arr_ = flow_cases9[name] if name in flow_cases9 else \
+            lower_design(lower, ClusterStatic, name)
+        X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
+                                           sim_ids[:n], plain=True)
+        args = k9_args(spec_, olsfit.grid_suffstats_plain(spec_, X_, y_, with_slopes=True))
+        k9_args_by[name] = args
+        q_, p_, m_ = args[0].shape[-1], args[3].shape[-1], args[0].shape[-3]
+        staged = mixedfit.slope_reml_staged(m_, q_, p_)
+        check(staged == (name not in K9_STREAMED),
+              f"K9 {name}: took the {'staged' if staged else 'streamed'} path")
+        got = mixedfit.slope_reml_kernel(*args)
+        want = mixedfit.slope_reml_plain(*args)
+        cells = want[2].numel()
+        n_conv, n_bnd = int(want[2].sum()), int(want[3].sum())
+        pins = want[5].reshape(-1, q_).sum(0).tolist()
+        check(n_conv > 0.9 * cells, f"K9 {name}: only {n_conv} of {cells} converged")
+        if name == "slopes_null":
+            check(pins[1] > 0.2 * cells, f"K9 {name}: the null slope pinned in {pins[1]} cells")
+        diffs = {k: int((~((g == w) | (g.isnan() & w.isnan()))).sum())
+                 for k, g, w in zip(("beta", "cov", "converged", "boundary", "tau2", "pinned"),
+                                    got, want)}
+        k9_err = max(k9_err, max(float((g - w)[torch.isfinite(w)].abs().max())
+                                 for g, w in zip(got[:2] + got[4:5], want[:2] + want[4:5])))
+        print(f"K9 slope_reml {name} cells {tuple(got[2].shape)} p {p_} q {q_} m {m_}, "
+              f"{'staged' if staged else 'streamed'}: {n_conv} converged, {n_bnd} with a pin "
+              f"(per component {pins}); entries that differ from the plain version: "
+              + ", ".join(f"{k} {v}" for k, v in diffs.items()), flush=True)
+        check(not any(diffs.values()), f"K9 {name}: outputs differ from the plain version's {diffs}")
+    records["slope_reml"] = {"max_abs_err": k9_err}
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if opts.checks_only:
@@ -2651,7 +2939,10 @@ def main(argv=None) -> int:
             diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
             if diff.max() > 0:
                 flips.append(f"{key}: max {int(diff.max())} at {np.argwhere(diff > 0).tolist()}")
-            check(int(diff.max()) <= MAX_FLIPS, f"{name} {key}: {got.tolist()} vs golden {want.tolist()}")
+            band = (SLOPE_PIN_FLIPS if name in SLOPE_DESIGNS and key in ("pinned_comp",
+                                                                        "boundary_hit")
+                    else MAX_FLIPS)
+            check(int(diff.max()) <= band, f"{name} {key}: {got.tolist()} vs golden {want.tolist()}")
         extra = set(counts) - set(GOLDEN[name])
         check(not extra, f"{name}: counts {sorted(extra)} not in the golden set")
         print(f"golden {name} at {GOLDEN_SIMS} sims: "
@@ -2725,6 +3016,37 @@ def main(argv=None) -> int:
         check_golden(name, spec_, arr_)
         for k in launches:
             launches[k] += got_l[k]
+
+    # The random-slope arm: one chunk of N_SIMS sims through K1, K2's slope
+    # mode and K9
+    slope_specs = {name: lower_design(lower, ClusterStatic, name) for name in SLOPE_DESIGNS}
+    slope_arm_s = {}
+    for name, (spec_, arr_) in slope_specs.items():
+        batch.run_batch(spec_, arr_, N_SIMS, 1, chunk_size=N_SIMS, device=dev)  # warm-up
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        counts = batch.run_batch(spec_, arr_, N_SIMS, SEED, chunk_size=N_SIMS, device=dev)
+        slope_arm_s[name] = time.perf_counter() - t0
+        launches_by_arm[name] = got_l = kernels.counts()
+        check(got_l["slope_reml"] == 1 and got_l["grid_suffstats"] == 1
+              and got_l["philox_fill"] == 1,
+              f"{name}: K9 launched {got_l['slope_reml']} times, K2 {got_l['grid_suffstats']}, "
+              f"K1 {got_l['philox_fill']} (1 each expected)")
+        check(int(counts["n_done"]) == N_SIMS, f"{name}: n_done {counts['n_done']}")
+        conv = np.asarray(counts["converged"])
+        check(bool((conv > 0.9 * N_SIMS).all()), f"{name}: converged {conv.tolist()}")
+        for key, v in counts.items():
+            check(bool(np.isfinite(np.asarray(v, dtype=np.float64)).all()), f"{name}: {key} not finite")
+        power = np.asarray(counts["sig_unc"])[-1] / N_SIMS
+        print(f"arm {name}: {slope_arm_s[name] * 1e3:.1f} ms for {N_SIMS} sims through the "
+              f"kernels (one chunk; launches {got_l}); power at N={spec_.max_n}: "
+              f"{np.round(power, 4).tolist()}, pins per component "
+              f"{np.asarray(counts['pinned_comp'])[-1].tolist()}", flush=True)
+        check_golden(name, spec_, arr_)
+        for k in launches:
+            launches[k] += got_l[k]
+
+    print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # --- phase 5: timings at the main path's shapes ---
     reps = 20
@@ -2848,14 +3170,47 @@ def main(argv=None) -> int:
         out_ = glmmfit.glmm_intercept_kernel(*args_)
         timing.append((key, shape.format(tuple(out_[2].shape)), glmmfit.glmm_intercept_kernel,
                        glmmfit.glmm_intercept_plain, args_, k7_bound(args_, out_), None))
+    # K9 at a launch of README flow 2, at the lmm_slopes arm's cells and at
+    # lmm_multislope's; K2's slope mode at the arm's rows and the flow
+    # launch's
+    for key, case, shape in (
+            ("slope_reml readme2", "readme2_flow_launch",
+             "README flow 2 launch, cells {}, N 600, m 30, p 2, q 2"),
+            ("slope_reml lmm_slopes", "lmm_slopes", "lmm_slopes arm cells {}, N 200, m 20, p 3, q 2"),
+            ("slope_reml multislope", "lmm_multislope",
+             "lmm_multislope cells {}, N 480, m 20, p 5, q 3")):
+        args_ = k9_args_by[case]
+        out_ = mixedfit.slope_reml_kernel(*args_)
+        timing.append((key, shape.format(tuple(out_[2].shape)), mixedfit.slope_reml_kernel,
+                       mixedfit.slope_reml_plain, args_, k9_bound(args_, out_), None))
+
+    def k2s(spec_):  # K2's slope mode and its plain version, taking (X, y)
+        return (lambda X_, y_: olsfit.grid_suffstats_kernel(spec_, X_, y_, with_slopes=True),
+                lambda X_, y_: olsfit.grid_suffstats_plain(spec_, X_, y_, with_slopes=True))
+
+    for arm, (spec_, arr_), n, shape in (
+            ("lmm_slopes", slope_specs["lmm_slopes"], N_SIMS, "lmm_slopes X {}, m 20, q 2"),
+            ("readme2", flow_cases9["readme2_flow_launch"], N_SIMS // 8,
+             "README flow 2 launch X {}, m 30, q 2")):
+        X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
+                                           sim_ids[:n], plain=True)
+        out_ = olsfit.grid_suffstats_kernel(spec_, X_, y_, with_slopes=True)
+        timing.append((f"grid_suffstats {arm}", shape.format(tuple(X_.shape)) + ", slope mode",
+                       *k2s(spec_), (X_, y_), k2_bound(spec_, X_, y_, out_), None))
     timed = {}
     with ClockSampler() as clocks:  # a process; ended however the block exits
         for key, shape, fk, fp, inputs, (bound_ms, bound_by), lib in timing:
             kname = key.split()[0] + "_kernel"  # the CUDA function's name
+            t_row = time.perf_counter()
             copies = input_copies(inputs)
-            plain_ms = device_ms(fp, copies, 3)
+            # K9's plain version makes tens of thousands of small launches a
+            # call, whose profiler events take tens of seconds to collect:
+            # one window of one call
+            heavy = kname == "slope_reml_kernel"
+            plain_ms = device_ms(fp, copies, 1 if heavy else 3)
             ms = device_ms(fk, copies, reps, kname, launches=1)
-            plain_ms = (plain_ms + device_ms(fp, copies, 3)) / 2.0
+            if not heavy:
+                plain_ms = (plain_ms + device_ms(fp, copies, 3)) / 2.0
             call_ms = cuda_ms(fk, copies, reps)
             library_ms = device_ms(lib[0], input_copies(lib[1]), reps) if lib is not None else None
             timed[key] = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -2864,9 +3219,11 @@ def main(argv=None) -> int:
                   f"call with the wrapper), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}), {bound_ms / ms:.1%} of bound"
                   + (f", library {library_ms:.4f} ms" if library_ms is not None else
-                     ", library none (no one PyTorch call computes it)"), flush=True)
+                     ", library none (no one PyTorch call computes it)")
+                  + f"; timed in {time.perf_counter() - t_row:.1f} s", flush=True)
 
     print(f"clocks during the kernel timings: {clocks.summary()}", flush=True)
+    print(f"kernel timings done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # K1 by mode at the LMM plan: the cipher and the store alone (words),
     # with the uniform map, and with the ppf (normals), this tree's and each
@@ -2946,6 +3303,8 @@ def main(argv=None) -> int:
     records["glmm_intercept"].update(timed["glmm_intercept agq7"], by_shape={
         shape: timed[f"glmm_intercept {shape}"]
         for shape in ("agq7", "laplace", "readme", "sample_size")})
+    records["slope_reml"].update(timed["slope_reml readme2"], by_shape={
+        shape: timed[f"slope_reml {shape}"] for shape in ("readme2", "lmm_slopes", "multislope")})
     records["glm_irls"]["by_shape"] = {"arm": timed["glm_irls"], "flow": timed["glm_irls flow"],
                                        "factor_flow": timed["glm_irls factor"],
                                        "factor_flow_fallback": timed["glm_irls fallback"]}
@@ -2954,7 +3313,8 @@ def main(argv=None) -> int:
     # computes the same function; by_arm holds every arm's shape
     for name, top, arms in (("philox_fill", "lmm", ("lmm", "ols", "curve", "lmm_realistic",
                                                     "short")),
-                            ("grid_suffstats", "ols", ("lmm", "ols", "curve")),
+                            ("grid_suffstats", "ols", ("lmm", "ols", "curve", "lmm_slopes",
+                                                       "readme2")),
                             ("ols_solve", "curve", ("ols", "curve", "readme"))):
         records[name].update(timed[f"{name} {top}"],
                              by_arm={arm: timed[f"{name} {arm}"] for arm in arms})
@@ -2995,6 +3355,24 @@ def main(argv=None) -> int:
                                                    chunk_size=GLMM_SIMS, device=dev))
         items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
         print(f"profile {name} ({GLMM_SIMS} sims): wall median {prof['median_ms']:.3f} ms (range "
+              f"{prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {PROFILE_REPS} calls), device kernel "
+              f"time {prof['device_ms']:.3f} ms, busy {prof['device_ms'] / prof['median_ms']:.1%} "
+              f"of the median wall, {prof['launches']} kernels; largest device items (ms): "
+              f"{items}", flush=True)
+
+    for name, (spec_, arr_) in slope_specs.items():  # the slope arm's wall and profile
+        t0 = time.perf_counter()
+        batch.run_batch(spec_, arr_, N_SIMS, SEED, chunk_size=N_SIMS, device=dev, plain=True)
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch.run_batch(spec_, arr_, N_SIMS, SEED, chunk_size=N_SIMS, device=dev)
+        again_s = time.perf_counter() - t0
+        print(f"arm {name} ({N_SIMS} sims, wall): kernels {slope_arm_s[name] * 1e3:.1f} ms and "
+              f"{again_s * 1e3:.1f} ms, plain {plain_s * 1e3:.1f} ms", flush=True)
+        prof = profile_arm(lambda: batch.run_batch(spec_, arr_, N_SIMS, SEED, chunk_size=N_SIMS,
+                                                   device=dev))
+        items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
+        print(f"profile {name} ({N_SIMS} sims): wall median {prof['median_ms']:.3f} ms (range "
               f"{prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {PROFILE_REPS} calls), device kernel "
               f"time {prof['device_ms']:.3f} ms, busy {prof['device_ms'] / prof['median_ms']:.1%} "
               f"of the median wall, {prof['launches']} kernels; largest device items (ms): "

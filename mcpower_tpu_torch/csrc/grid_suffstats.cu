@@ -1,13 +1,17 @@
 // K2 grid_suffstats: prefix sufficient statistics over the sample-size grid,
-// with the per-cluster sums of the random-intercept fit.
+// with the per-cluster sums of the random-intercept fit and, in its slope
+// mode, the per-cluster Z moments of the random-slope fit.
 //
 // Replaces: mcpower_tpu/engine/olsfit.py::grid_suffstats (:41),
-// mcpower_tpu/engine/mixedfit.py::_cluster_suffstats (:72) and the static
+// mcpower_tpu/engine/mixedfit.py::_cluster_suffstats (:72),
+// mixedfit.py::_slope_cluster_suffstats (:263) and the static
 // layout segment sums of mcpower_tpu/engine/clusterops.py (:50-87). For one
 // sim, from the f32 design X (max_n, P) restricted to the fit columns and
 // the f32 outcome y, in f64: per grid segment [n_{g-1}, n_g) the sums X'X,
 // X'y, y'y, sum y, and with a cluster layout the per-cluster row counts n_j,
-// column sums s_j and outcome sums t_j; then the cumulative sum over the
+// column sums s_j and outcome sums t_j (in the slope mode also, for the
+// random-effect design z = [1, X[:, zc]], G = sum z z', A = sum z x' and
+// b = sum z y per cluster); then the cumulative sum over the
 // grid (statistic at g = statistic at g-1 + segment g, as the reference's
 // cumsum of per-segment sums).
 //
@@ -41,11 +45,14 @@
 // - Cluster sums come from the staged rows, one lane per cluster: in the
 //   round-robin layout row r belongs to cluster r % m, in the blocked
 //   layout to r / cs; a cluster's rows in a segment are a stride or a range,
-//   never a gather. Row counts n_j are exact integer counts.
+//   never a gather. Row counts n_j are exact integer counts. The slope mode
+//   is its own instantiation (SL), so the sums it adds to a lane (3 + 6 +
+//   3 p + 3 at q = 4) cost the other modes no registers.
 
 #include "common.cuh"
 
 #define MCP_MAX_P 16
+#define MCP_MAX_QS 3  // slope columns of the slope mode (q <= 4)
 
 namespace {
 
@@ -69,6 +76,14 @@ struct Args {
     const int* grid;  // (G,) ascending row counts, device memory
     int sims, max_n, P, G, m, round_robin, period, chunk_rows, vec16;
     double *xtx, *xty, *yty, *ysum, *nj, *s, *t;
+};
+
+// The slope mode's columns and outputs, a parameter of their own so that
+// the other modes' Args and Layout stay as they were.
+struct Slopes {
+    int qs;  // slope columns; 0 outside the slope mode
+    int zc[MCP_MAX_QS];  // their columns of X
+    double *G, *A, *b;  // G (m, q, q), A (m, q, pf), b (m, q)
 };
 
 __host__ __device__ constexpr int n_global(int pf) { return pf * (pf + 1) / 2 + pf + 2; }
@@ -252,11 +267,17 @@ __device__ __forceinline__ void store(const Args& a, int target, long long cell,
 // grid cell `cell`, lane `sl` of the sim taking clusters sl, sl + 8, ...;
 // `first` marks the segment's first piece, which starts from the previous
 // grid point's sums (or zero at g = 0).
-template <int PF>
-__device__ __forceinline__ void cluster_piece(const Args& a, const Layout& lay, const float* Xs,
+//
+// In the slope mode (SL) the same walk also sums, with z_k = X[row, zc[k]],
+// z_k, z_k z_l (l >= k), z_k x and z_k y, and writes the cluster's G, A, b
+// (G[0][0] = n_j, A[0] = s_j, b[0] = t_j; G symmetric).
+template <int PF, bool SL>
+__device__ __forceinline__ void cluster_piece(const Args& a, const Layout& lay, const Slopes& z,
+                                              const float* Xs,
                                               const float* ys, int r0, int r, int e,
                                               long long cell, bool first, bool has_prev,
                                               int sl) {
+    constexpr int QS = SL ? MCP_MAX_QS : 1;
     for (int c = sl; c < a.m; c += SIM_LANES) {
         int lo, hi, step;
         if (a.round_robin) {
@@ -269,14 +290,41 @@ __device__ __forceinline__ void cluster_piece(const Args& a, const Layout& lay, 
             step = 1;
         }
         double sx[PF], st = 0.0;
+        double zs[QS], zy[QS], zz[QS][QS], zx[QS][PF];
 #pragma unroll
         for (int k = 0; k < PF; ++k) sx[k] = 0.0;
+        if constexpr (SL) {
+#pragma unroll
+            for (int k = 0; k < QS; ++k) {
+                zs[k] = zy[k] = 0.0;
+#pragma unroll
+                for (int l = 0; l < QS; ++l) zz[k][l] = 0.0;
+#pragma unroll
+                for (int j = 0; j < PF; ++j) zx[k][j] = 0.0;
+            }
+        }
         int count = 0;
         for (int row = lo; row < hi; row += step) {
             const float* xr = Xs + (row - r0) * a.P;
 #pragma unroll
             for (int k = 0; k < PF; ++k) sx[k] += (double)xr[lay.fit[k]];
             st += (double)ys[row - r0];
+            if constexpr (SL) {
+                const double yv = (double)ys[row - r0];
+#pragma unroll
+                for (int k = 0; k < QS; ++k) {
+                    if (k < z.qs) {
+                        const double zk = (double)xr[z.zc[k]];
+                        zs[k] += zk;
+                        zy[k] += zk * yv;
+#pragma unroll
+                        for (int l = k; l < QS; ++l)
+                            if (l < z.qs) zz[k][l] += zk * (double)xr[z.zc[l]];
+#pragma unroll
+                        for (int j = 0; j < PF; ++j) zx[k][j] += zk * (double)xr[lay.fit[j]];
+                    }
+                }
+            }
             ++count;
         }
         const long long o = cell * a.m + c;
@@ -285,11 +333,45 @@ __device__ __forceinline__ void cluster_piece(const Args& a, const Layout& lay, 
         a.t[o] = (base >= 0 ? a.t[base] : 0.0) + st;
 #pragma unroll
         for (int k = 0; k < PF; ++k) a.s[o * PF + k] = (base >= 0 ? a.s[base * PF + k] : 0.0) + sx[k];
+        if constexpr (SL) {
+            const int q = z.qs + 1;
+            double* G = z.G + o * q * q;
+            double* A = z.A + o * q * PF;
+            double* b = z.b + o * q;
+            const double* Gb = base >= 0 ? z.G + base * q * q : nullptr;
+            const double* Ab = base >= 0 ? z.A + base * q * PF : nullptr;
+            const double* bb = base >= 0 ? z.b + base * q : nullptr;
+            G[0] = (Gb ? Gb[0] : 0.0) + (double)count;
+            b[0] = (bb ? bb[0] : 0.0) + st;
+#pragma unroll
+            for (int j = 0; j < PF; ++j) A[j] = (Ab ? Ab[j] : 0.0) + sx[j];
+#pragma unroll
+            for (int k = 0; k < QS; ++k) {
+                if (k < z.qs) {
+                    const int r = 1 + k;
+                    const double g0 = (Gb ? Gb[r] : 0.0) + zs[k];
+                    G[r] = g0;
+                    G[r * q] = g0;
+#pragma unroll
+                    for (int l = k; l < QS; ++l) {
+                        if (l < z.qs) {
+                            const double v = (Gb ? Gb[r * q + 1 + l] : 0.0) + zz[k][l];
+                            G[r * q + 1 + l] = v;
+                            G[(1 + l) * q + r] = v;
+                        }
+                    }
+#pragma unroll
+                    for (int j = 0; j < PF; ++j) A[r * PF + j] = (Ab ? Ab[r * PF + j] : 0.0) + zx[k][j];
+                    b[r] = (bb ? bb[r] : 0.0) + zy[k];
+                }
+            }
+        }
     }
 }
 
-template <int PF>
-__global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, const Layout lay) {
+template <int PF, bool SL>
+__global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, const Layout lay,
+                                                               const Slopes z) {
     constexpr int NG = n_groups(PF);
     constexpr int K = per_group(PF);
     constexpr int NGLOB = n_global(PF);
@@ -342,7 +424,8 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
                 store<PF>(a, target[q], cell, cum[q]);
             }
             if (clusters && empty)
-                cluster_piece<PF>(a, lay, nullptr, nullptr, 0, 0, 0, cell, true, gi > 0, sl);
+                cluster_piece<PF, SL>(a, lay, z, nullptr, nullptr, 0, 0, 0, cell, true, gi > 0,
+                                      sl);
             seg_lo = grid[gi];
             ++gi;
         };
@@ -402,8 +485,8 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
 #pragma unroll
                 for (int q = 0; q < OWN; ++q) seg[q] += acc[q];
                 if (clusters)
-                    cluster_piece<PF>(a, lay, Xs, ys, r0, r, e, sim * a.G + gi, r == seg_lo,
-                                      gi > 0, sl);
+                    cluster_piece<PF, SL>(a, lay, z, Xs, ys, r0, r, e, sim * a.G + gi,
+                                          r == seg_lo, gi > 0, sl);
                 r = e;
                 if (r == n) {
                     finish(false);
@@ -416,12 +499,12 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
     }
 }
 
-template <int PF>
-int launch(const Args& a, const Layout& lay, cudaStream_t stream) {
+template <int PF, bool SL>
+int launch_mode(const Args& a, const Layout& lay, const Slopes& z, cudaStream_t stream) {
     const size_t smem =
         2 * sizeof(float) * (size_t)stage_floats(a.chunk_rows, a.P) + sizeof(int) * (size_t)a.G;
     if (smem > (size_t)MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-    auto kernel = grid_suffstats_kernel<PF>;
+    auto kernel = grid_suffstats_kernel<PF, SL>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -437,8 +520,14 @@ int launch(const Args& a, const Layout& lay, cudaStream_t stream) {
         (((long long)a.sims + SIMS_PER_WARP - 1) / SIMS_PER_WARP) * n_groups(PF);
     const long long resident = (long long)sms * per_sm;
     const unsigned blocks = (unsigned)(tasks < resident ? tasks : resident);
-    kernel<<<blocks, WARP, smem, stream>>>(a, lay);
+    kernel<<<blocks, WARP, smem, stream>>>(a, lay, z);
     return (int)cudaGetLastError();
+}
+
+template <int PF>
+int launch(const Args& a, const Layout& lay, const Slopes& z, cudaStream_t stream) {
+    return z.qs > 0 ? launch_mode<PF, true>(a, lay, z, stream)
+                    : launch_mode<PF, false>(a, lay, z, stream);
 }
 
 }  // namespace
@@ -446,22 +535,36 @@ int launch(const Args& a, const Layout& lay, cudaStream_t stream) {
 // fit: pf column indices of X (host memory); grid: G ascending row counts
 // (last == max_n), in host memory for the checks and the chunk choice and
 // in device memory (grid_dev, the same values) for the kernel. m = 0
-// computes no cluster statistics (nj, s, t may then be null). Returns a
+// computes no cluster statistics (nj, s, t may then be null). qs > 0 (the
+// slope mode, with m > 0) also writes G, A and b of the q = qs + 1 columns
+// [1, X[:, zc]] (zc: qs column indices of X, host memory). Returns a
 // cudaError_t.
 extern "C" int mcp_grid_suffstats(const void* X, const void* y, int sims, int max_n, int P,
                                   const int* fit, int pf, const int* grid, const void* grid_dev,
                                   int G, int m, int round_robin, int period, void* xtx, void* xty,
                                   void* yty, void* ysum, void* nj, void* s, void* t,
+                                  const int* zc, int qs, void* zG, void* zA, void* zb,
                                   void* stream) {
     if (sims <= 0 || max_n <= 0 || P <= 0 || pf <= 0 || pf > MCP_MAX_P || G <= 0 ||
         grid_dev == nullptr || m < 0 || period <= 0 ||
-        (m > 0 && (nj == nullptr || s == nullptr || t == nullptr)))
+        (m > 0 && (nj == nullptr || s == nullptr || t == nullptr)) || qs < 0 ||
+        qs > MCP_MAX_QS ||
+        (qs > 0 && (m == 0 || zc == nullptr || zG == nullptr || zA == nullptr || zb == nullptr)))
         return (int)cudaErrorInvalidValue;
     Layout lay;
     for (int i = 0; i < pf; ++i) {
         if (fit[i] < 0 || fit[i] >= P) return (int)cudaErrorInvalidValue;
         lay.fit[i] = fit[i];
     }
+    Slopes z;
+    z.qs = qs;
+    for (int k = 0; k < MCP_MAX_QS; ++k) {
+        if (k < qs && (zc[k] < 0 || zc[k] >= P)) return (int)cudaErrorInvalidValue;
+        z.zc[k] = k < qs ? zc[k] : 0;
+    }
+    z.G = (double*)zG;
+    z.A = (double*)zA;
+    z.b = (double*)zb;
     for (int g = 0; g < G; ++g)
         if (grid[g] < (g ? grid[g - 1] : 0) || grid[g] > max_n) return (int)cudaErrorInvalidValue;
     if (grid[G - 1] != max_n) return (int)cudaErrorInvalidValue;
@@ -486,5 +589,5 @@ extern "C" int mcp_grid_suffstats(const void* X, const void* y, int sims, int ma
     a.nj = (double*)nj;
     a.s = (double*)s;
     a.t = (double*)t;
-    MCP_DISPATCH_P(pf, launch, a, lay, (cudaStream_t)stream)
+    MCP_DISPATCH_P(pf, launch, a, lay, z, (cudaStream_t)stream)
 }

@@ -19,7 +19,8 @@ The stages follow the reference in order: the per-sim scenario design
 residual swaps, the ICC jitter), the f32 mix ``z @ L.T``, the marginals, the
 reference-coded factor dummies, the cluster-level broadcast, the
 interactions, the heterogeneity beta-jitter, ``eta = X @ beta``, the random
-intercept (normal or heavy-tailed) and the outcome: a residual of the
+effects (an intercept and any slopes, each component's draws normal or
+heavy-tailed, mixed by the Cholesky of their covariance) and the outcome: a residual of the
 scenario's family (with heteroskedasticity), a binary draw (logit: a
 top-24-bit uniform of the RESID words against ``sigmoid(eta)``; probit: the
 RESID normal against ``eta``) or a Poisson count (the open uniform of the
@@ -51,6 +52,13 @@ from .spec import (
 )
 
 FLOAT_NEAR_ZERO = 1e-12
+# Random-effect components (intercept and slopes) a primary grouping may
+# have: kernel K9's search runs over d = q (q + 1) / 2 <= 10.
+MAX_RE_Q = 4
+# CLUSTER stream columns of one random-effect component: component c draws
+# its normals at column c * RE_COLUMNS, a heavy-tailed one its chi-square
+# planes at the columns after it.
+RE_COLUMNS = 32
 
 # Scenario-stream column ids (CLASS_SCENARIO), the reference's.
 _SC_CORR = 0
@@ -103,10 +111,13 @@ def unsupported(spec: SimSpec) -> str:
         return "uploaded data (ROADMAP A13)"
     c = spec.cluster
     if c is not None:
-        if c.slopes:
-            return "random slopes (ROADMAP A11)"
         if c.extra_groupings:
             return "extra groupings (ROADMAP A12)"
+        if c.slopes and spec.outcome != "continuous":
+            return "GLMM random slopes (ROADMAP A11.2)"
+        if c.q > MAX_RE_Q:
+            return (f"{c.q} random-effect components; kernel K9 takes q <= {MAX_RE_Q} "
+                    f"(theta of d <= {MAX_RE_Q * (MAX_RE_Q + 1) // 2}, optim.py's range)")
     elif spec.estimator == "mle":
         return "the mle estimator without a cluster"
     if len(spec.effective_fit_cols) > kernels.MAX_FIT_P:
@@ -229,16 +240,17 @@ def sampled_factors(spec: SimSpec) -> List[int]:
 
 def stream_plan(spec: SimSpec) -> List[Tuple[int, int, int]]:
     """``(class, column, rows)`` of every long stream the generation reads
-    as normals: the latent predictor normals, the random-intercept draws
-    (CLUSTER column 0, and 1..round(df) of a heavy-tailed one, at the
-    cluster count, padded to ``max_n`` in the launch: padding costs K1 a
-    store, not a cipher) and, for a continuous or probit outcome, the
+    as normals: the latent predictor normals, the random-effect draws (per
+    component c, CLUSTER column c * RE_COLUMNS, and the columns after it up
+    to round(df) of a heavy-tailed one, at the cluster count, padded to
+    ``max_n`` in the launch: padding costs K1 a store, not a cipher) and, for a continuous or probit outcome, the
     residual normals (RESID column 0) and the chi-square planes (RESID
     1..round(df))."""
     plan = [(rng.CLASS_XNORM, j, spec.max_n) for j in range(spec.n_cont)]
     if spec.cluster is not None:
         m = spec.cluster.n_clusters_at(spec.max_n)
-        plan += [(rng.CLASS_CLUSTER, c, m) for c in range(1 + heavy_re_planes(spec))]
+        plan += [(rng.CLASS_CLUSTER, comp * RE_COLUMNS + c, m)
+                 for comp in range(spec.cluster.q) for c in range(1 + heavy_re_planes(spec))]
     if spec.outcome == "continuous" or (spec.outcome == "binary" and spec.link == "probit"):
         plan += [(rng.CLASS_RESID, c, spec.max_n) for c in range(1 + chi2_planes(spec))]
     return plan
@@ -340,15 +352,33 @@ def rep_rows(spec: SimSpec, device=None) -> torch.Tensor:
     return rows % s if spec.cluster.sizing_mode == "fixed_clusters" else rows - rows % s
 
 
-def re_chol_intercept(tau0_sq):
-    """chol(D + 1e-12 I) for the intercept-only D = tau^2, in f32 as the
-    reference's ``_re_chol`` computes it (a 1x1 Cholesky is the square
-    root): of a number, a number; of an f32 tensor of per-sim values, a
-    tensor."""
-    t = torch.as_tensor(tau0_sq, dtype=torch.float32)
-    tau = torch.sqrt(torch.clamp(t, min=0.0))
-    out = torch.sqrt(tau * 1.0 * tau + marginals.f32(1e-12))
-    return out if isinstance(tau0_sq, torch.Tensor) else float(out)
+def re_chol(tau0_sq, slopes) -> torch.Tensor:
+    """chol(D + 1e-12 I) in f32 for D = diag(tau) R diag(tau) of the
+    intercept and the slopes, as the reference's ``_re_chol`` (:416): R has
+    ``intercept_corr`` between the intercept and each slope and ``corr_i *
+    corr_j`` between slopes (the single-factor model). ``tau0_sq`` is a
+    number or an f32 tensor of per-sim values ``(sims,)``; returns ``(q, q)``
+    or ``(sims, q, q)``. The Cholesky is smallchol's operation order, so at
+    q = 1 it is sqrt(tau * 1 * tau + 1e-12), the reference's value bit for
+    bit."""
+    from . import smallchol
+
+    q = 1 + len(slopes)
+    t0 = torch.as_tensor(tau0_sq, dtype=torch.float32)
+    taus = [torch.sqrt(torch.clamp(t0, min=0.0))] + [
+        torch.full_like(t0, marginals.f32(np.sqrt(max(s.variance, 0.0)))) for s in slopes]
+    corr = np.eye(q)
+    for i, s in enumerate(slopes):
+        corr[0, 1 + i] = corr[1 + i, 0] = s.intercept_corr
+    for i, si in enumerate(slopes):
+        for j, sj in enumerate(slopes):
+            if i != j:
+                corr[1 + i, 1 + j] = si.intercept_corr * sj.intercept_corr
+    corr = corr.astype(np.float32)
+    eps = marginals.f32(1e-12)
+    D = torch.stack([torch.stack([taus[i] * float(corr[i, j]) * taus[j] + (eps if i == j else 0.0)
+                                  for j in range(q)], dim=-1) for i in range(q)], dim=-2)
+    return smallchol.chol(D)
 
 
 # ---------------------------------------------------------------------------
@@ -470,18 +500,47 @@ def unit_residuals(spec: SimSpec, draws: Draws, resid_code) -> torch.Tensor:
     return out
 
 
-def re_draws(spec: SimSpec, draws: Draws) -> torch.Tensor:
-    """Unit-variance random-intercept draws ``(sims, clusters)`` under the
-    scenario's RE distribution, as the reference's ``_re_draw`` (:391):
-    CLUSTER column 0, or the standardized t(df) of columns 0..round(df),
-    scaled by sqrt((df - 2) / df)."""
-    z = draws.normals(rng.CLASS_CLUSTER, 0)
+def re_draws(spec: SimSpec, draws: Draws, comp: int = 0) -> torch.Tensor:
+    """Unit-variance draws ``(sims, clusters)`` of random-effect component
+    ``comp`` (0 the intercept, 1 + k slope k) under the scenario's RE
+    distribution, as the reference's ``_re_draw`` (:391) at column base
+    ``comp * RE_COLUMNS``: CLUSTER column base, or the standardized t(df) of
+    columns base..base + round(df), scaled by sqrt((df - 2) / df)."""
+    base = comp * RE_COLUMNS
+    z = draws.normals(rng.CLASS_CLUSTER, base)
     planes = heavy_re_planes(spec)
     if not planes:
         return z
     df, _ = _df(spec.scenario.random_effect_df)
-    chi2 = _chi2([draws.normals(rng.CLASS_CLUSTER, 1 + s) for s in range(planes)])
+    chi2 = _chi2([draws.normals(rng.CLASS_CLUSTER, base + 1 + s) for s in range(planes)])
     return _t_scaled(z, chi2, df) * marginals.f32(np.sqrt((df - 2.0) / df))
+
+
+def re_contribution(spec: SimSpec, draws: Draws, X: torch.Tensor, tau2_eff,
+                    ids: torch.Tensor) -> torch.Tensor:
+    """The random-effect value of each row ``(sims, max_n)``, as the
+    reference's ``_cluster_re_contribution`` (:441-459) for the primary
+    grouping: the component draws ``z (sims, clusters, q)``, ``u = z @ L^T``
+    with L = :func:`re_chol` (per sim under ICC noise, which scales the
+    intercept alone), then ``u[ids, 0] + sum_k u[ids, 1 + k] X[:, col_k]``.
+    ``z @ L^T`` is written out in f32 multiply-adds over L's lower triangle,
+    in column order, so that the CPU and the card agree; with no slope it is
+    the intercept draw times its scale."""
+    slopes = spec.cluster.slopes
+    q = 1 + len(slopes)
+    L = re_chol(tau2_eff, slopes)
+    if L.dim() == 3:  # per sim: (sims, 1, q, q) against (sims, clusters)
+        L = L[:, None]
+    z = [re_draws(spec, draws, comp) for comp in range(q)]
+    idx = ids.long()
+    u_re = None
+    for i in range(q):
+        ui = z[0] * L[..., i, 0]
+        for k in range(1, i + 1):
+            ui = ui + z[k] * L[..., i, k]
+        term = ui[:, idx]
+        u_re = term if i == 0 else u_re + term * X[..., slopes[i - 1].design_col]
+    return u_re
 
 
 def beta_jitter(spec: SimSpec, beta: torch.Tensor, draws: Draws) -> torch.Tensor:
@@ -672,9 +731,7 @@ def generate_from_draws(spec: SimSpec, arr: Dict[str, torch.Tensor], draws: Draw
 
     ids = cluster_ids(spec, device)
     if spec.cluster is not None:
-        scale = re_chol_intercept(tau2_eff)
-        u = re_draws(spec, draws) * (scale[:, None] if torch.is_tensor(scale) else scale)
-        eta = lp + u[:, ids.long()]
+        eta = lp + re_contribution(spec, draws, X, tau2_eff, ids)
     else:
         eta = lp
     one, zero = torch.ones_like(eta), torch.zeros_like(eta)

@@ -611,7 +611,7 @@ def glmm_grid_stats(spec: SimSpec, arr: Dict[str, torch.Tensor], X: torch.Tensor
     if c is None:
         raise ValueError("a GLMM needs a cluster spec")
     if c.slopes:
-        raise NotImplementedError("not ported yet: GLMM random slopes (ROADMAP A11)")
+        raise NotImplementedError("not ported yet: GLMM random slopes (ROADMAP A11.2)")
     if c.extra_groupings:
         raise NotImplementedError("not ported yet: GLMM extra groupings (ROADMAP A12)")
     fit = list(spec.effective_fit_cols)

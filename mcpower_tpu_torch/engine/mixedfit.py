@@ -1,4 +1,5 @@
-"""Batched random-intercept LMM: profiled REML over per-cluster statistics.
+"""Batched LMM: profiled REML over per-cluster statistics, with a random
+intercept (kernel K4) or random slopes (kernel K9).
 
 For V0 = I + gamma Z Z' the REML profile deviance reduces, by per-cluster
 Woodbury, to arithmetic over the cluster row counts n_j, column sums s_j,
@@ -19,6 +20,16 @@ On the card the whole per-cell fit is kernel K4 (``csrc/reml_intercept.cu``,
 a group of lanes per (sim, grid) cell). :func:`reml_intercept_plain` is its
 plain PyTorch version, written with the sim and grid axes as batch axes and
 the reference's branch-free lane selects.
+
+With random slopes (q components, the reference's ``_slope_grid_stats``) the
+deviance is a sum of q x q per-cluster terms over K2's slope-mode
+statistics G = sum z z', A = sum z x', b = sum z y, and the search is a
+140-iteration Nelder-Mead (``optim.nelder_mead``) over theta = vech chol of
+the relative covariance, ranked on f32 twins of the statistics, then the
+f64 zero-column pin probes and the final f64 fit: kernel K9
+(``csrc/slope_reml.cu``, a warp per cell), whose plain version
+:func:`slope_reml_plain` sums in K9's order so that the two agree bit for
+bit.
 """
 
 from __future__ import annotations
@@ -26,9 +37,10 @@ from __future__ import annotations
 import ctypes
 from typing import Dict
 
+import numpy as np
 import torch
 
-from . import kernels, olsfit, smallchol, waldstats
+from . import kernels, olsfit, optim, smallchol, waldstats
 from .spec import SimSpec
 
 LOG_GAMMA_LO = -14.0
@@ -231,27 +243,347 @@ def reml_intercept(n_j, s, t, xtx, xty, yty, ns):
 
 
 # ---------------------------------------------------------------------------
+# K9: the whole random-slope REML fit per (sim, grid) cell
+# ---------------------------------------------------------------------------
+
+# The reference's search (mixedfit.py:405-407): 140 Nelder-Mead iterations
+# from the truth start with an initial step of 0.3.
+SLOPE_NM_ITERS = 140
+SLOPE_NM_STEP = 0.3
+# K9's lanes on one candidate: lane l takes clusters l, l + 8, ... in turn,
+# then the lanes combine in a pair tree (distances 4, 2, 1). The plain
+# version sums over clusters in this order.
+SLOPE_LANES = 8
+MAX_Q = 4
+# What a failed f32 evaluation ranks as: f32(1e30) widened to f64 (the
+# reference's dev_at32); a failed f64 evaluation is Python's 1e30.
+SENTINEL32 = float(np.float32(1e30))
+SENTINEL64 = 1e30
+PIN_MARGIN = 1e-10
+
+
+def vech_to_lower(theta: torch.Tensor, q: int) -> torch.Tensor:
+    """theta ``(..., q (q + 1) / 2)`` -> lower triangular ``(..., q, q)``,
+    column-major vech (the reference's ``_vech_to_lower``, :298)."""
+    L = theta.new_zeros(theta.shape[:-1] + (q, q))
+    k = 0
+    for j in range(q):
+        for i in range(j, q):
+            L[..., i, j] = theta[..., k]
+            k += 1
+    return L
+
+
+def vech_diagonal(q: int):
+    """The vech positions of the diagonal entries, in component order."""
+    out, k = [], 0
+    for j in range(q):
+        out.append(k)
+        k += q - j
+    return out
+
+
+def slope_start(spec: SimSpec):
+    """The truth start of the theta search and its bounds, on the host in
+    numpy (the reference's :364-383): ``theta0 = vech chol(D + 1e-10 I)`` of
+    the generating D (sigma^2 = 1), variances floored at 1e-4; ``lower`` 0
+    on the Cholesky diagonal (a component pins at 0), -inf elsewhere."""
+    c = spec.cluster
+    q = c.q
+    taus = np.sqrt([max(c.tau_squared, 1e-4)] + [max(s.variance, 1e-4) for s in c.slopes])
+    corr = np.eye(q)
+    for i, s in enumerate(c.slopes):
+        corr[0, 1 + i] = corr[1 + i, 0] = s.intercept_corr
+    for i, si in enumerate(c.slopes):
+        for j, sj in enumerate(c.slopes):
+            if i != j:
+                corr[1 + i, 1 + j] = si.intercept_corr * sj.intercept_corr
+    D = np.outer(taus, taus) * corr
+    L0 = np.linalg.cholesky(D + 1e-10 * np.eye(q))
+    theta0 = np.concatenate([L0[j:, j] for j in range(q)])
+    lower = np.full(theta0.shape, -np.inf)
+    lower[vech_diagonal(q)] = 0.0
+    return theta0, lower
+
+
+def _ordered_sum(terms):
+    """terms[0] + terms[1] + ..., left to right."""
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = acc + t
+    return acc
+
+
+def _cluster_lane_sum(v: torch.Tensor, axis: int) -> torch.Tensor:
+    """Sum over the cluster axis ``axis`` in K9's order: SLOPE_LANES lanes
+    each add clusters l, l + SLOPE_LANES, ... to a zero in turn, then the
+    lanes combine in a pair tree."""
+    v = v.movedim(axis, -1)
+    pad = -v.shape[-1] % SLOPE_LANES
+    if pad:
+        v = torch.nn.functional.pad(v, (0, pad))
+    v = v.reshape(*v.shape[:-1], -1, SLOPE_LANES)
+    acc = torch.zeros_like(v[..., 0, :])
+    for r in range(v.shape[-2]):
+        acc = acc + v[..., r, :]
+    half = SLOPE_LANES // 2
+    while half:
+        acc = acc[..., :half] + acc[..., half:2 * half]
+        half //= 2
+    return acc[..., 0]
+
+
+def slope_deviance(theta, G, A, b, xtx, xty, yty, n, full: bool = False):
+    """The profiled REML deviance of the q-dimensional random-effect
+    structure at ``theta (cells, k, d)`` for k candidates a cell, in the
+    dtype of the statistics (the reference's ``_reml_quantities_q``, :309,
+    in kernel K9's operation order).
+
+    Statistics ``G (cells, m, q, q)``, ``A (cells, m, q, p)``, ``b (cells,
+    m, q)``, ``xtx (cells, p, p)``, ``xty (cells, p)``, ``yty``, ``n
+    (cells,)``. Per cluster, with Lam = vech_to_lower(theta): C = I + Lam'
+    G Lam and its Cholesky, A~ = Lam' A, b~ = Lam' b, C^-1 A~ and C^-1 b~ by
+    ``smallchol`` solves, then the terms A~' C^-1 A~, A~' C^-1 b~, b~' C^-1
+    b~ and log|C|, each a sum over the q components from the first; the
+    cluster sums in K9's lane order (:func:`_cluster_lane_sum`); then X'V^-1X
+    = X'X - sum, its Cholesky, beta, rss, and dev = (log|V| + log|X'V^-1X|)
+    + (n - p) log(rss). Returns dev ``(cells, k)``, with ``full`` also beta,
+    the Cholesky of X'V^-1X and sigma^2."""
+    q, p = G.shape[-1], A.shape[-1]
+    Lam = vech_to_lower(theta, q)[:, :, None]  # (cells, k, 1, q, q)
+    G, A, b = G[:, None], A[:, None], b[:, None]  # (cells, 1, m, ...)
+
+    def lam(r, j):
+        return Lam[..., r, j]
+
+    # Lam' G (j, c) and C = I + (Lam' G) Lam, lower triangle; Lam' A, Lam' b
+    LtG = [[_ordered_sum([lam(r, j) * G[..., r, c] for r in range(j, q)]) for c in range(q)]
+           for j in range(q)]
+    zero = torch.zeros_like(LtG[0][0])
+    C = torch.stack([torch.stack([
+        (1.0 + _ordered_sum([LtG[j][r] * lam(r, k) for r in range(k, q)]) if k == j else
+         _ordered_sum([LtG[j][r] * lam(r, k) for r in range(k, q)])) if k <= j else zero
+        for k in range(q)], dim=-1) for j in range(q)], dim=-2)
+    At = torch.stack([_ordered_sum([lam(s, r)[..., None] * A[..., s, :] for s in range(r, q)])
+                      for r in range(q)], dim=-1)  # (cells, k, m, p, q)
+    bt = torch.stack([_ordered_sum([lam(s, r) * b[..., s] for s in range(r, q)])
+                      for r in range(q)], dim=-1)  # (cells, k, m, q)
+    cholC = smallchol.chol(C)
+    sol_b = smallchol.cho_solve(cholC, bt)
+    sol_A = smallchol.cho_solve(cholC[..., None, :, :], At)  # (cells, k, m, p, q)
+    cxx = _ordered_sum([At[..., :, None, r] * sol_A[..., None, :, r] for r in range(q)])
+    cxy = _ordered_sum([At[..., r] * sol_b[..., r, None] for r in range(q)])
+    cyy = _ordered_sum([bt[..., r] * sol_b[..., r] for r in range(q)])
+    cld = 2.0 * _ordered_sum([torch.log(cholC[..., r, r]) for r in range(q)])
+
+    a_xx = xtx[:, None] - _cluster_lane_sum(cxx, 2)
+    a_xy = xty[:, None] - _cluster_lane_sum(cxy, 2)
+    a_yy = yty[:, None] - _cluster_lane_sum(cyy, 2)
+    logdet_v = _cluster_lane_sum(cld, 2)
+    chol = smallchol.chol(a_xx)
+    beta = smallchol.cho_solve(chol, a_xy)
+    rss = a_yy - _ordered_sum([beta[..., a] * a_xy[..., a] for a in range(p)])
+    df = (n - torch.full((), float(p), dtype=n.dtype, device=n.device))[:, None]
+    logdet_xvx = 2.0 * _ordered_sum([torch.log(chol[..., a, a]) for a in range(p)])
+    dev = (logdet_v + logdet_xvx) + df * torch.log(rss)
+    if not full:
+        return dev
+    return dev, beta, chol, rss / df
+
+
+def slope_reml_plain(G, A, b, xtx, xty, yty, ns, theta0, lower, theta=None):
+    """Random-slope REML per (sim, grid) cell from K2's slope-mode
+    statistics (the reference's ``_slope_grid_stats.per_grid``, :385-459).
+
+    ``G (..., Gn, m, q, q)``, ``A (..., Gn, m, q, p)``, ``b (..., Gn, m,
+    q)``, ``xtx (..., Gn, p, p)``, ``xty (..., Gn, p)``, ``yty (..., Gn)``
+    f64, ``ns (Gn,)``; ``theta0``, ``lower`` ``(d,)`` f64 from
+    :func:`slope_start`. Steps: the f32 twins of the statistics (cast after
+    the prefix sum), SLOPE_NM_ITERS Nelder-Mead iterations on the f32
+    deviance (a non-finite one ranks as SENTINEL32), the f64 deviance at the
+    optimum and with each component's Cholesky column zeroed (a component
+    whose removal costs at most PIN_MARGIN is pinned and stays zeroed), the
+    final f64 fit. ``theta (..., Gn, d)`` f64, where given, replaces the
+    search's optimum (to fit at another search's theta).
+
+    Returns ``beta``, ``cov = sigma^2 (X'V^-1X)^-1``, ``converged``,
+    ``boundary`` (any component pinned), ``tau2_hat = Gamma[0, 0] sigma^2``
+    and ``pinned (..., Gn, q)`` in component order.
+    """
+    lead = yty.shape
+    q, p = G.shape[-1], A.shape[-1]
+    d = q * (q + 1) // 2
+    dev_ = yty.device
+    flat = [v.reshape((-1,) + v.shape[len(lead):]) for v in (G, A, b, xtx, xty, yty)]
+    n64 = ns.to(device=dev_, dtype=torch.float64).expand(lead).reshape(-1)
+    cells = n64.shape[0]
+    theta0 = torch.as_tensor(theta0, dtype=torch.float64, device=dev_)
+    lower = torch.as_tensor(lower, dtype=torch.float64, device=dev_)
+    if theta is None:
+        st32 = [v.to(torch.float32) for v in flat] + [n64.to(torch.float32)]
+
+        def dev32(th):
+            dv = slope_deviance(th.to(torch.float32), *st32)
+            return torch.where(torch.isfinite(dv), dv, torch.full_like(dv, SENTINEL32)).double()
+
+        theta_hat, _ = optim.nelder_mead(dev32, theta0.expand(cells, d), iters=SLOPE_NM_ITERS,
+                                         init_step=SLOPE_NM_STEP, lower=lower)
+    else:
+        theta_hat = theta.to(device=dev_, dtype=torch.float64).reshape(cells, d)
+
+    masks = torch.ones((q, d), dtype=torch.float64, device=dev_)
+    off = 0
+    for j in range(q):
+        masks[j, off:off + q - j] = 0.0
+        off += q - j
+    probes = torch.cat([theta_hat[:, None], theta_hat[:, None] * masks], dim=1)
+    dv = slope_deviance(probes, *flat, n64)
+    dv = torch.where(torch.isfinite(dv), dv, torch.full_like(dv, SENTINEL64))
+    pinned = dv[:, 1:] <= dv[:, :1] + PIN_MARGIN
+    keep = torch.ones_like(theta_hat)
+    for j in range(q):
+        keep = keep * torch.where(pinned[:, j:j + 1], masks[j], torch.ones_like(masks[j]))
+    theta_fin = theta_hat * keep
+
+    dev, beta, chol, sigma2 = (v[:, 0] for v in slope_deviance(theta_fin[:, None], *flat, n64,
+                                                                full=True))
+    cov = sigma2[:, None, None] * smallchol.cho_inverse(chol)
+    l00 = theta_fin[:, 0]
+    tau2_hat = (l00 * l00) * sigma2
+    converged = (
+        torch.isfinite(dev)
+        & torch.isfinite(beta).all(-1)
+        & (sigma2 > 0.0)
+        & smallchol.chol_rank_ok(chol)
+    )
+    shape = lambda v, *tail: v.reshape(lead + tail)  # noqa: E731
+    return (shape(beta, p), shape(cov, p, p), shape(converged), shape(pinned.any(-1)),
+            shape(tau2_hat), shape(pinned, q))
+
+
+_SLOPE_ARGS = [
+    ctypes.c_void_p,  # G (B, m, q, q) f64
+    ctypes.c_void_p,  # A (B, m, q, p)
+    ctypes.c_void_p,  # b (B, m, q)
+    ctypes.c_void_p,  # xtx (B, p, p)
+    ctypes.c_void_p,  # xty (B, p)
+    ctypes.c_void_p,  # yty (B,)
+    ctypes.c_void_p,  # ns (Gn,) f64; cell c uses ns[c % Gn]
+    ctypes.c_int,  # B
+    ctypes.c_int,  # Gn
+    ctypes.c_int,  # m
+    ctypes.c_int,  # q
+    ctypes.c_int,  # p
+    ctypes.POINTER(ctypes.c_double),  # theta0 (d,) host
+    ctypes.POINTER(ctypes.c_double),  # lower (d,) host
+    ctypes.c_int,  # Nelder-Mead iterations
+    ctypes.c_double,  # initial step
+    ctypes.c_double,  # eps_rank
+    ctypes.c_void_p,  # beta out (B, p)
+    ctypes.c_void_p,  # cov out (B, p, p)
+    ctypes.c_void_p,  # tau2_hat out (B,)
+    ctypes.c_void_p,  # flags out (B,) uint8: bit0 converged, bit1 boundary
+    ctypes.c_void_p,  # pinned out (B, q) uint8
+    ctypes.c_void_p,  # cudaStream_t
+]
+
+
+def slope_reml_staged(m: int, q: int, p: int) -> bool:
+    """Whether K9 keeps a cell's f32 twins of G, A and b in shared memory
+    (its staged path) or casts them from device memory at every f32
+    evaluation (its streamed path, for cells of many clusters); asks the
+    kernel's library, so it builds K9 on first use."""
+    fn = kernels.KERNELS["slope_reml"].fn("mcp_slope_reml_staged", [ctypes.c_int] * 3)
+    got = fn(m, q, p)
+    if got < 0:
+        raise ValueError(f"slope_reml: no instantiation for q = {q}")
+    return bool(got)
+
+
+def slope_reml_kernel(G, A, b, xtx, xty, yty, ns, theta0, lower):
+    """Kernel K9: :func:`slope_reml_plain` on the card, one warp a (sim,
+    grid) cell."""
+    q, p, m, Gn = G.shape[-1], xtx.shape[-1], G.shape[-3], xtx.shape[-3]
+    if not 2 <= q <= MAX_Q or not 1 <= p <= MAX_P:
+        raise ValueError(f"slope_reml kernel takes 2 <= q <= {MAX_Q} and 1 <= p <= {MAX_P}, "
+                         f"got q {q}, p {p}")
+    lead = yty.shape
+    G, A, b, xtx, xty, yty, ns = (
+        v.to(torch.float64).contiguous() for v in (G, A, b, xtx, xty, yty, ns)
+    )
+    if (G.shape != lead + (m, q, q) or A.shape != lead + (m, q, p) or b.shape != lead + (m, q)
+            or xtx.shape != lead + (p, p) or xty.shape != lead + (p,) or ns.shape != (Gn,)):
+        raise ValueError("slope_reml: inconsistent shapes")
+    d = q * (q + 1) // 2
+    theta0 = np.asarray(theta0, dtype=np.float64).reshape(d)
+    lower = np.asarray(lower, dtype=np.float64).reshape(d)
+    B = yty.numel()
+    kw = dict(dtype=torch.float64, device=xtx.device)
+    beta = torch.empty(lead + (p,), **kw)
+    cov = torch.empty(lead + (p, p), **kw)
+    tau2 = torch.empty(lead, **kw)
+    flags = torch.empty(lead, dtype=torch.uint8, device=xtx.device)
+    pinned = torch.empty(lead + (q,), dtype=torch.uint8, device=xtx.device)
+    kernels.require_cuda("slope_reml", G, A, b, xtx, xty, yty, ns, beta, cov, tau2, flags, pinned)
+    if B:
+        k = kernels.KERNELS["slope_reml"]
+        fn = k.fn("mcp_slope_reml", _SLOPE_ARGS)
+        k.check(
+            fn(
+                kernels.ptr(G), kernels.ptr(A), kernels.ptr(b), kernels.ptr(xtx),
+                kernels.ptr(xty), kernels.ptr(yty), kernels.ptr(ns), B, Gn, m, q, p,
+                (ctypes.c_double * d)(*theta0), (ctypes.c_double * d)(*lower),
+                SLOPE_NM_ITERS, SLOPE_NM_STEP, smallchol.EPS_RANK,
+                kernels.ptr(beta), kernels.ptr(cov), kernels.ptr(tau2), kernels.ptr(flags),
+                kernels.ptr(pinned), kernels.stream_of(xtx),
+            )
+        )
+    return beta, cov, (flags & 1).bool(), (flags & 2).bool(), tau2, pinned.bool()
+
+
+def slope_reml(G, A, b, xtx, xty, yty, ns, theta0, lower):
+    """K9 for CUDA tensors, the plain version for CPU tensors."""
+    if xtx.is_cuda:
+        return slope_reml_kernel(G, A, b, xtx, xty, yty, ns, theta0, lower)
+    if xtx.device.type != "cpu":
+        raise ValueError(f"slope_reml: no kernel for device {xtx.device}")
+    return slope_reml_plain(G, A, b, xtx, xty, yty, ns, theta0, lower)
+
+
+# ---------------------------------------------------------------------------
 # The arm
 # ---------------------------------------------------------------------------
 
 
 def mixed_grid_stats(spec: SimSpec, X: torch.Tensor, y: torch.Tensor, *,
                      plain: bool = False) -> Dict[str, torch.Tensor]:
-    """All random-intercept LMM statistics for a batch of sims across the
-    grid (the intercept branch of the reference's ``mixed_grid_stats``).
+    """All LMM statistics for a batch of sims across the grid: the
+    random-intercept branch of the reference's ``mixed_grid_stats`` (K2 and
+    K4) or, with random slopes, its slope branch (K2's slope mode and K9;
+    ``pinned_comp`` is then per component).
 
-    ``plain=True`` runs the plain PyTorch versions of K2 and K4 on any
+    ``plain=True`` runs the plain PyTorch versions of the kernels on any
     device (used to time and check the kernels against them).
     """
     c = spec.cluster
     if c is None:
         raise ValueError("mle estimator requires a cluster spec")
-    if c.slopes or c.extra_groupings:
-        raise NotImplementedError("not ported yet: random slopes and extra groupings (ROADMAP A11, A12)")
+    if c.extra_groupings:
+        raise NotImplementedError("not ported yet: extra groupings (ROADMAP A12)")
+    ns = torch.as_tensor(spec.grid, dtype=torch.float64, device=X.device)
+    if c.slopes:  # the q-dimensional theta search, kernel K9
+        suff = (olsfit.grid_suffstats_plain if plain else olsfit.grid_suffstats)(
+            spec, X, y, with_slopes=True
+        )
+        theta0, lower = slope_start(spec)
+        beta, cov, converged, boundary, tau2_hat, pinned = (
+            slope_reml_plain if plain else slope_reml
+        )(suff["G"], suff["A"], suff["b"], suff["xtx"], suff["xty"], suff["yty"], ns, theta0,
+          lower)
+        return _assemble_outputs(spec, beta, cov, converged, boundary, tau2_hat, pinned)
     suff = (olsfit.grid_suffstats_plain if plain else olsfit.grid_suffstats)(
         spec, X, y, with_clusters=True
     )
-    ns = torch.as_tensor(spec.grid, dtype=torch.float64, device=X.device)
     beta, cov, converged, boundary, tau2_hat, boundary_hi = (
         reml_intercept_plain if plain else reml_intercept
     )(suff["n_j"], suff["s"], suff["t"], suff["xtx"], suff["xty"], suff["yty"], ns)

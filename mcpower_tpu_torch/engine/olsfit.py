@@ -5,8 +5,9 @@ point-(g-1) statistics plus one row segment's contribution. Two kernels
 carry the arm on the card:
 
 * K2 ``grid_suffstats`` (``csrc/grid_suffstats.cu``): per-segment sums in
-  f64 from the f32 design, the per-cluster n_j, s_j, t_j for the mixed arm,
-  and the cumulative sum over the grid;
+  f64 from the f32 design, the per-cluster n_j, s_j, t_j for the mixed arm
+  (and, in its slope mode, the per-cluster Z moments G, A, b of the
+  random-slope fit), and the cumulative sum over the grid;
 * K3 ``ols_solve`` (``csrc/ols_solve.cu``): per (sim, grid) cell the
   Cholesky solve, inverse, rss, sigma^2, Wald covariance, overall F and the
   pivot-ratio convergence flag.
@@ -43,20 +44,42 @@ def _layout_args(spec: SimSpec, with_clusters: bool):
     return m, int(c.sizing_mode == "fixed_clusters"), max(int(c.sizing_value), 1)
 
 
+def slope_cols(spec: SimSpec):
+    """The design columns of the primary grouping's random slopes (indices
+    of X, not of the fit columns), in component order."""
+    c = spec.cluster
+    return [s.design_col for s in c.slopes] if c is not None else []
+
+
 def grid_suffstats_plain(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
-                         with_clusters: bool = False) -> Dict[str, torch.Tensor]:
+                         with_clusters: bool = False, with_slopes: bool = False
+                         ) -> Dict[str, torch.Tensor]:
     """Prefix sufficient statistics per grid point for a batch of sims.
 
     ``X (sims, max_n, P) f32``, ``y (sims, max_n) f32``. Returns f64
     ``xtx (sims, G, p, p)``, ``xty (sims, G, p)``, ``yty``, ``ysum (sims,
     G)`` over the fit columns, and with ``with_clusters`` also ``n_j (sims,
-    G, m)``, ``s (sims, G, m, p)``, ``t (sims, G, m)``.
+    G, m)``, ``s (sims, G, m, p)``, ``t (sims, G, m)``. ``with_slopes`` (a
+    spec with random slopes) adds the reference's ``_slope_cluster_suffstats``
+    (:263) with the random-effect design Z = [1, X[:, slope_cols]] of q
+    columns: ``G = sum z z' (sims, G, m, q, q)``, ``A = sum z x' (sims, G,
+    m, q, p)`` and ``b = sum z y (sims, G, m, q)``; their first row is n_j,
+    s and t.
     """
     fit = list(spec.effective_fit_cols)
     Xf = X[..., fit].to(torch.float64)
     yf = y.to(torch.float64)
-    m = _layout_args(spec, with_clusters)[0]
-    segs = {k: [] for k in ("xtx", "xty", "yty", "ysum", "n_j", "s", "t")}
+    m = _layout_args(spec, with_clusters or with_slopes)[0]
+    Zf = None
+    if with_slopes:
+        Zf = torch.cat([torch.ones_like(yf)[..., None], X[..., slope_cols(spec)].to(torch.float64)],
+                       dim=-1)
+    segs = {k: [] for k in ("xtx", "xty", "yty", "ysum", "n_j", "s", "t", "G", "A", "b")}
+
+    def seg(v, prev):  # (sims, rows, ...) -> (sims, m, ...)
+        moved = v.movedim(1, -1)
+        return clusterops.seg_segment(spec, moved, prev, m).movedim(-1, 1)
+
     prev = 0
     for n in spec.grid:
         Xs = Xf[:, prev:n]
@@ -65,13 +88,18 @@ def grid_suffstats_plain(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
         segs["xty"].append(torch.einsum("bnp,bn->bp", Xs, ys))
         segs["yty"].append((ys * ys).sum(-1))
         segs["ysum"].append(ys.sum(-1))
-        if with_clusters:
+        if with_clusters or with_slopes:
             ones = torch.ones_like(ys)
             segs["n_j"].append(clusterops.seg_segment(spec, ones, prev, m))
             segs["s"].append(
                 clusterops.seg_segment(spec, Xs.transpose(-1, -2), prev, m).transpose(-1, -2)
             )
             segs["t"].append(clusterops.seg_segment(spec, ys, prev, m))
+        if with_slopes:
+            Zs = Zf[:, prev:n]
+            segs["G"].append(seg(Zs[..., :, None] * Zs[..., None, :], prev))
+            segs["A"].append(seg(Zs[..., :, None] * Xs[..., None, :], prev))
+            segs["b"].append(seg(Zs * ys[..., None], prev))
         prev = n
     return {k: torch.cumsum(torch.stack(v, dim=1), dim=1) for k, v in segs.items() if v}
 
@@ -97,12 +125,19 @@ _SUFF_ARGS = [
     ctypes.c_void_p,  # n_j out (sims, G, m) or null
     ctypes.c_void_p,  # s out (sims, G, m, pf) or null
     ctypes.c_void_p,  # t out (sims, G, m) or null
+    ctypes.POINTER(ctypes.c_int),  # slope columns of X (host), or null
+    ctypes.c_int,  # slope columns, qs = q - 1 (0: no slope statistics)
+    ctypes.c_void_p,  # G out (sims, G, m, q, q) or null
+    ctypes.c_void_p,  # A out (sims, G, m, q, pf) or null
+    ctypes.c_void_p,  # b out (sims, G, m, q) or null
     ctypes.c_void_p,  # cudaStream_t
 ]
+MAX_SLOPES = 3  # K2's slope mode: q <= 4
 
 
 def grid_suffstats_kernel(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
-                          with_clusters: bool = False) -> Dict[str, torch.Tensor]:
+                          with_clusters: bool = False, with_slopes: bool = False
+                          ) -> Dict[str, torch.Tensor]:
     """Kernel K2: :func:`grid_suffstats_plain` on the card."""
     fit = list(spec.effective_fit_cols)
     pf, G = len(fit), spec.n_grid
@@ -113,7 +148,12 @@ def grid_suffstats_kernel(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
     sims, max_n, P = X.shape
     if max_n != spec.max_n or y.shape != (sims, max_n):
         raise ValueError(f"grid_suffstats: X {tuple(X.shape)}, y {tuple(y.shape)} for max_n {spec.max_n}")
-    m, rr, period = _layout_args(spec, with_clusters)
+    zcols = slope_cols(spec) if with_slopes else []
+    if with_slopes and not 0 < len(zcols) <= MAX_SLOPES:
+        raise ValueError(f"grid_suffstats kernel takes 1..{MAX_SLOPES} slopes, got {len(zcols)}")
+    clusters = with_clusters or with_slopes
+    m, rr, period = _layout_args(spec, clusters)
+    q = 1 + len(zcols)
     kw = dict(dtype=torch.float64, device=X.device)
     out = {
         "xtx": torch.empty((sims, G, pf, pf), **kw),
@@ -121,15 +161,23 @@ def grid_suffstats_kernel(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
         "yty": torch.empty((sims, G), **kw),
         "ysum": torch.empty((sims, G), **kw),
     }
-    if with_clusters:
+    if clusters:
         out["n_j"] = torch.empty((sims, G, m), **kw)
         out["s"] = torch.empty((sims, G, m, pf), **kw)
         out["t"] = torch.empty((sims, G, m), **kw)
+    if with_slopes:
+        out["G"] = torch.empty((sims, G, m, q, q), **kw)
+        out["A"] = torch.empty((sims, G, m, q, pf), **kw)
+        out["b"] = torch.empty((sims, G, m, q), **kw)
     grid_t = torch.tensor(spec.grid, dtype=torch.int32, device=X.device)
     kernels.require_cuda("grid_suffstats", X, y, grid_t, *out.values())
     if sims == 0:
         return out
     null = ctypes.c_void_p(0)
+
+    def opt(key):
+        return kernels.ptr(out[key]) if key in out else null
+
     k = kernels.KERNELS["grid_suffstats"]
     fn = k.fn("mcp_grid_suffstats", _SUFF_ARGS)
     k.check(
@@ -139,9 +187,8 @@ def grid_suffstats_kernel(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
             m, rr, period,
             kernels.ptr(out["xtx"]), kernels.ptr(out["xty"]),
             kernels.ptr(out["yty"]), kernels.ptr(out["ysum"]),
-            kernels.ptr(out["n_j"]) if with_clusters else null,
-            kernels.ptr(out["s"]) if with_clusters else null,
-            kernels.ptr(out["t"]) if with_clusters else null,
+            opt("n_j"), opt("s"), opt("t"),
+            (ctypes.c_int * max(len(zcols), 1))(*zcols), len(zcols), opt("G"), opt("A"), opt("b"),
             kernels.stream_of(X),
         )
     )
@@ -149,13 +196,15 @@ def grid_suffstats_kernel(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
 
 
 def grid_suffstats(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
-                   with_clusters: bool = False) -> Dict[str, torch.Tensor]:
+                   with_clusters: bool = False, with_slopes: bool = False
+                   ) -> Dict[str, torch.Tensor]:
     """K2 for CUDA tensors, the plain version for CPU tensors."""
     if X.is_cuda:
-        return grid_suffstats_kernel(spec, X.contiguous(), y.contiguous(), with_clusters)
+        return grid_suffstats_kernel(spec, X.contiguous(), y.contiguous(), with_clusters,
+                                     with_slopes)
     if X.device.type != "cpu":
         raise ValueError(f"grid_suffstats: no kernel for device {X.device}")
-    return grid_suffstats_plain(spec, X, y, with_clusters)
+    return grid_suffstats_plain(spec, X, y, with_clusters, with_slopes)
 
 
 # ---------------------------------------------------------------------------

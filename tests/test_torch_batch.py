@@ -116,9 +116,12 @@ def _lmm(**cluster):
 # here they are 16-level factors, too wide for the fit kernels (p = 18).
 # Scenario knobs, skewed residuals and marginals run too
 # (tests/test_torch_scenarios.py); here each sits on a design that still
-# raises: a GLMM with random slopes or extra groupings, random slopes, extra
-# groupings, uploaded data, p = 19. Random-intercept GLMMs run
-# (tests/test_torch_glmm.py) within kernel K7's limits on nodes and clusters.
+# raises: a GLMM with random slopes or extra groupings, more random slopes
+# than kernel K9 takes (q = 5), extra groupings, uploaded data, p = 19.
+# Random-intercept GLMMs run (tests/test_torch_glmm.py) within kernel K7's
+# limits on nodes and clusters; LMMs with up to three random slopes run
+# (tests/test_torch_slopes_fit.py).
+_SLOPES_Q5 = tuple(SlopeStatic(1 + k % 2, 0.1, 0.0) for k in range(4))
 _GLMM = dict(outcome="binary", estimator="glm")
 UNSUPPORTED = {
     "glm": dict(outcome="continuous", estimator="glm"),
@@ -127,7 +130,7 @@ UNSUPPORTED = {
     "glmm_nodes": dict(_GLMM, cluster=ClusterStatic("fixed_clusters", 20, 0.25), nagq=27),
     "glmm_clusters": dict(_GLMM, grid=[2050],
                           cluster=ClusterStatic("fixed_clusters", 1025, 0.25)),
-    "slopes": _lmm(slopes=(SlopeStatic(1, 0.1, 0.0),)),
+    "slopes": _lmm(slopes=_SLOPES_Q5),
     "extra_groupings": _lmm(extra_groupings=(ExtraGroupingStatic("crossed", 10, 0.15),)),
     "factors": dict(factor_levels=[16], effects=np.zeros(18)),
     "posthoc": dict(factor_levels=[16], effects=np.zeros(18),
@@ -135,7 +138,7 @@ UNSUPPORTED = {
     "heterogeneity": dict(_GLMM, cluster=ClusterStatic(
         "fixed_clusters", 20, 0.25, extra_groupings=(ExtraGroupingStatic("crossed", 10, 0.15),)),
         scenario=ScenarioStatic(heterogeneity=0.2)),
-    "heteroskedasticity": dict(_lmm(slopes=(SlopeStatic(1, 0.1, 0.0),)),
+    "heteroskedasticity": dict(_lmm(slopes=_SLOPES_Q5),
                                scenario=ScenarioStatic(heteroskedasticity_ratio=2.0)),
     "scenario_swaps": dict(_lmm(extra_groupings=(ExtraGroupingStatic("crossed", 10, 0.15),)),
                            scenario=ScenarioStatic(distribution_change_prob=0.5)),

@@ -119,7 +119,7 @@ def test_cluster_ids_and_intercept_scale_match_the_reference(mode, value, n):
     )
     for tau2 in (0.0, 0.25, 0.3, 4.0):
         want = np.asarray(ref_datagen._re_chol(jnp.float32(tau2), ()))
-        assert np.float32(datagen.re_chol_intercept(tau2)) == want.reshape(())
+        assert datagen.re_chol(tau2, ()).item() == want.item()
     assert datagen.stream_plan(spec) == [
         (rng.CLASS_XNORM, 0, n), (rng.CLASS_CLUSTER, 0, spec.cluster.n_clusters_at(n)),
         (rng.CLASS_RESID, 0, n),

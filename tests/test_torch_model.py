@@ -100,7 +100,7 @@ def test_scenarios_raise_before_any_run(runs):
 @pytest.mark.parametrize("formula,family,types,item", [
     ("y ~ x1 + g", "logit", "g=(factor,16)", "B10"),
     ("y ~ x1 + g", "ols", "g=(factor,16)", "B10"),
-    ("y ~ x1 + x2 + (1 + x1|cluster)", "lme", "x2=right_skewed", "A11"),
+    ("y ~ x1 + x2 + (1 + x1|cluster)", "logit", "x2=right_skewed", "A11.2"),
 ])
 def test_designs_outside_the_port_raise_before_any_run(runs, formula, family, types, item):
     m = MCPower(formula, family=family)

@@ -239,7 +239,7 @@ def test_heavy_tailed_intercept_against_the_reference(scenario):
     assert datagen.heavy_re_planes(ps) == planes
     draws = _draws(ps, 8)
     _, _, _, tau2 = datagen.design_draw(ps, datagen.to_device(pa, "cpu"), draws, 8, "cpu")
-    got = (datagen.re_draws(ps, draws) * datagen.re_chol_intercept(tau2)[:, None]).numpy()
+    got = (datagen.re_draws(ps, draws) * datagen.re_chol(tau2, ())[:, 0]).numpy()
     want = []
     for s in range(8):
         tau2_ref = ref_datagen._design_draw(rs, ra, _key(s))[3]
