@@ -11,11 +11,12 @@ Run from the repository root with no arguments:
 Phases, each fatal on failure (exit code != 0, no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build kernels K1-K4 and K6-K9 from ``mcpower_tpu_torch/csrc`` (one nvcc
+2. build kernels K1-K4 and K6-K10 from ``mcpower_tpu_torch/csrc`` (one nvcc
    per source, all started together) and print their register and spill
    use, per instantiation (of p for K2-K4 and K6, K2's slope mode on a line
    of its own, of p = 1..4 and the p <= 8 and p <= 16 buckets for K7, of q =
-   2..4 and p = 2, 3, 4 and the p <= 8 and p <= 16 buckets for K9, of mode
+   2..4 and p = 2, 3, 4 and the p <= 8 and p <= 16 buckets for K9 and K10
+   (K10's pass function, not inlined, by q, p and type beside it), of mode
    and store width for K1), the static
    SASS instruction count of K1 and K3
    (``cuobjdump``), K6's launch geometry and resident blocks per SM at
@@ -56,7 +57,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    2's power and sample-size flows, ``benchmarks/throughput.py``'s
    lmm_slopes at 10,000 sims and lmm_multislope, and off the path a null
    slope, q = 4, q = 4 at p = 16 and 1,024 clusters on K9's streamed path),
-   every output bit-identical (flags, pins, beta, cov, tau^2);
+   every output bit-identical (flags, pins, beta, cov, tau^2); K10 at every
+   case of ``K10_CHECKS`` (``benchmarks/throughput.py``'s glmm_slopes, a
+   launch of the slope-GLMM flow, and off the path q = 3, q = 4 at p = 16,
+   probit, Poisson, the FD Hessian, blocked clusters and 300 clusters),
+   every output bit-identical (flags, pins, beta, cov, tau^2, ybar, theta);
 4. drive the main path through ``lower`` and ``run_batch(device="cuda")``:
    the 10,000-replicate random-intercept LMM headline (base seed 2137), the
    OLS arm, the 8-point power curve and the GLM arm (logit, Bonferroni),
@@ -72,7 +77,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    counts against the reference's; then the random-slope arm
    (``SLOPE_DESIGNS``: lmm_slopes, 10,000 sims in one chunk through K1, K2's
    slope mode and K9, each once) and its 1,024-sim counts against the
-   reference's (pin counts within ``SLOPE_PIN_FLIPS``);
+   reference's (pin counts within ``SLOPE_PIN_FLIPS``); then the
+   slope-GLMM arm (``SLOPE_GLMM_DESIGNS``: glmm_slopes, 4,000 sims in one
+   chunk through K1 twice and K10 once), its 1,024-sim counts against the
+   reference's (pins within ``SLOPE_GLMM_PIN_FLIPS``, tau^2 within
+   ``SLOPE_GLMM_TAU2_REL``) and against the plain path's on the card, equal;
 5. time each kernel (K1 and K2 at the LMM, OLS and curve arms' shapes, K1
    also at the realistic LMM's long and short normal fills, K3
    at the OLS and curve shapes and at a launch of the README model's
@@ -81,7 +90,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    flow, K8 at a launch of the Poisson flow, K7 at the GLMM arms' cells and
    at a launch of README flow 3's power and sample-size flows, K9 at a
    launch of README flow 2 and at the lmm_slopes and lmm_multislope cells,
-   K2's slope mode at the lmm_slopes rows and a README flow 2 launch's) on
+   K2's slope mode at the lmm_slopes rows and a README flow 2 launch's, K10
+   at a launch of the slope-GLMM flow and at the glmm_slopes cells) on
    the device, from
    torch.profiler's kernel events, and per call through its wrapper (CUDA
    events, launch overhead included), each call on inputs that are not in
@@ -97,7 +107,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    launch of their own; then each arm's wall (the GLMM and slope arms' too),
    and a profile of each arm (wall median of 7 calls, busy share, largest
    device items);
-6. drive the twenty-two user flows of ``MODEL_FLOWS`` through
+6. drive the twenty-five user flows of ``MODEL_FLOWS`` through
    ``mcpower_tpu_torch.MCPower`` on the card (the random-intercept LMM's
    and the OLS model's ``find_power`` and ``find_sample_size``, the logit
    model's ``find_power`` and ``find_sample_size``, the Poisson model's
@@ -111,19 +121,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
    each launching K7 once a chunk; README flow 2's random-slope LMM
    ``find_power(600)`` as written, its ``find_sample_size(from_size=300,
    to_size=900)`` and ``scenarios=True``, each launching K2 and K9 once a
-   chunk; 10,000 sims, base seed
+   chunk; README flow 3's model with a random slope on dose:
+   ``find_power(480)``, ``find_sample_size(from_size=240, to_size=720)``
+   and ``scenarios=True``, each launching K10 once a chunk; 10,000 sims, base seed
    2137), each with every launch count set to 0 before it and read after
    (the logit factor flow must launch K6 twice a chunk, the second the
    fallback's; K1 as often a chunk as each scenario's fill plan says); check
    1,024-sim results against
    golden values of the JAX reference's ``MCPower`` (at most one flip per
-   count) and their result trees against the plain path's on the CPU;
+   count) and their result trees at TREE_SIMS (256) sims against the plain
+   path's on the CPU (the slope-GLMM flows' against the plain path's on
+   the card, K10's plain version in K10's place: on the CPU it would take
+   minutes);
    print each flow's wall median (range) of 7 calls, the split into
    projection, lowering, runner (run_batch inside it) and packaging, the
    chunk count, the busy share and the same design's one-chunk
    ``run_batch`` wall (per scenario);
 7. print the ``kernels`` JSON line (launches on each kernel's path: the
    arms' for K1-K4 and K6, the GLMM arms' for K7, the slope arm's for K9,
+   the slope-GLMM arm's for K10,
    the Poisson flow's for K8; and by arm and by
    flow, with K6's fallback launches by flow and K1's launches a chunk of
    each flow's scenarios), then as the last line
@@ -149,6 +165,10 @@ import numpy as np
 
 N_SIMS = 10_000
 GOLDEN_SIMS = 1_024
+# Sims of each flow's whole result tree held against the plain path's
+# (phase 6): at GOLDEN_SIMS the CPU's plain runs of the GLMM and slope flows
+# took ~3 minutes of the script's 1,200 s.
+TREE_SIMS = 256
 SEED = 2137
 
 _CORR5 = (np.full((5, 5), 0.2) + 0.8 * np.eye(5)).tolist()
@@ -611,6 +631,53 @@ K9_STREAMED = ("slopes_m1024",)
 # K2's slope mode against its plain version: p = 3, q = 2 and p = 16, q = 4.
 K2_SLOPE_CHECKS = ("lmm_slopes", "slopes_p16")
 
+# The GLMM with random slopes (kernel K10). The arm: benchmarks/
+# throughput.py's glmm_slopes (:140-145), its base design (:91-97) with
+# cl_slopes (:133-138): logit, effects -0.3 / 0.3 / 0.2, N 200, 20 clusters,
+# a slope on x1 (variance 0.2, corr 0.3), q = 2, p = 3, driven as one chunk
+# of its N_SIMS (4,000) sims in phase 4. K10's cases (phase 3), each held
+# against glmmfit.glmm_slope_plain bit for bit on the same generated rows:
+# the arm's design, a launch of the slope GLMM flow (N_SIMS / 8 sims, N 480,
+# 24 clusters, p 2, lowered by the flow), and off the path q = 3 (slopes on
+# x1 and x2), q = 4 at p = 16 (the widest bucket), probit, Poisson (its
+# counts through K8), the FD Hessian, blocked clusters on a two-point grid
+# and 300 clusters of eight rows (clusters l, l + 32, ... on a lane, many
+# times round). K10 keeps its per-cluster state in device scratch, so it
+# has no streamed path apart.
+SLOPE_GLMM_SIMS = 4_000
+_SLOPE_GLMM = dict(_GLMM_BASE, cluster=dict(_GLMM_BASE["cluster"], slopes=[_SLOPE]))
+SLOPE_GLMM_DESIGNS = {"glmm_slopes": _SLOPE_GLMM}
+_SLOPE2 = dict(design_col=2, variance=0.1, intercept_corr=0.1)
+K10_DESIGNS = {
+    "glmm_slopes_q3": dict(_SLOPE_GLMM, cluster=dict(_SLOPE_GLMM["cluster"],
+                                                     slopes=[_SLOPE, _SLOPE2])),
+    "glmm_slopes_q4_p16": dict(grid=[240], var_types=["normal"] * 15,
+                               effects=[-0.3] + [0.05] * 15, target_cols=list(range(1, 16)),
+                               outcome="binary", estimator="glm",
+                               cluster=dict(sizing_mode="fixed_clusters", sizing_value=24,
+                                            tau_squared=0.25, slopes=_SLOPE_Q4)),
+    "glmm_slopes_probit": dict(_SLOPE_GLMM, link="probit", effects=[-0.2, 0.3, 0.2]),
+    "glmm_slopes_poisson": dict(_SLOPE_GLMM, outcome="count", effects=[0.5, 0.2, 0.1],
+                                cluster=dict(_SLOPE_GLMM["cluster"], tau_squared=0.2,
+                                             slopes=[dict(_SLOPE, variance=0.1)])),
+    "glmm_slopes_hessian": dict(_SLOPE_GLMM, wald_se="hessian"),
+    "glmm_slopes_blocked": dict(_SLOPE_GLMM, grid=[100, 200],
+                                cluster=dict(sizing_mode="fixed_size", sizing_value=10,
+                                             tau_squared=0.25, slopes=[_SLOPE])),
+    "glmm_slopes_m300": dict(_SLOPE_GLMM, grid=[2400],
+                             cluster=dict(sizing_mode="fixed_clusters", sizing_value=300,
+                                          tau_squared=0.25, slopes=[_SLOPE])),
+}
+# Cases lowered by a flow of the slope GLMM: (flow, sims).
+K10_FLOW_CASES = {"glmm_slopes_flow_launch": ("model_glmm_slopes_power", N_SIMS // 8)}
+# Sims of each case: the plain version runs many small operations a pass,
+# so its windows stay small.
+K10_CHECKS = {
+    "glmm_slopes": 512, "glmm_slopes_flow_launch": N_SIMS // 8, "glmm_slopes_q3": 128,
+    "glmm_slopes_q4_p16": 16, "glmm_slopes_probit": 128, "glmm_slopes_poisson": 128,
+    "glmm_slopes_hessian": 64, "glmm_slopes_blocked": 64, "glmm_slopes_m300": 16,
+}
+
 
 def k7_args(spec, arr, X, y):
     """K7's arguments for a lowered GLMM design and its generated rows (the
@@ -637,6 +704,36 @@ def k9_args(spec, suff):
     theta0, lower_ = mixedfit.slope_start(spec)
     return (suff["G"], suff["A"], suff["b"], suff["xtx"], suff["xty"], suff["yty"], ns, theta0,
             lower_)
+
+
+def k10_args(spec, arr, X, y):
+    """K10's arguments for a lowered slope-GLMM design and its generated
+    rows (the order glmmfit.glmm_grid_stats passes them)."""
+    import torch
+
+    from mcpower_tpu_torch.engine import glmfit, glmmfit, mixedfit
+
+    fit = list(spec.effective_fit_cols)
+    beta0 = (arr["effects"].to(torch.float64)[fit] if spec.scenario.truth_start
+             else torch.zeros(len(fit), dtype=torch.float64, device=X.device))
+    theta0, lower_ = mixedfit.slope_start(spec)
+    return (glmfit.link_code(spec.outcome, spec.link), X, y, fit,
+            [s.design_col for s in spec.cluster.slopes], list(spec.grid), glmmfit.layout_of(spec),
+            beta0, theta0, lower_, spec.wald_se == "hessian")
+
+
+@contextmanager
+def k10_plain():
+    """Inside the block, K10's wrapper runs its plain version (on the
+    card): the plain path of a slope-GLMM flow, its other kernels kept."""
+    from mcpower_tpu_torch.engine import glmmfit
+
+    real = glmmfit.glmm_slope_kernel
+    glmmfit.glmm_slope_kernel = glmmfit.glmm_slope_plain
+    try:
+        yield
+    finally:
+        glmmfit.glmm_slope_kernel = real
 
 
 def k7_is_pr10(k) -> bool:
@@ -804,6 +901,13 @@ GOLDEN = {
         "pinned_comp": [[1, 40]], "sig_corr": [[665, 721]], "sig_unc": [[665, 721]],
         "tau2_hat": [254.48892835600924], "n_done": 1024,
     },
+    "glmm_slopes": {
+        "boundary_hit": [585], "converged": [1024], "glm_baseline": [443.66499999999996],
+        "joint_corr": [58], "joint_unc": [58], "nsig_hist_corr": [[516, 450, 58]],
+        "nsig_hist_unc": [[516, 450, 58]], "pinned_comp": [[27, 585]], "sig_corr": [[331, 235]],
+        "sig_unc": [[331, 235]], "singular": [585], "tau2_hat": [271.3981728317036],
+        "n_done": 1024,
+    },
     "glmm_laplace": {
         "boundary_hit": [165],
         "converged": [1024],
@@ -856,6 +960,13 @@ MODELS = {
     "glmm": dict(formula="y ~ dose + (1|clinic)", family="logit", cluster_name="clinic",
                  cluster=dict(ICC=0.15, n_clusters=24), types=None, corr=None,
                  effects="dose=0.35", baseline_probability=0.3),
+    # README flow 3 with a random slope on dose, as flow 2 adds one to the
+    # LMM: a logit GLMM with (1+dose|clinic), slope variance 0.1
+    "glmm_slopes": dict(formula="y ~ dose + (1+dose|clinic)", family="logit",
+                        cluster_name="clinic",
+                        cluster=dict(ICC=0.15, n_clusters=24, random_slopes=["dose"],
+                                     slope_variance=0.1),
+                        types=None, corr=None, effects="dose=0.35", baseline_probability=0.3),
     # README flow 2 (README.md:31-36) as written: a random intercept and a
     # random slope on treatment, 30 sites
     "lmm_slopes": dict(formula="y ~ treatment + (1+treatment|site)", family="lme",
@@ -927,11 +1038,23 @@ MODEL_FLOWS = {
     "model_lmm_slopes_scenarios": ("lmm_slopes", "find_power",
                                    dict(sample_size=600, scenarios=True),
                                    ("philox_fill", "grid_suffstats", "slope_reml")),
+    # the GLMM with random slopes (kernel K10): README flow 3's calls on the
+    # model with a slope on dose
+    "model_glmm_slopes_power": ("glmm_slopes", "find_power", dict(sample_size=480),
+                                ("philox_fill", "glmm_slope")),
+    "model_glmm_slopes_sample_size": ("glmm_slopes", "find_sample_size",
+                                      dict(from_size=240, to_size=720),
+                                      ("philox_fill", "glmm_slope")),
+    "model_glmm_slopes_scenarios": ("glmm_slopes", "find_power",
+                                    dict(sample_size=480, scenarios=True),
+                                    ("philox_fill", "glmm_slope")),
 }
 
 
-# The flows of the random-slope LMM, whose pin counts hold to SLOPE_PIN_FLIPS.
+# The flows of the random-slope LMM, whose pin counts hold to SLOPE_PIN_FLIPS,
+# and of the GLMM with random slopes (SLOPE_GLMM_PIN_FLIPS).
 SLOPE_FLOWS = tuple(name for name, flow in MODEL_FLOWS.items() if flow[0] == "lmm_slopes")
+SLOPE_GLMM_FLOWS = tuple(name for name, flow in MODEL_FLOWS.items() if flow[0] == "glmm_slopes")
 
 
 def build_model(mcpower_cls, model: str):
@@ -1515,6 +1638,44 @@ MODEL_GOLDEN = {
             "tau_squared_hat_mean": [0.29494549867546005], "boundary_component_counts": [[4, 90]],
         },
     },
+    "model_glmm_slopes_power": {
+        "success_counts_uncorrected": [[782]], "success_counts_corrected": [[782]],
+        "joint_counts_uncorrected": [782], "joint_counts_corrected": [782],
+        "tau_squared_hat_mean": [0.559952616677734], "boundary_component_counts": [[0, 363]],
+    },
+    "model_glmm_slopes_sample_size": {
+        "success_counts_uncorrected": [[516], [576], [640], [696], [749], [782], [810], [834],
+                                       [866], [881], [899]],
+        "success_counts_corrected": [[516], [576], [640], [696], [749], [782], [810], [834],
+                                     [866], [881], [899]],
+        "joint_counts_uncorrected": [516, 576, 640, 696, 749, 782, 810, 834, 866, 881, 899],
+        "joint_counts_corrected": [516, 576, 640, 696, 749, 782, 810, 834, 866, 881, 899],
+        "tau_squared_hat_mean": [0.5732999879342873, 0.5658262881240945, 0.5642013132934088,
+                                 0.5655438595486562, 0.5625399726778809, 0.5599133839275324,
+                                 0.5569763577016574, 0.5560715086171364, 0.555251167651051,
+                                 0.5563611560277106, 0.5579893696453955],
+        "boundary_component_counts": [[6, 625], [4, 572], [1, 489], [3, 462], [3, 409], [0, 363],
+                                      [0, 342], [0, 306], [0, 275], [0, 246], [0, 226]],
+        "first_achieved": {"dose": 576},
+        "fitted": {"dose": 546.4000000000001},
+    },
+    "model_glmm_slopes_scenarios": {
+        "optimistic": {
+            "success_counts_uncorrected": [[782]], "success_counts_corrected": [[782]],
+            "joint_counts_uncorrected": [782], "joint_counts_corrected": [782],
+            "tau_squared_hat_mean": [0.559952616677734], "boundary_component_counts": [[0, 363]],
+        },
+        "realistic": {
+            "success_counts_uncorrected": [[748]], "success_counts_corrected": [[748]],
+            "joint_counts_uncorrected": [748], "joint_counts_corrected": [748],
+            "tau_squared_hat_mean": [0.5412062582567907], "boundary_component_counts": [[1, 405]],
+        },
+        "doomer": {
+            "success_counts_uncorrected": [[691]], "success_counts_corrected": [[691]],
+            "joint_counts_uncorrected": [691], "joint_counts_corrected": [691],
+            "tau_squared_hat_mean": [0.5115693675545984], "boundary_component_counts": [[14, 452]],
+        },
+    },
     "model_glmm_scenarios": {
         "optimistic": {
             "success_counts_uncorrected": [[938]],
@@ -1570,6 +1731,22 @@ GLMM_TAU2_REL = 5e-3
 # values and for the card's tree against the CPU's. A standing record in
 # ROADMAP C.
 SLOPE_PIN_FLIPS = 6
+# The GLMM with random slopes (K10): its search ranks on f32 Laplace
+# deviances, as the slope LMM's does, so its pins (per component, any
+# component) and its tau^2 sums carry the same kind of difference from the
+# reference. Measured on the CPU before any card run, the port's plain path
+# against the JAX reference at 1,024 sims (the glmm_slopes arm and the
+# three slope-GLMM flows): pin counts at most 2 apart (the arm's boundary
+# hits, 587 against 585; the doomer scenario's slope pins, 454 against
+# 452; one point of the sample-size flow, 277 against 275), every other
+# count at most 1 (the realistic and doomer scenarios' significant counts),
+# the mean tau^2 at most 2.2e-4 relative (the doomer scenario). The bands:
+# the slope LMM's pin band (6: the same mechanism, three times the
+# measured 2) and 1e-3 for tau^2 (~4.6x the measured; TAU2_REL is 12x its
+# measured 1.7e-4); counts keep MAX_FLIPS. A standing record in ROADMAP C;
+# frozen before the first card run.
+SLOPE_GLMM_PIN_FLIPS = 6
+SLOPE_GLMM_TAU2_REL = 1e-3
 
 # Kernel tolerances on the card, against the plain versions on the same
 # inputs. Relative errors are max |kernel - plain| / max |plain| per output.
@@ -1617,6 +1794,7 @@ KERNEL_META = {
     "glmm_intercept": ("mcpower_tpu_torch/csrc/glmm_intercept.cu",
                        "mcpower_tpu/engine/glmmfit.py:909"),
     "slope_reml": ("mcpower_tpu_torch/csrc/slope_reml.cu", "mcpower_tpu/engine/mixedfit.py:385"),
+    "glmm_slope": ("mcpower_tpu_torch/csrc/glmm_slope.cu", "mcpower_tpu/engine/glmmfit.py:556"),
 }
 # Kernels that the arms of DESIGNS launch; K8 draws count outcomes, which
 # only the Poisson flow of phase 6 has.
@@ -1642,7 +1820,7 @@ def lower_design(lower_mod, cluster_cls, name: str):
     ``truth_start`` entry becomes the scenario's."""
     kw = dict({**DESIGNS, **SCENARIO_ARMS, **SCENARIO_DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS,
                **FACTOR_DESIGNS, **K6_DESIGNS, **GLMM_DESIGNS, **K7_DESIGNS, **SLOPE_DESIGNS,
-               **K9_DESIGNS}[name])
+               **K9_DESIGNS, **SLOPE_GLMM_DESIGNS, **K10_DESIGNS}[name])
     for key in ("corr", "effects"):
         if key in kw:
             kw[key] = np.asarray(kw[key], dtype=np.float64)
@@ -1974,6 +2152,59 @@ def k9_bound(args, outs) -> Tuple[float, str]:
     return bound(nbytes(G, A, b, xtx, xty, yty, *(o for o in outs if hasattr(o, "numel"))), ops)
 
 
+def k10_bound(args, outs) -> Tuple[float, str]:
+    """Every cell's fit as K10 runs it: (d + 1) 8 + 12 x 4 x 8 + 33 x 4 x 3
+    f32 PIRLS steps and d + 1 + 4 x 45 f32 deviance tails (the initial
+    simplex and four candidates an iteration), then 12 + 3q f64 steps, the
+    f64 mode pass and q f64 tails (the fit and the pin probes), under the
+    Hessian 1 + 2p + 2p(p - 1) stencil points of 20 v-only passes and a tail
+    each. A step, per row: X beta and Z u, the link's transcendental, two
+    divisions and the (q + p)-term sums (a multiply-add two operations: K10
+    is built without contraction); per cluster u = Lam v, C = I + Lam' G Lam,
+    its factor, the solves of Lam' A and Lam' b, the Schur terms and the v
+    update; per cell the p x p factor and solve. A tail: per row the link and
+    the deviance's log, G; per cluster C, its factor and q logs. Steps are
+    counted in full (a cell keeps its state on a step that is not finite).
+    Bytes: each sim's fit and slope columns and y up to the last grid
+    point, beta0 and every output."""
+    from mcpower_tpu_torch.engine import glmmfit
+
+    code, X, y, fit, zcols, grid, layout, beta0, theta0, lower_, hessian = args
+    p, q, m, sims = len(fit), len(zcols) + 1, layout[2], X.shape[0]
+    d = q * (q + 1) // 2
+    rows = float(sims * sum(grid))
+    cells = float(sims * len(grid))
+    ng, nt = q * (q + 1) // 2, p * (p + 1) // 2
+    row_step = 2 * (p + q) + 6 + 2 * ng + 2 * q * p + p + 2 * nt + 4 + 2 * q + 1 + 2 * p
+    row_tail = 2 * (p + q) + 4 + 2 * ng + 4
+    mac = (q * (q + 1) // 2 + q * q * (q + 1) // 2 + sum(q - k for j in range(q)
+                                                         for k in range(j + 1))
+           + q * (q * q - 1) // 6 + (p + 1) * (q * (q + 1) // 2 + q * q)
+           + q * (nt + p) + q * p)
+    clus_step = {"f32": 2 * mac + 2 * q * F32_DIV_OPS, "f64": 2 * mac + 2 * q * F64_DIV_INSTR}
+    clus_tail = {"f32": 2 * (ng * q + q * q) + q * F32_DIV_OPS + q * F32_EXP_OPS,
+                 "f64": 2 * (ng * q + q * q) + q * F64_DIV_INSTR + q * F64_LOG_INSTR}
+    pmac = p ** 3 // 6 + p * p
+    cell_step = {"f32": 2 * pmac + 3 * p * F32_DIV_OPS, "f64": 2 * pmac + 3 * p * F64_DIV_INSTR}
+    per_row = {"f32": (row_step + F32_EXP_OPS + 2 * F32_DIV_OPS, row_tail + 2 * F32_EXP_OPS
+                       + F32_DIV_OPS),
+               "f64": (row_step + F64_EXP_INSTR + 2 * F64_DIV_INSTR, row_tail + F64_EXP_INSTR
+                       + F64_LOG_INSTR + F64_DIV_INSTR)}
+    steps = {"f32": (d + 1) * glmmfit.N_PIRLS_SLOPE + sum(4 * n * b for n, b in
+                                                         glmmfit.SLOPE_PHASES),
+             "f64": glmmfit.N_PIRLS + q * glmmfit.N_PIRLS_SLOPE_WARM + 1}
+    tails = {"f32": d + 1 + 4 * glmmfit.NM_ITERS_GLMM, "f64": q}
+    if hessian:
+        v = 1 + 2 * p + 2 * p * (p - 1)
+        steps["f64"] += v * glmmfit.N_V_PIRLS
+        tails["f64"] += v
+    ops = {k: steps[k] * (rows * per_row[k][0] + cells * (m * clus_step[k] + cell_step[k]))
+           + tails[k] * (rows * per_row[k][1] + cells * m * clus_tail[k]) for k in steps}
+    ops["f64"] += cells * (p ** 3 + 2 * p ** 3 // 3)
+    read = float(sims * max(grid) * (p + q) * 4)
+    return bound(read + nbytes(beta0, *(o for o in outs if hasattr(o, "numel"))), ops)
+
+
 def rel_err_finite(name: str, a, b) -> float:
     """rel_err over the entries finite in both, after checking that the
     same entries are finite."""
@@ -2168,15 +2399,32 @@ def _ptxas_lines(name: str, log: str) -> list:
     line of its own, ``...kernelILi<p>ELb1E``), by (mode, store) for K1
     (``philox_fill_kernelILi<mode>ELb<vec>E``), by (q, p) for K9
     (``slope_reml_kernelILi<q>ELi<p>E``, p = 8 and 16 its buckets)."""
-    if name == "slope_reml":
+    if name in ("slope_reml", "glmm_slope"):
         rows = []
         for mangled, v in _ptxas_by_kernel(log).items():
             m = re.search(r"kernelILi(\d+)ELi(\d+)E", mangled)
             if m:
                 rows.append((int(m.group(1)), int(m.group(2)), v))
-        return [f"  ptxas {name} by q and p (p = 8, 16: the p <= 8, p <= 16 buckets): " + ", ".join(
+        out = [f"  ptxas {name} by q and p (p = 8, 16: the p <= 8, p <= 16 buckets): " + ", ".join(
             f"q={q} p={pm}: {v['regs']} registers, {v.get('spill', 0)} B spill stores"
             for q, pm, v in sorted(rows, key=lambda r: r[:2]))] if rows else []
+        if name == "glmm_slope":  # its pass function, not inlined: a stack frame of its own
+            passes = []
+            cur = None
+            for line in log.splitlines():
+                m = re.search(r"Function properties for \S*slope_passILi(\d+)ELi(\d+)E(\w)", line)
+                if m:
+                    cur = (int(m.group(1)), int(m.group(2)), "f32" if m.group(3) == "f" else "f64")
+                    continue
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+                if cur is not None and m:
+                    passes.append((cur, int(m.group(1)), int(m.group(2))))
+                    cur = None
+            if passes:
+                out.append(f"  ptxas {name} pass function by q, p and type: " + ", ".join(
+                    f"q={q} p={pm} {t}: {fr} B stack, {sp} B spill stores"
+                    for (q, pm, t), fr, sp in sorted(passes)))
+        return out
     if name == "grid_suffstats":
         out = []
         for mode, tag in (("0", "by p"), ("1", "slope mode by p")):
@@ -2361,8 +2609,10 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
     flow: a first call (the first lowering's scipy tables and the like; the
     kernels are built by then), the counted call at N_SIMS with every launch
     count set to 0 before it (each kernel of the flow's path must launch),
-    GOLDEN_SIMS sims against MODEL_GOLDEN and their whole result tree
-    against the plain path's on the CPU (``compare_trees``), then PROFILE_REPS
+    GOLDEN_SIMS sims against MODEL_GOLDEN, the whole result tree of
+    TREE_SIMS sims against the plain path's on the CPU (``compare_trees``; a
+    slope-GLMM flow's on the card, K10's plain version in K10's place), then
+    PROFILE_REPS
     walls with the stage split, the chunk count and the busy share, beside
     one ``run_batch`` of the same lowered design in one chunk."""
     import statistics
@@ -2378,6 +2628,7 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
         def run(n=N_SIMS, device=dev, name=name):
             return run_flow(MCPower, name, n, device=device)
 
+        t_flow = time.perf_counter()
         t0 = time.perf_counter()
         run()
         first_ms = (time.perf_counter() - t0) * 1e3
@@ -2416,15 +2667,24 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
                   flush=True)
 
         card = run(GOLDEN_SIMS)
-        pins = SLOPE_PIN_FLIPS if name in SLOPE_FLOWS else None
-        flips = compare_trees(name, flow_summary(card), MODEL_GOLDEN[name],
-                              tau_rel=GLMM_TAU2_REL if name.startswith("model_glmm") else None,
+        pins = (SLOPE_PIN_FLIPS if name in SLOPE_FLOWS else
+                SLOPE_GLMM_PIN_FLIPS if name in SLOPE_GLMM_FLOWS else None)
+        tau_rel = (SLOPE_GLMM_TAU2_REL if name in SLOPE_GLMM_FLOWS else
+                   GLMM_TAU2_REL if name.startswith("model_glmm") else None)
+        flips = compare_trees(name, flow_summary(card), MODEL_GOLDEN[name], tau_rel=tau_rel,
                               pin_flips=pins)
-        tree_flips = compare_trees(name, card, run(GOLDEN_SIMS, "cpu"), pin_flips=pins)
+        card = run(TREE_SIMS)
+        if name in SLOPE_GLMM_FLOWS:  # K10's plain version on the card: the CPU's takes minutes
+            with k10_plain():
+                plain_tree, where = run(TREE_SIMS), "on the card (K10's plain version)"
+        else:
+            plain_tree, where = run(TREE_SIMS, "cpu"), "on the CPU"
+        tree_flips = compare_trees(name, card, plain_tree, pin_flips=pins)
         print(f"golden {name} at {GOLDEN_SIMS} sims against the JAX MCPower: "
               f"{'identical' if not flips else 'flips ' + '; '.join(flips)}; whole result tree "
-              f"({len(tree_keys(card))} keys) against the plain path's on the CPU: "
-              f"{'identical' if not tree_flips else 'flips ' + '; '.join(tree_flips)}", flush=True)
+              f"at {TREE_SIMS} sims ({len(tree_keys(card))} keys) against the plain path's "
+              f"{where}: {'identical' if not tree_flips else 'flips ' + '; '.join(tree_flips)}",
+              flush=True)
 
         splits = []
         with stage_clock(model_mod, runner, batch) as clock:
@@ -2462,7 +2722,8 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
               f"{one['median_ms']:.3f} ms (range {one['min_ms']:.3f}-{one['max_ms']:.3f}), busy "
               f"{one['device_ms'] / one['median_ms']:.1%}; first call {first_ms:.1f} ms; largest "
               f"device items (ms): {items}; largest host items of the profiled call (self "
-              f"time under the profiler, ms): {host}", flush=True)
+              f"time under the profiler, ms): {host}; the flow's phase took "
+              f"{time.perf_counter() - t_flow:.1f} s", flush=True)
     return flows
 
 
@@ -2888,6 +3149,41 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v}" for k, v in diffs.items()), flush=True)
         check(not any(diffs.values()), f"K9 {name}: outputs differ from the plain version's {diffs}")
     records["slope_reml"] = {"max_abs_err": k9_err}
+
+    # K10 on generated slope-GLMM rows, bit for bit; the Poisson design
+    # draws its counts through K8
+    k10_args_by = {}
+    flow_cases10 = {name: flow_lowered(flow)[0] for name, (flow, _) in K10_FLOW_CASES.items()}
+    k10_err = 0.0
+    for name, n in K10_CHECKS.items():
+        t_case = time.perf_counter()
+        spec_, arr_ = flow_cases10[name] if name in flow_cases10 else \
+            lower_design(lower, ClusterStatic, name)
+        arr_d = datagen.to_device(arr_, dev)
+        X_, y_, _ = datagen.generate_batch(spec_, arr_d, SEED, 0, sim_ids[:n],
+                                           plain=spec_.outcome != "count")
+        args = k10_args(spec_, arr_d, X_, y_)
+        k10_args_by[name] = args
+        got = glmmfit.glmm_slope_kernel(*args)
+        want = glmmfit.glmm_slope_plain(*args)
+        cells, q_ = want[2].numel(), want[6].shape[-1]
+        n_conv, n_bnd = int(want[2].sum()), int(want[3].sum())
+        pins = want[6].reshape(-1, q_).sum(0).tolist()
+        check(n_conv > 0.9 * cells, f"K10 {name}: only {n_conv} of {cells} converged")
+        diffs = {k: int((~((g == w) | (g.isnan() & w.isnan()))).sum())
+                 for k, g, w in zip(("beta", "cov", "converged", "boundary", "tau2", "ybar",
+                                     "pinned", "theta"), got, want)}
+        k10_err = max(k10_err, max(float((g - w)[torch.isfinite(w)].abs().max())
+                                   for g, w in zip(got[:2] + got[4:6] + got[7:],
+                                                   want[:2] + want[4:6] + want[7:])))
+        print(f"K10 glmm_slope {name} cells {tuple(got[2].shape)} p {len(args[3])} q {q_} m "
+              f"{args[6][2]} ({'round robin' if args[6][0] else 'blocked'}) link {args[0]}"
+              f"{' hessian' if args[10] else ''}: {n_conv} converged, {n_bnd} with a pin (per "
+              f"component {pins}); entries that differ from the plain version: "
+              + ", ".join(f"{k} {v}" for k, v in diffs.items())
+              + f"; {time.perf_counter() - t_case:.1f} s", flush=True)
+        check(not any(diffs.values()), f"K10 {name}: outputs differ from the plain version's {diffs}")
+    records["glmm_slope"] = {"max_abs_err": k10_err}
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if opts.checks_only:
@@ -2932,7 +3228,8 @@ def main(argv=None) -> int:
             check(got.shape == want.shape, f"{name} {key}: shape {got.shape} != {want.shape}")
             if key in ("tau2_hat", "glm_baseline"):
                 band = (GLM_BASELINE_REL if key == "glm_baseline" else
-                        GLMM_TAU2_REL if name in GLMM_DESIGNS else TAU2_REL)
+                        GLMM_TAU2_REL if name in GLMM_DESIGNS else
+                        SLOPE_GLMM_TAU2_REL if name in SLOPE_GLMM_DESIGNS else TAU2_REL)
                 rel = float(np.abs(got - want).max() / np.abs(want).max())
                 check(rel <= band, f"{name} {key} rel {rel:.2e} > {band}")
                 continue
@@ -2941,6 +3238,8 @@ def main(argv=None) -> int:
                 flips.append(f"{key}: max {int(diff.max())} at {np.argwhere(diff > 0).tolist()}")
             band = (SLOPE_PIN_FLIPS if name in SLOPE_DESIGNS and key in ("pinned_comp",
                                                                         "boundary_hit")
+                    else SLOPE_GLMM_PIN_FLIPS if name in SLOPE_GLMM_DESIGNS and key in (
+                        "pinned_comp", "boundary_hit", "singular")
                     else MAX_FLIPS)
             check(int(diff.max()) <= band, f"{name} {key}: {got.tolist()} vs golden {want.tolist()}")
         extra = set(counts) - set(GOLDEN[name])
@@ -3043,6 +3342,47 @@ def main(argv=None) -> int:
               f"{np.round(power, 4).tolist()}, pins per component "
               f"{np.asarray(counts['pinned_comp'])[-1].tolist()}", flush=True)
         check_golden(name, spec_, arr_)
+        for k in launches:
+            launches[k] += got_l[k]
+
+    # The slope-GLMM arm: one chunk of SLOPE_GLMM_SIMS sims through K1 and
+    # K10; at GOLDEN_SIMS the reference's counts and the plain path's on the
+    # card (every kernel's plain version), count for count
+    slope_glmm_specs = {name: lower_design(lower, ClusterStatic, name)
+                        for name in SLOPE_GLMM_DESIGNS}
+    slope_glmm_arm_s = {}
+    for name, (spec_, arr_) in slope_glmm_specs.items():
+        batch.run_batch(spec_, arr_, SLOPE_GLMM_SIMS, 1, chunk_size=SLOPE_GLMM_SIMS,
+                        device=dev)  # warm-up
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        counts = batch.run_batch(spec_, arr_, SLOPE_GLMM_SIMS, SEED, chunk_size=SLOPE_GLMM_SIMS,
+                                 device=dev)
+        slope_glmm_arm_s[name] = time.perf_counter() - t0
+        launches_by_arm[name] = got_l = kernels.counts()
+        check(got_l["glmm_slope"] == 1 and got_l["philox_fill"] == 2,
+              f"{name}: K10 launched {got_l['glmm_slope']} times (1 expected), K1 "
+              f"{got_l['philox_fill']} (2 expected)")
+        check(int(counts["n_done"]) == SLOPE_GLMM_SIMS, f"{name}: n_done {counts['n_done']}")
+        conv = np.asarray(counts["converged"])
+        check(bool((conv > 0.9 * SLOPE_GLMM_SIMS).all()), f"{name}: converged {conv.tolist()}")
+        for key, v in counts.items():
+            check(bool(np.isfinite(np.asarray(v, dtype=np.float64)).all()), f"{name}: {key} not finite")
+        power = np.asarray(counts["sig_unc"])[-1] / SLOPE_GLMM_SIMS
+        print(f"arm {name}: {slope_glmm_arm_s[name] * 1e3:.1f} ms for {SLOPE_GLMM_SIMS} sims "
+              f"through the kernels (one chunk; launches {got_l}); power at N={spec_.max_n}: "
+              f"{np.round(power, 4).tolist()}, pins per component "
+              f"{np.asarray(counts['pinned_comp'])[-1].tolist()}", flush=True)
+        check_golden(name, spec_, arr_)
+        card = batch.run_batch(spec_, arr_, GOLDEN_SIMS, SEED, chunk_size=GOLDEN_SIMS, device=dev)
+        plain_c = batch.run_batch(spec_, arr_, GOLDEN_SIMS, SEED, chunk_size=GOLDEN_SIMS,
+                                  device=dev, plain=True)
+        differ = [k for k in plain_c if not np.array_equal(np.asarray(card[k]),
+                                                           np.asarray(plain_c[k]))]
+        check(sorted(card) == sorted(plain_c) and not differ,
+              f"{name}: the card's counts differ from the plain path's in {differ}")
+        print(f"arm {name} at {GOLDEN_SIMS} sims: every count the plain path's on the card",
+              flush=True)
         for k in launches:
             launches[k] += got_l[k]
 
@@ -3184,6 +3524,17 @@ def main(argv=None) -> int:
         timing.append((key, shape.format(tuple(out_[2].shape)), mixedfit.slope_reml_kernel,
                        mixedfit.slope_reml_plain, args_, k9_bound(args_, out_), None))
 
+    # K10 at a launch of the slope-GLMM flow (README flow 3's shape) and at
+    # the glmm_slopes arm's cells of phase 3
+    for key, case, shape in (
+            ("glmm_slope flow", "glmm_slopes_flow_launch",
+             "slope GLMM flow launch, cells {}, N 480, m 24, p 2, q 2"),
+            ("glmm_slope arm", "glmm_slopes", "glmm_slopes arm cells {}, N 200, m 20, p 3, q 2")):
+        args_ = k10_args_by[case]
+        out_ = glmmfit.glmm_slope_kernel(*args_)
+        timing.append((key, shape.format(tuple(out_[2].shape)), glmmfit.glmm_slope_kernel,
+                       glmmfit.glmm_slope_plain, args_, k10_bound(args_, out_), None))
+
     def k2s(spec_):  # K2's slope mode and its plain version, taking (X, y)
         return (lambda X_, y_: olsfit.grid_suffstats_kernel(spec_, X_, y_, with_slopes=True),
                 lambda X_, y_: olsfit.grid_suffstats_plain(spec_, X_, y_, with_slopes=True))
@@ -3203,10 +3554,10 @@ def main(argv=None) -> int:
             kname = key.split()[0] + "_kernel"  # the CUDA function's name
             t_row = time.perf_counter()
             copies = input_copies(inputs)
-            # K9's plain version makes tens of thousands of small launches a
-            # call, whose profiler events take tens of seconds to collect:
-            # one window of one call
-            heavy = kname == "slope_reml_kernel"
+            # K7's, K9's and K10's plain versions make thousands to tens of
+            # thousands of small launches a call, whose profiler events take
+            # tens of seconds to collect: one window of one call
+            heavy = kname in ("glmm_intercept_kernel", "slope_reml_kernel", "glmm_slope_kernel")
             plain_ms = device_ms(fp, copies, 1 if heavy else 3)
             ms = device_ms(fk, copies, reps, kname, launches=1)
             if not heavy:
@@ -3305,6 +3656,8 @@ def main(argv=None) -> int:
         for shape in ("agq7", "laplace", "readme", "sample_size")})
     records["slope_reml"].update(timed["slope_reml readme2"], by_shape={
         shape: timed[f"slope_reml {shape}"] for shape in ("readme2", "lmm_slopes", "multislope")})
+    records["glmm_slope"].update(timed["glmm_slope flow"], by_shape={
+        shape: timed[f"glmm_slope {shape}"] for shape in ("flow", "arm")})
     records["glm_irls"]["by_shape"] = {"arm": timed["glm_irls"], "flow": timed["glm_irls flow"],
                                        "factor_flow": timed["glm_irls factor"],
                                        "factor_flow_fallback": timed["glm_irls fallback"]}
@@ -3377,6 +3730,23 @@ def main(argv=None) -> int:
               f"time {prof['device_ms']:.3f} ms, busy {prof['device_ms'] / prof['median_ms']:.1%} "
               f"of the median wall, {prof['launches']} kernels; largest device items (ms): "
               f"{items}", flush=True)
+
+    for name, (spec_, arr_) in slope_glmm_specs.items():  # the slope-GLMM arm's wall, profile
+        t0 = time.perf_counter()
+        batch.run_batch(spec_, arr_, SLOPE_GLMM_SIMS, SEED, chunk_size=SLOPE_GLMM_SIMS,
+                        device=dev)
+        again_s = time.perf_counter() - t0
+        print(f"arm {name} ({SLOPE_GLMM_SIMS} sims, wall): kernels "
+              f"{slope_glmm_arm_s[name] * 1e3:.1f} ms and {again_s * 1e3:.1f} ms (the plain "
+              f"path's wall at {GOLDEN_SIMS} sims is phase 4's check)", flush=True)
+        prof = profile_arm(lambda: batch.run_batch(spec_, arr_, SLOPE_GLMM_SIMS, SEED,
+                                                   chunk_size=SLOPE_GLMM_SIMS, device=dev))
+        items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
+        print(f"profile {name} ({SLOPE_GLMM_SIMS} sims): wall median {prof['median_ms']:.3f} ms "
+              f"(range {prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {PROFILE_REPS} calls), device "
+              f"kernel time {prof['device_ms']:.3f} ms, busy "
+              f"{prof['device_ms'] / prof['median_ms']:.1%} of the median wall, "
+              f"{prof['launches']} kernels; largest device items (ms): {items}", flush=True)
 
     # --- phase 6: the user flows through MCPower ---
     print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s", flush=True)

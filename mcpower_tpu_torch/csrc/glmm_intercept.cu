@@ -89,6 +89,7 @@
 #include <tuple>
 
 #include "common.cuh"
+#include "glmm_link.cuh"
 #include "smallchol.cuh"
 
 #ifdef MCP_K7_CLOCKS
@@ -108,6 +109,16 @@ __device__ unsigned long long mcp_k7_clk[MCP_K7_CLOCKS * 8];
 
 namespace {
 
+using mcp::clamp_hi;
+using mcp::clamp_lo;
+using mcp::dev_term;
+using mcp::LINK_POISSON;
+using mcp::m_exp;
+using mcp::m_log;
+using mcp::mu_var_dmu;
+using mcp::MU_EPS;
+using mcp::Rows;
+using mcp::rows_of;
 using mcp::tri;
 
 constexpr int WARP = 32;
@@ -131,15 +142,11 @@ constexpr double LOG_HI = 7.0;
 constexpr double BOUNDARY_LOG = -12.0;
 constexpr double CGOLD = 0.3819660112501051;
 constexpr double BRENT_TOL = 1e-9;
-constexpr double MU_EPS = 1e-10;
 constexpr double EPS_RANK = 1e-6;
 constexpr double LOG_2PI = 1.8378770664093453;
 constexpr double SQRT2 = 1.4142135623730951;
-constexpr double INV_SQRT2 = 0.7071067811865476;
-constexpr double INV_SQRT_2PI = 0.3989422804014327;
 constexpr double H_STEP = 1e-4;
 constexpr int N_U_NEWTON = 20;
-enum { LINK_LOGIT = 0, LINK_PROBIT = 1, LINK_POISSON = 2 };
 // Per-cluster state, slot-major (slot k of cluster j at clus[k * m + j]):
 // u, the step's new u, a saved u, W, t, c, the AGQ scale, the profiled
 // deviance's u, the hybrid deviance's centre log-likelihood; then s (p
@@ -203,39 +210,8 @@ struct Cell {
     long long cell;
 };
 
-__device__ __forceinline__ float m_exp(float x) { return expf(x); }
-__device__ __forceinline__ double m_exp(double x) { return exp(x); }
-__device__ __forceinline__ float m_log(float x) { return logf(x); }
-__device__ __forceinline__ double m_log(double x) { return log(x); }
-__device__ __forceinline__ float m_erf(float x) { return erff(x); }
-__device__ __forceinline__ double m_erf(double x) { return erf(x); }
 __device__ __forceinline__ float m_max(float x, float y) { return fmaxf(x, y); }
 __device__ __forceinline__ double m_max(double x, double y) { return fmax(x, y); }
-
-// torch.clamp's one-sided bounds: a NaN stays NaN.
-template <typename T>
-__device__ __forceinline__ T clamp_lo(T x, T lo) { return x < lo ? lo : x; }
-template <typename T>
-__device__ __forceinline__ T clamp_hi(T x, T hi) { return x > hi ? hi : x; }
-
-// glmfit.py::_mu_var_dmu in T.
-template <typename T>
-__device__ __forceinline__ void mu_var_dmu(int link, T eta, T& mu, T& var, T& dmu) {
-    const T eps = T(MU_EPS), top = T(1.0 - MU_EPS);
-    if (link == LINK_PROBIT) {
-        mu = clamp_hi(clamp_lo(T(0.5) * (T(1) + m_erf(eta * T(INV_SQRT2))), eps), top);
-        var = mu * (T(1) - mu);
-        dmu = clamp_lo(m_exp(T(-0.5) * eta * eta) * T(INV_SQRT_2PI), eps);
-    } else if (link == LINK_LOGIT) {
-        mu = clamp_hi(clamp_lo(T(1) / (T(1) + m_exp(-eta)), eps), top);
-        var = mu * (T(1) - mu);
-        dmu = var;
-    } else {
-        mu = clamp_lo(m_exp(clamp_hi(clamp_lo(eta, T(-30)), T(30))), eps);
-        var = mu;
-        dmu = mu;
-    }
-}
 
 // glmmfit.py::_loglik_rows in T.
 template <typename T>
@@ -249,18 +225,6 @@ __device__ __forceinline__ T loglik(int link, T y, T eta) {
     return (y > T(0.5)) ? m_log(mu) : m_log(T(1) - mu);
 }
 
-// glmfit.py::_deviance_terms (one log per binomial row, as K6).
-__device__ __forceinline__ double dev_term(int link, double y, double mu) {
-    if (link != LINK_POISSON) {
-        const bool pos = y > 0.5, neg = y < 0.5;
-        const double t = (pos || neg) ? -log(pos ? mu : 1.0 - mu) : 0.0;
-        return t + 0.0;
-    }
-    const double ylogy = (y > 0.0) ? y * log(clamp_lo(y, MU_EPS)) : 0.0;
-    return ylogy - y * log(mu) - (y - mu);
-}
-
-
 // The cell's barrier: its warp, or its named barrier.
 __device__ __forceinline__ void cell_sync(const Geo& g, const Cell& c) {
     CLK_T0(t0);
@@ -269,26 +233,6 @@ __device__ __forceinline__ void cell_sync(const Geo& g, const Cell& c) {
     else
         asm volatile("bar.sync %0, %1;" ::"r"(c.bar), "r"(g.tpc) : "memory");
     CLK_ADD(c, 6, t0);
-}
-
-// The rows of cluster j below n: first, stride and count.
-struct Rows {
-    int first, step, count;
-};
-
-__device__ __forceinline__ Rows rows_of(const Args& a, int n, int j) {
-    Rows r;
-    if (a.rr) {
-        r.first = j;
-        r.step = a.m;
-        r.count = n > j ? (n - j + a.m - 1) / a.m : 0;
-    } else {
-        r.first = j * a.period;
-        r.step = 1;
-        const int left = n - r.first;
-        r.count = left <= 0 ? 0 : (left < a.period ? left : a.period);
-    }
-    return r;
 }
 
 // f(r, j) for the cell's thread's rows r = t, t + threads, ... below n,

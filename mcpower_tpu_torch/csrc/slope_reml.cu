@@ -65,9 +65,13 @@
 //   guards. Matrices of p x p are packed lower triangles.
 
 #include "common.cuh"
+#include "nelder_mead.cuh"
 #include "smallchol.cuh"
 
 namespace {
+
+using mcp::chol_packed_rt;
+using mcp::cho_solve_packed_rt;
 
 constexpr int WARP = 32;
 constexpr int GROUP = 8;  // lanes on one candidate (SLOPE_LANES)
@@ -117,56 +121,6 @@ __device__ __forceinline__ float ld<float>(const float* s32, const double* g64, 
 template <>
 __device__ __forceinline__ double ld<double>(const float*, const double* g64, long long i) {
     return g64[i];
-}
-
-// --- p x p algebra on packed lower triangles, p <= PM at run time, in
-// smallchol's order (the plain version's p-exact loops) ---
-
-template <int PM, typename T>
-__device__ __forceinline__ void chol_rt(T* a, int p) {
-#pragma unroll
-    for (int j = 0; j < PM; ++j) {
-        if (j < p) {
-            T d = a[tri(j, j)];
-#pragma unroll
-            for (int k = 0; k < j; ++k) d = d - a[tri(j, k)] * a[tri(j, k)];
-            a[tri(j, j)] = sqrt(d);
-            const T inv_d = T(1) / a[tri(j, j)];
-#pragma unroll
-            for (int i = j + 1; i < PM; ++i) {
-                if (i < p) {
-                    T s = a[tri(i, j)];
-#pragma unroll
-                    for (int k = 0; k < j; ++k) s = s - a[tri(i, k)] * a[tri(j, k)];
-                    a[tri(i, j)] = s * inv_d;
-                }
-            }
-        }
-    }
-}
-
-template <int PM, typename T>
-__device__ __forceinline__ void cho_solve_rt(const T* L, const T* b, T* x, int p) {
-    T y[PM];
-#pragma unroll
-    for (int i = 0; i < PM; ++i) {
-        if (i < p) {
-            T s = b[i];
-#pragma unroll
-            for (int k = 0; k < i; ++k) s = s - L[tri(i, k)] * y[k];
-            y[i] = s / L[tri(i, i)];
-        }
-    }
-#pragma unroll
-    for (int i = PM - 1; i >= 0; --i) {
-        if (i < p) {
-            T s = y[i];
-#pragma unroll
-            for (int k = i + 1; k < PM; ++k)
-                if (k < p) s = s - L[tri(k, i)] * x[k];
-            x[i] = s / L[tri(i, i)];
-        }
-    }
 }
 
 // Every statistic of one evaluation, summed over a lane's clusters.
@@ -321,8 +275,8 @@ __device__ __forceinline__ T deviance(const Args& a, long long cell, const float
         }
     }
     const T ayy = (T)a.yty[cell] - s.yy;
-    chol_rt<PM>(L, p);
-    cho_solve_rt<PM>(L, axy, beta, p);
+    chol_packed_rt<PM>(L, p);
+    cho_solve_packed_rt<PM>(L, axy, beta, p);
     T bxy = beta[0] * axy[0];
 #pragma unroll
     for (int i = 1; i < PM; ++i)
@@ -336,54 +290,6 @@ __device__ __forceinline__ T deviance(const Args& a, long long cell, const float
         if (i < p) ldx = ldx + log(L[tri(i, i)]);
     ldx = T(2) * ldx;
     return (s.ld + ldx) + df * log(rss);
-}
-
-// The four Nelder-Mead candidates of an iteration from the sorted simplex
-// (lane 0).
-__device__ __forceinline__ void make_candidates(const Args& a, Simplex& S, int d) {
-    // stable insertion sort of the positions by value
-    for (int i = 1; i <= d; ++i) {
-        const int v = S.ord[i];
-        const double f = S.fvals[v];
-        int j = i - 1;
-        while (j >= 0 && S.fvals[S.ord[j]] > f) {
-            S.ord[j + 1] = S.ord[j];
-            --j;
-        }
-        S.ord[j + 1] = v;
-    }
-    const double inv_d = 1.0 / (double)d;
-    for (int k = 0; k < d; ++k) {
-        double acc = S.verts[S.ord[0]][k];
-        for (int i = 1; i < d; ++i) acc = acc + S.verts[S.ord[i]][k];
-        const double c = acc * inv_d;
-        const double w = S.verts[S.ord[d]][k];
-        const double lo = a.lower[k];
-        double xr = c + 1.0 * (c - w);
-        xr = (xr < lo) ? lo : xr;
-        double xe = c + 2.0 * (xr - c);
-        double xo = c + 0.5 * (xr - c);
-        double xi = c - 0.5 * (c - w);
-        S.cand[0][k] = xr;
-        S.cand[1][k] = (xe < lo) ? lo : xe;
-        S.cand[2][k] = (xo < lo) ? lo : xo;
-        S.cand[3][k] = (xi < lo) ? lo : xi;
-    }
-}
-
-// optim.select_candidate, then the worst vertex replaced (lane 0).
-__device__ __forceinline__ void select_and_replace(Simplex& S, int d) {
-    const double f_best = S.fvals[S.ord[0]], second = S.fvals[S.ord[d - 1]];
-    const double f_worst = S.fvals[S.ord[d]];
-    const double fr = S.fc[0], fe = S.fc[1], fo = S.fc[2];
-    const bool use_expand = (fr < f_best) && (fe < fr);
-    const bool use_reflect = ((fr < second) && !use_expand) || ((fr < f_best) && !(fe < fr));
-    const bool use_cout = !use_expand && !use_reflect && (fr < f_worst) && (fo <= fr);
-    const bool use_rfall = !use_expand && !use_reflect && (fr < f_worst) && !use_cout;
-    const int idx = use_expand ? 1 : ((use_reflect || use_rfall) ? 0 : (use_cout ? 2 : 3));
-    const int w = S.ord[d];
-    for (int k = 0; k < d; ++k) S.verts[w][k] = S.cand[idx][k];
-    S.fvals[w] = S.fc[idx];
 }
 
 template <int Q, int PM>
@@ -433,7 +339,7 @@ __global__ void __launch_bounds__(WARP * WARPS_PER_BLOCK)
                     for (int k = 0; k < D; ++k) S.cand[gg][k] = S.verts[v][k];
                 }
             } else {
-                make_candidates(a, S, D);
+                mcp::nm_candidates(a.lower, S, D);
             }
         }
         __syncwarp();
@@ -449,7 +355,7 @@ __global__ void __launch_bounds__(WARP * WARPS_PER_BLOCK)
                     if (v <= D) S.fvals[v] = S.fc[gg];
                 }
             } else {
-                select_and_replace(S, D);
+                mcp::nm_select_and_replace(S, D);
             }
         }
         __syncwarp();
@@ -539,7 +445,7 @@ __global__ void __launch_bounds__(WARP * WARPS_PER_BLOCK)
                 double e[PM], col[PM];
 #pragma unroll
                 for (int i = 0; i < PM; ++i) e[i] = (i == j) ? 1.0 : 0.0;
-                cho_solve_rt<PM>(L64, e, col, p);
+                cho_solve_packed_rt<PM>(L64, e, col, p);
 #pragma unroll
                 for (int i = 0; i < PM; ++i)
                     if (i < p) a.cov[cell * p * p + i * p + j] = sigma2 * col[i];

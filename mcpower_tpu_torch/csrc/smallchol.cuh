@@ -9,8 +9,8 @@
 // large); with P a template constant every loop below unrolls and every
 // index is static.
 //
-// Kernels K3 (ols_solve.cu), K4 (reml_intercept.cu) and K6 (glm_irls.cu)
-// include this file. K6 keeps only the lower triangle, packed row by row
+// Kernels K3 (ols_solve.cu), K4 (reml_intercept.cu), K6 (glm_irls.cu), K7,
+// K9 and K10 include this file. K6 keeps only the lower triangle, packed row by row
 // (entry (i, j), j <= i, at tri(i, j)), and factors it in place: the
 // *_packed functions below, with the same operations in the same order as
 // chol, cho_solve and cho_inverse_column_scaled.
@@ -172,6 +172,56 @@ __device__ __forceinline__ void cho_inverse_column_packed(const T* L, int j, T* 
     cho_solve_packed<P>(L, e, col);
 #pragma unroll
     for (int i = 0; i < P; ++i) out[i * P + j] = col[i];
+}
+
+// chol_packed and cho_solve_packed for a run-time p <= PM (the p <= 8 and
+// p <= 16 buckets of K9 and K10): the same operations in the same order,
+// each step guarded by i < p.
+template <int PM, typename T>
+__device__ __forceinline__ void chol_packed_rt(T* a, int p) {
+#pragma unroll
+    for (int j = 0; j < PM; ++j) {
+        if (j < p) {
+            T d = a[tri(j, j)];
+#pragma unroll
+            for (int k = 0; k < j; ++k) d = d - a[tri(j, k)] * a[tri(j, k)];
+            a[tri(j, j)] = sqrt(d);
+            const T inv_d = T(1) / a[tri(j, j)];
+#pragma unroll
+            for (int i = j + 1; i < PM; ++i) {
+                if (i < p) {
+                    T s = a[tri(i, j)];
+#pragma unroll
+                    for (int k = 0; k < j; ++k) s = s - a[tri(i, k)] * a[tri(j, k)];
+                    a[tri(i, j)] = s * inv_d;
+                }
+            }
+        }
+    }
+}
+
+template <int PM, typename T>
+__device__ __forceinline__ void cho_solve_packed_rt(const T* L, const T* b, T* x, int p) {
+    T y[PM];
+#pragma unroll
+    for (int i = 0; i < PM; ++i) {
+        if (i < p) {
+            T s = b[i];
+#pragma unroll
+            for (int k = 0; k < i; ++k) s = s - L[tri(i, k)] * y[k];
+            y[i] = s / L[tri(i, i)];
+        }
+    }
+#pragma unroll
+    for (int i = PM - 1; i >= 0; --i) {
+        if (i < p) {
+            T s = y[i];
+#pragma unroll
+            for (int k = i + 1; k < PM; ++k)
+                if (k < p) s = s - L[tri(k, i)] * x[k];
+            x[i] = s / L[tri(i, i)];
+        }
+    }
 }
 
 }  // namespace mcp

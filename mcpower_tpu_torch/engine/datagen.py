@@ -53,7 +53,7 @@ from .spec import (
 
 FLOAT_NEAR_ZERO = 1e-12
 # Random-effect components (intercept and slopes) a primary grouping may
-# have: kernel K9's search runs over d = q (q + 1) / 2 <= 10.
+# have: the searches of kernels K9 and K10 run over d = q (q + 1) / 2 <= 10.
 MAX_RE_Q = 4
 # CLUSTER stream columns of one random-effect component: component c draws
 # its normals at column c * RE_COLUMNS, a heavy-tailed one its chi-square
@@ -113,16 +113,15 @@ def unsupported(spec: SimSpec) -> str:
     if c is not None:
         if c.extra_groupings:
             return "extra groupings (ROADMAP A12)"
-        if c.slopes and spec.outcome != "continuous":
-            return "GLMM random slopes (ROADMAP A11.2)"
         if c.q > MAX_RE_Q:
-            return (f"{c.q} random-effect components; kernel K9 takes q <= {MAX_RE_Q} "
+            kernel = "K9" if spec.outcome == "continuous" else "K10"
+            return (f"{c.q} random-effect components; kernel {kernel} takes q <= {MAX_RE_Q} "
                     f"(theta of d <= {MAX_RE_Q * (MAX_RE_Q + 1) // 2}, optim.py's range)")
     elif spec.estimator == "mle":
         return "the mle estimator without a cluster"
     if len(spec.effective_fit_cols) > kernels.MAX_FIT_P:
         return f"wide fits, p > {kernels.MAX_FIT_P} (ROADMAP B10)"
-    if c is not None and spec.outcome != "continuous":  # a GLMM: kernel K7's limits
+    if c is not None and spec.outcome != "continuous" and not c.slopes:  # kernel K7's limits
         from .glmmfit import MAX_AGQ, MAX_CLUSTERS
 
         if not 1 <= int(spec.nagq) <= MAX_AGQ:

@@ -24,8 +24,14 @@ them (lane l takes clusters l, l + 32, ... in turn, then the lanes combine
 in ``smallchol.lane_sum``'s pair tree), so that the two perform the same
 operations in the same order and agree bit for bit on the card.
 
-Slopes and extra groupings (the reference's Nelder-Mead paths) are not
-ported yet (ROADMAP A11, A12).
+Random slopes take :func:`glmm_slope`: the reference's
+``_slope_glmm_grid_stats`` (:556-906), a warm-carried Nelder-Mead over the
+q-dimensional theta on f32 PIRLS modes and their Laplace deviance, then the
+f64 fit, the pin probes and the FD Hessian; on the card kernel K10
+(``csrc/glmm_slope.cu``, a cell a block, the four candidates of an
+iteration on its four warps), :func:`glmm_slope_plain` its plain version.
+Extra groupings (the reference's joint-Z path) are not ported yet (ROADMAP
+A12).
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ import torch
 
 from . import kernels, smallchol, waldstats
 from .glmfit import LINK_POISSON, MU_EPS, _deviance_terms, _mu_var_dmu, link_code
-from .mixedfit import BOUNDARY_LOG_GAMMA, LOG_GAMMA_HI, LOG_GAMMA_LO, _CGOLD, _brent_minimize
+from .mixedfit import (BOUNDARY_LOG_GAMMA, LOG_GAMMA_HI, LOG_GAMMA_LO, _CGOLD, _brent_minimize,
+                       _ordered_sum)
 from .spec import SimSpec
 
 # The reference's budgets and their reasoning (glmmfit.py:45-60): PIRLS
@@ -90,9 +97,11 @@ def gh_nodes(nagq: int):
 class _Cells:
     """The (sim, grid) cells of one launch in the plain version's layout:
     ``X (S, 1, n, p)`` in f64 and f32, ``y (S, 1, n)``, the row mask ``(G,
-    n)`` and the active clusters ``(G, m)``."""
+    n)`` and the active clusters ``(G, m)``; with ``zcols`` (the slope
+    path) also ``Z (S, 1, n, q)``, a column of ones and then X's columns
+    ``zcols``."""
 
-    def __init__(self, code: int, X, y, fit, grid, layout):
+    def __init__(self, code: int, X, y, fit, grid, layout, zcols=None):
         self.code = code
         self.rr, self.period, self.m = layout
         max_n = X.shape[1]
@@ -108,6 +117,10 @@ class _Cells:
         self.active = self.seg(mask) > 0.0  # (G, m)
         self.ns = ns.to(torch.float64)
         self.p = Xf.shape[-1]
+        if zcols is not None:
+            Z = torch.cat([torch.ones_like(X[..., :1]), X[..., list(zcols)]], dim=-1)
+            self.Z = {torch.float64: Z.to(torch.float64)[:, None],
+                      torch.float32: Z.to(torch.float32)[:, None]}
 
     def seg(self, v: torch.Tensor) -> torch.Tensor:
         """(..., n) -> (..., m): each cluster's rows added in row order."""
@@ -365,10 +378,17 @@ def hessian_offsets(p: int) -> np.ndarray:
 def _fd_hessian_cov(cells: _Cells, beta, u, tau2c, cov_fallback):
     """cov = 2 H^-1 from central differences of the profiled deviance,
     the rx covariance where that is not finite (:65-105)."""
+    offs = torch.as_tensor(hessian_offsets(beta.shape[-1]) * HESSIAN_STEP, dtype=torch.float64,
+                           device=beta.device)
+    vals = _dev_beta(cells, beta[..., None, :] + offs, u, tau2c)  # (..., V)
+    return _stencil_cov(vals, beta, cov_fallback)
+
+
+def _stencil_cov(vals, beta, cov_fallback):
+    """cov = 2 H^-1 from the profiled deviances ``vals (..., V)`` at the
+    stencil points of :func:`hessian_offsets`."""
     p = beta.shape[-1]
     h = HESSIAN_STEP
-    offs = torch.as_tensor(hessian_offsets(p) * h, dtype=torch.float64, device=beta.device)
-    vals = _dev_beta(cells, beta[..., None, :] + offs, u, tau2c)  # (..., V)
     f0 = vals[..., 0]
     H = beta.new_zeros(beta.shape[:-1] + (p, p))
     hh = torch.full_like(f0, h * h)
@@ -587,6 +607,362 @@ def glmm_intercept(code, X, y, fit, grid, layout, beta0, nagq: int = 1, hessian:
 
 
 # ---------------------------------------------------------------------------
+# The plain version of K10: the GLMM with random slopes
+# ---------------------------------------------------------------------------
+
+# The reference's slope-path budgets and their reasoning (glmmfit.py:112-126):
+# PIRLS steps of the initial simplex and the first NM_FULL_SLOPE iterations,
+# of the warm iterations after them, and the Nelder-Mead's length and step.
+N_PIRLS_SLOPE = 8
+N_PIRLS_SLOPE_WARM = 3
+NM_ITERS_GLMM = 45
+NM_FULL_SLOPE = 12
+NM_STEP_SLOPE = 0.2
+SLOPE_PHASES = ((NM_FULL_SLOPE, N_PIRLS_SLOPE), (NM_ITERS_GLMM - NM_FULL_SLOPE,
+                                                   N_PIRLS_SLOPE_WARM))
+N_V_PIRLS = 20  # v-only PIRLS passes of a Hessian evaluation (:836)
+SLOPE_SENTINEL = 1e30  # a non-finite search deviance's rank
+PIN_MARGIN = 1e-10
+# K10's limit on q (datagen.unsupported names it before any run); its
+# per-cluster state lives in a device scratch, so it takes any cluster count.
+MAX_SLOPE_Q = 4
+
+
+def _slope_pass(cells: _Cells, dtype, Lam, beta, v, kind: str):
+    """One pass of the slope fit over every cell's rows at ``Lam (..., q,
+    q)``, ``beta (..., p)`` and the modes ``v (..., m, q)`` in ``dtype``,
+    the leading axes ``(S, G, K)``; kernel K10's pass, in its order.
+
+    Per row: ``u = Lam v`` of its cluster, eta = X beta + Z u, the link's mu,
+    var and dmu, w = dmu^2 / max(var, MU_EPS) (masked) and the working
+    response zw = eta + (y - mu) / dmu. Per cluster, its rows in row order:
+    G = sum (Z_r w) Z_c (lower triangle), and by ``kind``
+
+    - ``"step"``, a PIRLS step: A = sum (Z_r w) x, b = sum (Z_r w) zw, X'WX
+      and X'Wz; C = I + Lam' G Lam, its Cholesky, the solves of Lam' A and
+      Lam' b, the Schur system (X'WX - sum A~' C^-1 A~) + ridge, beta, and v
+      = C^-1 b~ - C^-1 A~ beta. Returns ``(beta, v)``, each cell kept where
+      the step is not finite;
+    - ``"vstep"``, a v-only step at fixed beta: r = sum (Z_r w) (zw - X
+      beta) and v = C^-1 Lam' r, kept where not finite. Returns ``v``;
+    - ``"tail"``: the Laplace deviance (2 sum dev + sum |v|^2) + sum log|C|;
+    - ``"mode"``: the Laplace deviance and the f64 fit's Schur matrix (X'WX
+      - sum A~' C^-1 A~) + 1e-10 I. Returns ``(lap, a_xx)``.
+
+    Every sum over clusters is K7's lane sum (``_Cells.lanes``); every
+    per-cluster term sums over the q components from the first.
+    """
+    p, q = cells.p, v.shape[-1]
+    X = cells.X[dtype][:, :, None]  # (S, 1, 1, n, p)
+    Z = cells.Z[dtype][:, :, None]
+    y = cells.y[dtype][:, :, None]
+    mask = cells.mask[dtype][:, None]  # (G, 1, n)
+    xb = smallchol.rowmv(X, beta)
+    lam = lambda r, j: Lam[..., r, j, None]  # noqa: E731  (..., 1) against (..., m)
+    u = [_ordered_sum([v[..., k] * lam(i, k) for k in range(i + 1)]) for i in range(q)]
+    zu = cells.per_row(u[0])
+    for k in range(1, q):
+        zu = zu + Z[..., k] * cells.per_row(u[k])
+    eta = xb + zu
+    mu, var, dmu = _mu_var_dmu(cells.code, eta)
+    w = dmu * dmu / torch.clamp(var, min=MU_EPS) * mask
+    wz = [w] + [Z[..., r] * w for r in range(1, q)]
+    xs = [X[..., a].expand_as(w) for a in range(p)]
+    terms = [wz[r] * Z[..., c] for r in range(q) for c in range(r + 1)]
+    if kind in ("step", "mode"):
+        terms += [wz[r] * xs[a] for r in range(q) for a in range(p)]
+        terms += [(xs[a] * w) * xs[b] for a, b in _tri(p)]
+    if kind in ("step", "vstep"):
+        zw = eta + (y - mu) / dmu
+        rz = zw if kind == "step" else zw - xb
+        terms += [wz[r] * rz for r in range(q)]
+    if kind == "step":
+        wzw = w * zw
+        terms += [xa * wzw for xa in xs]
+    if kind in ("tail", "mode"):
+        terms.append(_deviance_terms(cells.code, y.expand_as(mu), mu) * mask)
+    sums = cells.seg(torch.stack(terms, dim=-2))  # (..., T, m)
+    nt, ng = len(_tri(p)), q * (q + 1) // 2
+    Gl = [[None] * q for _ in range(q)]
+    k = 0
+    for r in range(q):
+        for c in range(r + 1):
+            Gl[r][c] = Gl[c][r] = sums[..., k, :]
+            k += 1
+    # C = I + (Lam' G) Lam, lower triangle, and its Cholesky
+    LtG = [[_ordered_sum([lam(r, j) * Gl[r][c] for r in range(j, q)]) for c in range(q)]
+           for j in range(q)]
+    zero = torch.zeros_like(LtG[0][0])
+    C = torch.stack([torch.stack([
+        (1.0 + _ordered_sum([LtG[j][r] * lam(r, kk) for r in range(kk, q)]) if kk == j else
+         _ordered_sum([LtG[j][r] * lam(r, kk) for r in range(kk, q)])) if kk <= j else zero
+        for kk in range(q)], dim=-1) for j in range(q)], dim=-2)  # (..., m, q, q)
+    cholC = smallchol.chol(C)
+
+    def lam_t(vals):  # Lam' x per cluster: vals[s] (..., m, *t) -> (..., m, *t, q)
+        ex = (...,) + (None,) * (vals[0].dim() - zero.dim())
+        return torch.stack([_ordered_sum([lam(s, r)[ex] * vals[s] for s in range(r, q)])
+                            for r in range(q)], dim=-1)
+
+    if kind in ("tail", "mode"):
+        vv = _ordered_sum([v[..., r] * v[..., r] for r in range(q)])
+        ld = 2.0 * _ordered_sum([torch.log(cholC[..., r, r]) for r in range(q)])
+        dev = 2.0 * cells.lanes(sums[..., -1, :])
+        lap = (dev + cells.lanes(vv)) + cells.lanes(ld)
+        if kind == "tail":
+            return lap
+    if kind == "vstep":
+        rt = lam_t([sums[..., ng + r, :] for r in range(q)])
+        v_new = smallchol.cho_solve(cholC, rt)
+        ok = torch.isfinite(v_new).flatten(-2).all(-1)
+        return torch.where(ok[..., None, None], v_new, v)
+    # A~ = Lam' A (..., m, p, q) and its solves; the Schur system
+    A = [sums[..., ng + r * p:ng + (r + 1) * p, :].movedim(-2, -1) for r in range(q)]
+    At = lam_t(A)
+    sol_A = smallchol.cho_solve(cholC[..., None, :, :], At)  # (..., m, p, q)
+    cxx = _ordered_sum([At[..., :, None, r] * sol_A[..., None, :, r] for r in range(q)])
+    o = ng + q * p
+    sxx = torch.stack([cells.lanes(cxx[..., i, j]) for i, j in _tri(p)], dim=-1)
+    xwx = cells.lanes(sums[..., o:o + nt, :])
+    if kind == "mode":
+        ridge = torch.tensor(1e-10, dtype=dtype, device=beta.device)
+        return lap, _schur(cells, xwx, sxx, ridge)
+    ridge = torch.tensor(1e-10 if dtype == torch.float64 else 1e-6, dtype=dtype,
+                         device=beta.device)
+    bt = lam_t([sums[..., o + nt + r, :] for r in range(q)])
+    sol_b = smallchol.cho_solve(cholC, bt)  # (..., m, q)
+    cxy = _ordered_sum([At[..., r] * sol_b[..., r, None] for r in range(q)])  # (..., m, p)
+    sxy = torch.stack([cells.lanes(cxy[..., a]) for a in range(p)], dim=-1)
+    xwz = cells.lanes(sums[..., o + nt + q:o + nt + q + p, :])
+    beta_new = smallchol.cho_solve(smallchol.chol(_schur(cells, xwx, sxx, ridge)), xwz - sxy)
+    v_new = torch.stack([sol_b[..., r] - _ordered_sum([sol_A[..., a, r] * beta_new[..., a, None]
+                                                for a in range(p)]) for r in range(q)], dim=-1)
+    ok = torch.isfinite(beta_new).all(-1) & torch.isfinite(v_new).flatten(-2).all(-1)
+    return (torch.where(ok[..., None], beta_new, beta),
+            torch.where(ok[..., None, None], v_new, v))
+
+
+def _slope_pirls(cells: _Cells, dtype, Lam, beta, v, iters: int):
+    """``iters`` PIRLS steps (the reference's ``make_pirls`` loop, :660-745)."""
+    for _ in range(iters):
+        beta, v = _slope_pass(cells, dtype, Lam, beta, v, "step")
+    return beta, v
+
+
+def _col_zero_masks(q: int, dtype, device) -> torch.Tensor:
+    """(q, d): theta's entries with Cholesky column j zeroed, row j."""
+    d = q * (q + 1) // 2
+    masks = torch.ones((q, d), dtype=dtype, device=device)
+    off = 0
+    for j in range(q):
+        masks[j, off:off + q - j] = 0.0
+        off += q - j
+    return masks
+
+
+def glmm_slope_plain(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequence[int],
+                     zcols: Sequence[int], grid: Sequence[int], layout: Tuple[bool, int, int],
+                     beta0: torch.Tensor, theta0, lower, hessian: bool = False,
+                     theta: torch.Tensor = None):
+    """Every (sim, grid) cell's random-slope GLMM fit (the reference's
+    ``_slope_glmm_grid_stats.per_grid``, :594-891).
+
+    ``X (sims, max_n, P)`` and ``y (sims, max_n)`` f32; ``fit`` the pf fit
+    columns; ``zcols`` the q - 1 slope columns of X (Z = [1, X[:, zcols]]);
+    ``grid``, ``layout`` and ``beta0`` as :func:`glmm_intercept_plain`;
+    ``theta0``, ``lower`` ``(d,)`` from ``mixedfit.slope_start``. Steps: the
+    warm-carried Nelder-Mead (``optim.nelder_mead_carry``) over theta on the
+    f32 Laplace deviance from f32 PIRLS (the d + 1 initial vertices from
+    (beta0, v = 0) at N_PIRLS_SLOPE steps, then SLOPE_PHASES, every
+    candidate from the carried mode); the cold f64 fit at the optimum
+    (N_PIRLS steps from (beta0, 0)), its Laplace deviance and cov = (X'WX -
+    sum A~' C^-1 A~ + 1e-10 I)^-1, or 2 H^-1 of the FD Hessian under
+    ``hessian``; each component's pin probe (its Cholesky column zeroed,
+    N_PIRLS_SLOPE_WARM f64 steps from the fit's mode, then the deviance: a
+    removal that costs at most PIN_MARGIN pins the component, and changes
+    nothing in the fit). ``theta (sims, G, d)`` f64, where given, replaces
+    the search's optimum.
+
+    Returns f64 ``beta (sims, G, pf)``, ``cov``, bool ``converged`` and
+    ``boundary`` (any pin), f64 ``tau2_hat = (Lam Lam')[0, 0]`` and ``ybar``,
+    bool ``pinned (sims, G, q)`` and the optimum ``theta (sims, G, d)``.
+    """
+    from . import optim
+    from .mixedfit import vech_to_lower
+
+    cells = _Cells(code, X, y, fit, grid, layout, zcols)
+    sims, G, pf, m = X.shape[0], len(grid), len(fit), cells.m
+    q = len(zcols) + 1
+    d = q * (q + 1) // 2
+    dev_ = X.device
+    f64, f32 = torch.float64, torch.float32
+    theta0 = torch.as_tensor(np.asarray(theta0), dtype=f64, device=dev_)
+    lower = torch.as_tensor(np.asarray(lower), dtype=f64, device=dev_)
+    beta0 = beta0.to(device=dev_, dtype=f64)
+    cl = sims * G
+
+    if theta is None:
+        def search_eval(points, aux, budget):
+            k = points.shape[1]
+            Lam = vech_to_lower(points.reshape(sims, G, k, d), q).to(f32)
+            beta = aux[0].reshape(sims, G, 1, pf).expand(sims, G, k, pf)
+            v = aux[1].reshape(sims, G, 1, m, q).expand(sims, G, k, m, q)
+            beta, v = _slope_pirls(cells, f32, Lam, beta, v, budget)
+            lap = _slope_pass(cells, f32, Lam, beta, v, "tail").to(f64)
+            lap = torch.where(torch.isfinite(lap), lap, torch.full_like(lap, SLOPE_SENTINEL))
+            return lap.reshape(cl, k), (beta.reshape(cl, k, pf), v.reshape(cl, k, m, q))
+
+        aux0 = (beta0.to(f32).expand(cl, pf), torch.zeros((cl, m, q), dtype=f32, device=dev_))
+        theta_hat, _, _ = optim.nelder_mead_carry(
+            search_eval, theta0.expand(cl, d), aux0, phases=SLOPE_PHASES,
+            init_step=NM_STEP_SLOPE, lower=lower)
+        theta_hat = theta_hat.reshape(sims, G, d)
+    else:
+        theta_hat = theta.to(device=dev_, dtype=f64).reshape(sims, G, d)
+
+    # the cold f64 fit at the optimum and its Schur covariance
+    Lam = vech_to_lower(theta_hat, q)[:, :, None]  # (S, G, 1, q, q)
+    beta, v = _slope_pirls(cells, f64, Lam, beta0.expand(sims, G, 1, pf),
+                           torch.zeros((sims, G, 1, m, q), dtype=f64, device=dev_), N_PIRLS)
+    lap, a_xx = _slope_pass(cells, f64, Lam, beta, v, "mode")
+    chol = smallchol.chol(a_xx)
+    cov = smallchol.cho_inverse(chol)
+    if hessian:  # the v-profiled Laplace deviance at the stencil (:816-860)
+        offs = torch.as_tensor(hessian_offsets(pf) * HESSIAN_STEP, dtype=f64, device=dev_)
+        beta_q = beta + offs  # (S, G, V, pf)
+        v_q = v.expand(sims, G, offs.shape[0], m, q)
+        for _ in range(N_V_PIRLS):
+            v_q = _slope_pass(cells, f64, Lam, beta_q, v_q, "vstep")
+        vals = _slope_pass(cells, f64, Lam, beta_q, v_q, "tail")
+        cov = _stencil_cov(vals, beta[:, :, 0], cov[:, :, 0])[:, :, None]
+    # the pin probes: component j's Cholesky column zeroed (:863-881)
+    th_j = theta_hat[:, :, None] * _col_zero_masks(q, f64, dev_)  # (S, G, q, d)
+    Lam_j = vech_to_lower(th_j, q)
+    bj, vj = _slope_pirls(cells, f64, Lam_j, beta.expand(sims, G, q, pf),
+                          v.expand(sims, G, q, m, q), N_PIRLS_SLOPE_WARM)
+    probes = _slope_pass(cells, f64, Lam_j, bj, vj, "tail")
+    pinned = probes <= lap + PIN_MARGIN  # (S, G, q)
+    ridge = torch.diag_embed(torch.full_like(beta, 1e-10))
+    converged = (torch.isfinite(beta).all(-1) & smallchol.chol_ok(chol)
+                 & smallchol.rank_ok(a_xx - ridge) & torch.isfinite(lap))[:, :, 0]
+    l00 = theta_hat[..., 0]
+    ysum = cells.lanes(cells.seg(cells.y[f64] * cells.mask[f64]))
+    return (beta[:, :, 0], cov[:, :, 0], converged, pinned.any(-1), l00 * l00,
+            ysum / cells.ns, pinned, theta_hat)
+
+
+# ---------------------------------------------------------------------------
+# K10 on the card
+# ---------------------------------------------------------------------------
+
+_GLMM_SLOPE_ARGS = [
+    ctypes.c_void_p,  # X (sims, max_n, P) f32
+    ctypes.c_void_p,  # y (sims, max_n) f32
+    ctypes.c_int,  # sims
+    ctypes.c_int,  # max_n
+    ctypes.c_int,  # P
+    ctypes.POINTER(ctypes.c_int),  # fit columns (host)
+    ctypes.c_int,  # pf
+    ctypes.POINTER(ctypes.c_int),  # slope columns (host), q - 1 of them
+    ctypes.c_int,  # q
+    ctypes.c_void_p,  # grid (G,) int32, device
+    ctypes.c_int,  # G
+    ctypes.c_int,  # round robin (1) or blocked (0)
+    ctypes.c_int,  # period: m (round robin) or the cluster size (blocked)
+    ctypes.c_int,  # m
+    ctypes.c_int,  # link code
+    ctypes.c_void_p,  # beta0 (pf,) f64, device
+    ctypes.POINTER(ctypes.c_double),  # theta0 (d,) host
+    ctypes.POINTER(ctypes.c_double),  # lower (d,) host
+    ctypes.c_int,  # hessian
+    ctypes.c_void_p,  # scratch: mcp_glmm_slope_scratch_bytes
+    ctypes.c_void_p,  # beta out (sims, G, pf) f64
+    ctypes.c_void_p,  # cov out (sims, G, pf, pf) f64
+    ctypes.c_void_p,  # tau2_hat out (sims, G) f64
+    ctypes.c_void_p,  # ybar out (sims, G) f64
+    ctypes.c_void_p,  # flags out (sims, G) uint8: bit0 converged, bit1 boundary
+    ctypes.c_void_p,  # pinned out (sims, G, q) uint8
+    ctypes.c_void_p,  # theta out (sims, G, d) f64
+    ctypes.c_void_p,  # cudaStream_t
+]
+
+
+def glmm_slope_scratch_bytes(cells: int, m: int, q: int, p: int) -> int:
+    """Bytes of device scratch K10 takes for ``cells`` cells (its C entry
+    point's count). Builds and loads K10; needs a CUDA device."""
+    fn = kernels.KERNELS["glmm_slope"].fn("mcp_glmm_slope_scratch_bytes",
+                                          [ctypes.c_longlong] + [ctypes.c_int] * 3)
+    fn.restype = ctypes.c_longlong
+    return int(fn(cells, m, q, p))
+
+
+def glmm_slope_kernel(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequence[int],
+                      zcols: Sequence[int], grid: Sequence[int], layout: Tuple[bool, int, int],
+                      beta0: torch.Tensor, theta0, lower, hessian: bool = False):
+    """Kernel K10: :func:`glmm_slope_plain` on the card, a (sim, grid) cell
+    a block, its four warps the search's four candidates, with the device
+    scratch its C entry point sizes."""
+    fit, zcols, grid = [int(c) for c in fit], [int(c) for c in zcols], [int(n) for n in grid]
+    rr, period, m = bool(layout[0]), int(layout[1]), int(layout[2])
+    pf, G, q = len(fit), len(grid), len(zcols) + 1
+    d = q * (q + 1) // 2
+    if not 1 <= pf <= MAX_P:
+        raise ValueError(f"glmm_slope kernel takes 1 <= p <= {MAX_P}, got {pf}")
+    if not 2 <= q <= MAX_SLOPE_Q:
+        raise ValueError(f"glmm_slope kernel takes 2 <= q <= {MAX_SLOPE_Q}, got {q}")
+    if X.dtype != torch.float32 or y.dtype != torch.float32:
+        raise ValueError("glmm_slope kernel takes f32 X and y")
+    sims, max_n, P = X.shape
+    theta0, lower = np.asarray(theta0, np.float64), np.asarray(lower, np.float64)
+    if y.shape != (sims, max_n) or beta0.shape != (pf,) or theta0.shape != (d,) \
+            or lower.shape != (d,):
+        raise ValueError(f"glmm_slope: X {tuple(X.shape)}, y {tuple(y.shape)}, beta0 "
+                         f"{tuple(beta0.shape)}, theta0 {theta0.shape} for p {pf}, q {q}")
+    if G == 0 or m < 1 or any(not 0 < n <= max_n for n in grid) \
+            or any(not 0 <= c < P for c in fit + zcols):
+        raise ValueError(f"glmm_slope: grid {grid}, fit {fit} or slope columns {zcols} out of "
+                         "range")
+    if (rr and max_n % m) or (not rr and (period < 1 or max_n != m * period)):
+        raise ValueError(f"glmm_slope: layout {layout} does not tile {max_n} rows")
+    dev_ = X.device
+    X, y = X.contiguous(), y.contiguous()
+    beta0 = beta0.to(device=dev_, dtype=torch.float64).contiguous()
+    grid_t = torch.tensor(grid, dtype=torch.int32, device=dev_)
+    kw = dict(dtype=torch.float64, device=dev_)
+    beta = torch.empty((sims, G, pf), **kw)
+    cov = torch.empty((sims, G, pf, pf), **kw)
+    tau2, ybar = torch.empty((sims, G), **kw), torch.empty((sims, G), **kw)
+    theta = torch.empty((sims, G, d), **kw)
+    flags = torch.empty((sims, G), dtype=torch.uint8, device=dev_)
+    pinned = torch.empty((sims, G, q), dtype=torch.uint8, device=dev_)
+    kernels.require_cuda("glmm_slope", X, y, grid_t, beta0, beta, cov, tau2, ybar, theta, flags,
+                         pinned)
+    if sims:
+        scratch = torch.empty(glmm_slope_scratch_bytes(sims * G, m, q, pf), dtype=torch.uint8,
+                              device=dev_)
+        k = kernels.KERNELS["glmm_slope"]
+        fn = k.fn("mcp_glmm_slope", _GLMM_SLOPE_ARGS)
+        k.check(fn(
+            kernels.ptr(X), kernels.ptr(y), sims, max_n, P, (ctypes.c_int * pf)(*fit), pf,
+            (ctypes.c_int * (q - 1))(*zcols), q, kernels.ptr(grid_t), G, int(rr), period, m, code,
+            kernels.ptr(beta0), (ctypes.c_double * d)(*theta0.tolist()),
+            (ctypes.c_double * d)(*lower.tolist()), int(hessian), kernels.ptr(scratch),
+            kernels.ptr(beta), kernels.ptr(cov), kernels.ptr(tau2), kernels.ptr(ybar),
+            kernels.ptr(flags), kernels.ptr(pinned), kernels.ptr(theta), kernels.stream_of(X)))
+    return (beta, cov, (flags & 1).bool(), (flags & 2).bool(), tau2, ybar, pinned.bool(), theta)
+
+
+def glmm_slope(code, X, y, fit, zcols, grid, layout, beta0, theta0, lower, hessian: bool = False):
+    """K10 for CUDA tensors, the plain version for CPU tensors."""
+    if X.is_cuda:
+        return glmm_slope_kernel(code, X, y, fit, zcols, grid, layout, beta0, theta0, lower,
+                                 hessian)
+    if X.device.type != "cpu":
+        raise ValueError(f"glmm_slope: no kernel for device {X.device}")
+    return glmm_slope_plain(code, X, y, fit, zcols, grid, layout, beta0, theta0, lower, hessian)
+
+
+# ---------------------------------------------------------------------------
 # The arm
 # ---------------------------------------------------------------------------
 
@@ -600,18 +976,18 @@ def layout_of(spec: SimSpec) -> Tuple[bool, int, int]:
 
 def glmm_grid_stats(spec: SimSpec, arr: Dict[str, torch.Tensor], X: torch.Tensor,
                     y: torch.Tensor, *, plain: bool = False) -> Dict[str, torch.Tensor]:
-    """All random-intercept GLMM statistics for a batch of sims across the
-    grid (the reference's ``glmm_grid_stats``, :140): ``t2``, ``overall``
-    (the joint Wald chi^2), ``converged``, ``boundary_hit`` and ``singular``
-    (the tau^2 = 0 pin), ``tau2_hat``, ``glm_baseline`` (the realized
-    outcome mean) and ``pinned_comp``; ``posthoc_t2`` for a posthoc spec.
-    ``plain=True`` runs the plain version of K7 on any device.
+    """All GLMM statistics for a batch of sims across the grid (the
+    reference's ``glmm_grid_stats``, :140): ``t2``, ``overall`` (the joint
+    Wald chi^2), ``converged``, ``boundary_hit`` and ``singular`` (the tau^2
+    = 0 pin, or with slopes any component's pin), ``tau2_hat``,
+    ``glm_baseline`` (the realized outcome mean) and ``pinned_comp`` (per
+    component); ``posthoc_t2`` for a posthoc spec. A random intercept goes
+    to K7, random slopes to K10; ``plain=True`` runs their plain versions on
+    any device.
     """
     c = spec.cluster
     if c is None:
         raise ValueError("a GLMM needs a cluster spec")
-    if c.slopes:
-        raise NotImplementedError("not ported yet: GLMM random slopes (ROADMAP A11.2)")
     if c.extra_groupings:
         raise NotImplementedError("not ported yet: GLMM extra groupings (ROADMAP A12)")
     fit = list(spec.effective_fit_cols)
@@ -619,10 +995,20 @@ def glmm_grid_stats(spec: SimSpec, arr: Dict[str, torch.Tensor], X: torch.Tensor
         beta0 = arr["effects"].to(device=X.device, dtype=torch.float64)[fit]
     else:
         beta0 = torch.zeros(len(fit), dtype=torch.float64, device=X.device)
-    beta, cov, converged, boundary, tau2_hat, ybar = (
-        glmm_intercept_plain if plain else glmm_intercept
-    )(link_code(spec.outcome, spec.link), X, y, fit, spec.grid, layout_of(spec), beta0,
-      max(int(spec.nagq), 1), spec.wald_se == "hessian")
+    code, hessian = link_code(spec.outcome, spec.link), spec.wald_se == "hessian"
+    if c.slopes:  # the q-dimensional Nelder-Mead path; nagq does not apply (:572)
+        from .mixedfit import slope_start
+
+        theta0, lower = slope_start(spec)
+        beta, cov, converged, boundary, tau2_hat, ybar, pinned, _ = (
+            glmm_slope_plain if plain else glmm_slope
+        )(code, X, y, fit, [s.design_col for s in c.slopes], spec.grid, layout_of(spec), beta0,
+          theta0, lower, hessian)
+    else:
+        beta, cov, converged, boundary, tau2_hat, ybar = (
+            glmm_intercept_plain if plain else glmm_intercept
+        )(code, X, y, fit, spec.grid, layout_of(spec), beta0, max(int(spec.nagq), 1), hessian)
+        pinned = boundary[..., None]
     out = {
         "t2": waldstats.t2_targets(spec, beta, cov),
         "overall": waldstats.overall_wald_chi2(spec, beta, cov),
@@ -631,6 +1017,6 @@ def glmm_grid_stats(spec: SimSpec, arr: Dict[str, torch.Tensor], X: torch.Tensor
         "singular": boundary,
         "tau2_hat": tau2_hat,
         "glm_baseline": ybar,
-        "pinned_comp": (boundary & converged)[..., None],
+        "pinned_comp": pinned & converged[..., None],
     }
     return waldstats.add_posthoc(out, spec, beta, cov)

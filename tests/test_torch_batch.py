@@ -116,17 +116,16 @@ def _lmm(**cluster):
 # here they are 16-level factors, too wide for the fit kernels (p = 18).
 # Scenario knobs, skewed residuals and marginals run too
 # (tests/test_torch_scenarios.py); here each sits on a design that still
-# raises: a GLMM with random slopes or extra groupings, more random slopes
-# than kernel K9 takes (q = 5), extra groupings, uploaded data, p = 19.
+# raises: a GLMM with extra groupings, more random slopes than kernels K9
+# and K10 take (q = 5), extra groupings, uploaded data, p = 19.
 # Random-intercept GLMMs run (tests/test_torch_glmm.py) within kernel K7's
-# limits on nodes and clusters; LMMs with up to three random slopes run
-# (tests/test_torch_slopes_fit.py).
+# limits on nodes and clusters; LMMs and GLMMs with up to three random
+# slopes run (tests/test_torch_slopes_fit.py, tests/test_torch_glmm_slopes.py).
 _SLOPES_Q5 = tuple(SlopeStatic(1 + k % 2, 0.1, 0.0) for k in range(4))
 _GLMM = dict(outcome="binary", estimator="glm")
 UNSUPPORTED = {
     "glm": dict(outcome="continuous", estimator="glm"),
-    "glmm": dict(_GLMM, cluster=ClusterStatic("fixed_clusters", 20, 0.25,
-                                              slopes=(SlopeStatic(1, 0.1, 0.0),))),
+    "glmm": dict(_GLMM, cluster=ClusterStatic("fixed_clusters", 20, 0.25, slopes=_SLOPES_Q5)),
     "glmm_nodes": dict(_GLMM, cluster=ClusterStatic("fixed_clusters", 20, 0.25), nagq=27),
     "glmm_clusters": dict(_GLMM, grid=[2050],
                           cluster=ClusterStatic("fixed_clusters", 1025, 0.25)),

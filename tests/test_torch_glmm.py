@@ -228,13 +228,15 @@ def test_hessian_offsets_are_the_references_stencil():
     assert (offs[-1] == [0, -1, -1]).all()
 
 
-# Random-intercept GLMMs run; slopes, extra groupings and K7's limits raise
-# before any run.
+# Random-intercept GLMMs and GLMMs with up to three slopes run; more slopes
+# (kernel K10's q <= 4), extra groupings and K7's limits raise before any run.
 _GLMM = dict(grid=[100], var_types=["normal"], effects=np.array([-0.3, 0.3]), target_cols=[1],
              outcome="binary", estimator="glm")
 GATED = {
-    "slopes": (dict(_GLMM, cluster=ClusterStatic("fixed_clusters", 20, 0.25,
-                                                 slopes=(SlopeStatic(1, 0.1, 0.0),))), "A11"),
+    "slopes": (dict(_GLMM, var_types=["normal"] * 4, effects=np.array([-0.3, 0.3, 0.2, 0.1, 0.1]),
+                    target_cols=[1, 2, 3, 4],
+                    cluster=ClusterStatic("fixed_clusters", 20, 0.25, slopes=tuple(
+                        SlopeStatic(c, 0.1, 0.0) for c in range(1, 5)))), "K10 takes q <= 4"),
     "crossed": (dict(_GLMM, cluster=ClusterStatic(
         "fixed_clusters", 20, 0.25, extra_groupings=(ExtraGroupingStatic("crossed", 10, 0.15),))),
         "A12"),

@@ -75,22 +75,25 @@ def runs(monkeypatch):
 
 
 def _glmm():
-    """A GLMM with a random slope on x1: outside the port (A11)."""
-    m = MCPower("y ~ x1 + x2 + (1 + x1|cluster)", family="logit")
-    m.set_cluster("cluster", ICC=0.2, n_clusters=20, random_slopes=["x1"], slope_variance=0.1)
-    m.set_baseline_probability(0.3)
+    """A GLMM with a crossed second grouping (tests/test_glmm.py:417-430's
+    design): outside the port (A12)."""
+    m = MCPower("y ~ x1 + x2 + (1|site) + (1|rater)", family="logit")
+    m.set_cluster("site", ICC=0.12, n_clusters=12)
+    m.set_cluster("rater", ICC=0.08, n_clusters=8)
+    m.set_baseline_probability(0.35)
     m.set_effects("x1=0.3, x2=0.2")
     return m
 
 
 def test_scenarios_raise_before_any_run(runs):
     """Scenarios run (tests/test_torch_model_scenarios.py); on a design
-    outside the port, a GLMM with random slopes, every scenario is checked
-    before the first runs, so the call raises naming A11 with nothing run."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        _glmm().find_power(200, scenarios=True, n_sims=8, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        _glmm().find_sample_size(from_size=100, to_size=200, scenarios=True, n_sims=8,
+    outside the port, a GLMM with an extra grouping, every scenario is
+    checked before the first runs, so the call raises naming A12 with
+    nothing run."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        _glmm().find_power(192, scenarios=True, n_sims=8, verbose=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        _glmm().find_sample_size(from_size=96, to_size=480, scenarios=True, n_sims=8,
                                  verbose=False, device="cpu")
     assert runs == []
     _ols().find_power(200, n_sims=8, verbose=False, device="cpu")
@@ -100,15 +103,16 @@ def test_scenarios_raise_before_any_run(runs):
 @pytest.mark.parametrize("formula,family,types,item", [
     ("y ~ x1 + g", "logit", "g=(factor,16)", "B10"),
     ("y ~ x1 + g", "ols", "g=(factor,16)", "B10"),
-    ("y ~ x1 + x2 + (1 + x1|cluster)", "logit", "x2=right_skewed", "A11.2"),
+    ("y ~ x1 + x2 + (1 + x1|cluster) + (1|rater)", "logit", "x2=right_skewed", "A12"),
 ])
 def test_designs_outside_the_port_raise_before_any_run(runs, formula, family, types, item):
     m = MCPower(formula, family=family)
     if family == "logit":
         m.set_baseline_probability(0.3)
-    if "|" in formula:  # a random slope on x1
+    if "|" in formula:  # a random slope on x1 and a crossed second grouping
         m.set_cluster("cluster", tau_squared=0.25, n_clusters=20, random_slopes=["x1"],
                       slope_variance=0.1)
+        m.set_cluster("rater", ICC=0.08, n_clusters=10)
     if types:
         m.set_variable_type(types)
     m.set_effects(", ".join(f"{n}=0.2" for n in m.effect_names))

@@ -71,12 +71,13 @@ def test_the_default_device_is_the_card(monkeypatch, method):
 
 @pytest.mark.parametrize("change,item", [
     ("scenarios", "A12"),
-    ("slopes", "A11"),
+    ("slopes", "A12"),
 ])
 def test_unported_lmm_designs_raise_before_any_run(monkeypatch, change, item):
-    """The LMM's random slopes run (tests/test_torch_model_slopes.py); the
-    same model as a clustered logit with a random slope (a GLMM with slopes)
-    raises A11 (A11.2). The LMM's scenarios run
+    """The LMM's random slopes run (tests/test_torch_model_slopes.py), and so
+    does the same model as a clustered logit with a random slope (a GLMM with
+    slopes, tests/test_torch_model_glmm_slopes.py); with a crossed second
+    grouping beside the slope it raises A12. The LMM's scenarios run
     (tests/test_torch_model_scenarios.py), and the same model as a
     clustered logit with a crossed second grouping (a GLMM with an extra
     grouping) under ``scenarios=True`` raises A12."""
@@ -92,9 +93,10 @@ def test_unported_lmm_designs_raise_before_any_run(monkeypatch, change, item):
         m.set_baseline_probability(0.3)
         m.set_effects("x1=0.3, x2=0.2")
     else:
-        m = MCPower("y ~ x1 + x2 + (1 + x1|cluster)", family="logit")
+        m = MCPower("y ~ x1 + x2 + (1 + x1|cluster) + (1|rater)", family="logit")
         m.set_cluster("cluster", tau_squared=0.25, n_clusters=20, random_slopes=["x1"],
                       slope_variance=0.1)
+        m.set_cluster("rater", ICC=0.1, n_clusters=10)
         m.set_baseline_probability(0.3)
         m.set_effects("x1=0.3, x2=0.2")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

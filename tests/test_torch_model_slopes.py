@@ -14,10 +14,11 @@ JAX reference's, and the gates of the slope path.
 * the per-component pin rates of tests/test_slopes.py:110-133's null-slope
   design through ``run_batch``, against the reference's (at most one flip
   per count);
-* a GLMM with slopes and q > 4 raise ``NotImplementedError`` naming ROADMAP
-  A11.2 and kernel K9's limit before any run; ``agq=`` with slopes keeps the
-  reference's warning; the fit goes through K9's dispatch; the default
-  device is the card.
+* a GLMM with slopes runs on the CPU through K10's plain version
+  (tests/test_torch_model_glmm_slopes.py holds it against the reference);
+  q > 4 raises ``NotImplementedError`` naming kernel K9's limit before any
+  run; ``agq=`` with slopes keeps the reference's warning; the fit goes
+  through K9's dispatch; the default device is the card.
 
 tests/test_torch_model_slopes_search.py has the sample-size search,
 tests/test_torch_model_slopes_scenarios.py the scenarios."""
@@ -36,7 +37,7 @@ from mcpower_tpu.engine import lower as ref_lower
 from mcpower_tpu.engine.spec import ClusterStatic as RefCluster
 from mcpower_tpu.engine.spec import SlopeStatic as RefSlope
 from mcpower_tpu_torch import MCPower
-from mcpower_tpu_torch.engine import batch, lower, mixedfit
+from mcpower_tpu_torch.engine import batch, glmmfit, lower, mixedfit
 from mcpower_tpu_torch.engine.spec import ClusterStatic, SlopeStatic
 
 REPO = Path(__file__).resolve().parent.parent
@@ -105,13 +106,19 @@ def test_pin_rates_of_a_null_slope_match_the_reference():
     assert rates[1] > 0.3 and rates[0] < 0.05, rates  # the null slope pins often
 
 
-def test_a_glmm_with_slopes_raises_naming_a11_2():
+def test_a_glmm_with_slopes_runs_on_the_cpu_through_the_plain_version(monkeypatch):
+    seen = []
+    real = glmmfit.glmm_slope_plain
+    monkeypatch.setattr(glmmfit, "glmm_slope_plain",
+                        lambda *a, **k: seen.append(a[1].shape) or real(*a, **k))
     m = MCPower("y ~ x1 + (1 + x1|site)", family="logit")
     m.set_baseline_probability(0.3)
     m.set_cluster("site", ICC=0.2, n_clusters=20, random_slopes=["x1"], slope_variance=0.1)
     m.set_effects("x1=0.3")
-    with pytest.raises(NotImplementedError, match="A11.2"):
-        m.find_power(200, n_sims=8, verbose=False, device="cpu")
+    res = m.find_power(200, n_sims=8, verbose=False, device="cpu")
+    assert seen == [(8, 200, 2)]
+    assert res["convergence_rate"][0] > 0.5
+    assert len(res["estimator_extras"]["glm"]["boundary_component_counts"][0]) == 2
 
 
 def test_q_above_4_raises_naming_k9_before_any_run(monkeypatch):

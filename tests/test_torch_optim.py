@@ -8,7 +8,11 @@ the same vertex with the same value, bit for bit. Cases: d = 3, 6 and 10
 (q = 2, 3, 4) with Cholesky-diagonal lower bounds that clip (the optimum of
 some coordinates lies below 0), a sentinel region whose values all equal
 1e30 (ties the stable sort must keep in vertex order), and the selection
-rule on its own against ``_select_candidate``.
+rule on its own against ``_select_candidate``. ``nelder_mead_carry`` (the
+plain version of kernel K10's search) against the reference's, on the same
+objective read off a warm-started fixed-point iterate that the search
+carries, at two phase schedules and with clipping: the same vertex, value
+and final carry, bit for bit.
 """
 
 import jax
@@ -88,3 +92,50 @@ def test_select_candidate_matches_the_reference():
     got = optim.select_candidate(*map(torch.as_tensor, args)).numpy()
     np.testing.assert_array_equal(got, want)
     assert set(np.unique(got)) == {0, 1, 2, 3}
+
+
+def _fixed_point(xp, x, a, budget):
+    """``budget`` steps of a <- (a + x) / 2 from the carried ``a``: a solver
+    state that a warm start brings closer to x."""
+    for _ in range(budget):
+        a = (a + x) * 0.5
+    return a
+
+
+@pytest.mark.parametrize("q,phases", [(2, ((12, 8), (33, 3))), (3, ((4, 5), (9, 1), (6, 2)))])
+def test_nelder_mead_carry_matches_the_reference_bit_for_bit(q, phases):
+    """The warm-carried search: every candidate starts its fixed-point
+    iterate from the carry, the accepted one's iterate is carried on, and
+    the objective reads the iterate (so a stale carry costs value). Both
+    searches must end at the same vertex, value and carry."""
+    d = q * (q + 1) // 2
+    c = _targets(d, 7 * q)
+    x0 = np.abs(np.random.default_rng(q + 1).normal(0.5, 0.2, size=(CELLS, d)))
+    a0 = np.random.default_rng(q + 2).normal(0.0, 1.0, size=(CELLS, d))
+    lower = _lower(q)
+
+    @jax.jit
+    def ref(x0, a0, c):
+        def one(x0_, a0_, c_):
+            def f(x, a, budget):
+                a = _fixed_point(jnp, x, a, budget)
+                return _objective(jnp, a, c_, np.inf), a
+            return ref_optim.nelder_mead_carry(f, x0_, a0_, phases=phases, init_step=STEP,
+                                               lower=jnp.asarray(lower))
+        return jax.vmap(one)(x0, a0, c)
+
+    want = [np.asarray(v) for v in ref(jnp.asarray(x0), jnp.asarray(a0), jnp.asarray(c))]
+    ct = torch.as_tensor(c)
+
+    def f(points, aux, budget):
+        a = _fixed_point(torch, points, aux[0][:, None, :], budget)
+        return _objective(torch, a, ct[:, None, :], np.inf), (a,)
+
+    got_x, got_f, (got_a,) = optim.nelder_mead_carry(
+        f, torch.as_tensor(x0), (torch.as_tensor(a0),), phases=phases, init_step=STEP,
+        lower=torch.as_tensor(lower))
+    np.testing.assert_array_equal(got_x.numpy(), want[0])
+    np.testing.assert_array_equal(got_f.numpy(), want[1])
+    np.testing.assert_array_equal(got_a.numpy(), want[2])
+    assert (got_x.numpy()[::2, 0] == 0.0).sum() > 0  # the lower bound binds
+    assert not np.array_equal(got_a.numpy(), a0)
