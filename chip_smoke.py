@@ -11,7 +11,7 @@ Run from the repository root with no arguments:
 Phases, each fatal on failure (exit code != 0, no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build kernels K1-K4 and K6-K10 from ``mcpower_tpu_torch/csrc`` (one nvcc
+2. build kernels K1-K4 and K6-K11 from ``mcpower_tpu_torch/csrc`` (one nvcc
    per source, all started together) and print their register and spill
    use, per instantiation (of p for K2-K4 and K6, K2's slope mode on a line
    of its own, of p = 1..4 and the p <= 8 and p <= 16 buckets for K7, of q =
@@ -62,6 +62,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
    launch of the slope-GLMM flow, and off the path q = 3, q = 4 at p = 16,
    probit, Poisson, the FD Hessian, blocked clusters and 300 clusters),
    every output bit-identical (flags, pins, beta, cov, tau^2, ybar, theta);
+   K2's joint mode (structured, dense, an extra grouping's own slope and
+   p = 16) within ``K2_JOINT_REL``, its counts exact; K11 at every case of
+   ``K11_CHECKS`` (the two extras arms, a launch of each extras flow:
+   crossed Me = 25, nested Me = 48, dense M = 70; and off the path two
+   extra groupings, an extra grouping's own slope and p = 16), every output
+   bit-identical (flags, pins, beta, cov, tau^2, theta), and the
+   structured arm forced through the dense capacitance: at the structured
+   fit's theta within ``EXTRAS_AB_FIT_REL`` with every pin equal, its own
+   search within ``EXTRAS_AB_THETA``;
 4. drive the main path through ``lower`` and ``run_batch(device="cuda")``:
    the 10,000-replicate random-intercept LMM headline (base seed 2137), the
    OLS arm, the 8-point power curve and the GLM arm (logit, Bonferroni),
@@ -82,6 +91,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    chunk through K1 twice and K10 once), its 1,024-sim counts against the
    reference's (pins within ``SLOPE_GLMM_PIN_FLIPS``, tau^2 within
    ``SLOPE_GLMM_TAU2_REL``) and against the plain path's on the card, equal;
+   then the extras arms (``EXTRAS_DESIGNS``: lmm_extras and its dense twin,
+   2,000 sims each in one chunk through K1, K2 and its joint mode and K11,
+   each once), their 1,024-sim counts against the reference's (pins within
+   ``EXTRAS_PIN_FLIPS``, tau^2 within ``EXTRAS_TAU2_REL``) and against the
+   plain path's on the card;
 5. time each kernel (K1 and K2 at the LMM, OLS and curve arms' shapes, K1
    also at the realistic LMM's long and short normal fills, K3
    at the OLS and curve shapes and at a launch of the README model's
@@ -91,7 +105,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    at a launch of README flow 3's power and sample-size flows, K9 at a
    launch of README flow 2 and at the lmm_slopes and lmm_multislope cells,
    K2's slope mode at the lmm_slopes rows and a README flow 2 launch's, K10
-   at a launch of the slope-GLMM flow and at the glmm_slopes cells) on
+   at a launch of the slope-GLMM flow and at the glmm_slopes cells, K11 at
+   the lmm_extras arm's cells and at a launch of the crossed and the dense
+   extras flows, K2's joint mode at the arm's rows and a crossed flow
+   launch's, beside one ``torch.bmm`` of a dense one-hot Z) on
    the device, from
    torch.profiler's kernel events, and per call through its wrapper (CUDA
    events, launch overhead included), each call on inputs that are not in
@@ -107,7 +124,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    launch of their own; then each arm's wall (the GLMM and slope arms' too),
    and a profile of each arm (wall median of 7 calls, busy share, largest
    device items);
-6. drive the twenty-five user flows of ``MODEL_FLOWS`` through
+6. drive the thirty user flows of ``MODEL_FLOWS`` through
    ``mcpower_tpu_torch.MCPower`` on the card (the random-intercept LMM's
    and the OLS model's ``find_power`` and ``find_sample_size``, the logit
    model's ``find_power`` and ``find_sample_size``, the Poisson model's
@@ -123,7 +140,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    to_size=900)`` and ``scenarios=True``, each launching K2 and K9 once a
    chunk; README flow 3's model with a random slope on dose:
    ``find_power(480)``, ``find_sample_size(from_size=240, to_size=720)``
-   and ``scenarios=True``, each launching K10 once a chunk; 10,000 sims, base seed
+   and ``scenarios=True``, each launching K10 once a chunk; example 13's
+   crossed ``find_power(1000)``, ``find_sample_size(from_size=1000,
+   to_size=3000)`` and ``scenarios=True``, example 15's nested
+   ``find_power(720)`` and README flow 2 with a crossed rater
+   ``find_power(600)``, each launching K2 twice (its joint mode once) and
+   K11 once a chunk; 10,000 sims, base seed
    2137), each with every launch count set to 0 before it and read after
    (the logit factor flow must launch K6 twice a chunk, the second the
    fallback's; K1 as often a chunk as each scenario's fill plan says); check
@@ -131,7 +153,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    golden values of the JAX reference's ``MCPower`` (at most one flip per
    count) and their result trees at TREE_SIMS (256) sims against the plain
    path's on the CPU (the slope-GLMM flows' against the plain path's on
-   the card, K10's plain version in K10's place: on the CPU it would take
+   the card, K10's plain version in K10's place, and the extras flows' with
+   K2's joint mode and K11's plain versions: on the CPU they would take
    minutes);
    print each flow's wall median (range) of 7 calls, the split into
    projection, lowering, runner (run_batch inside it) and packaging, the
@@ -139,7 +162,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``run_batch`` wall (per scenario);
 7. print the ``kernels`` JSON line (launches on each kernel's path: the
    arms' for K1-K4 and K6, the GLMM arms' for K7, the slope arm's for K9,
-   the slope-GLMM arm's for K10,
+   the slope-GLMM arm's for K10, the extras arms' for K11 and K2's joint
+   mode (its own entry, ``grid_suffstats_joint``),
    the Poisson flow's for K8; and by arm and by
    flow, with K6's fallback launches by flow and K1's launches a chunk of
    each flow's scenarios), then as the last line
@@ -678,6 +702,56 @@ K10_CHECKS = {
     "glmm_slopes_hessian": 64, "glmm_slopes_blocked": 64, "glmm_slopes_m300": 16,
 }
 
+# The LMM with extra groupings (K2's joint mode and kernel K11). The arms:
+# bench.py's cliff arm lmm_extras (:146-166; benchmarks/throughput.py
+# :147-161): the LMM headline's design with a crossed grouping of 10 levels
+# (tau^2 0.15; M = 30, d = 2, the structured capacitance, Me = 10), and the
+# same with throughput.py's cl_slopes slope on x1 (:133-138: variance 0.2,
+# corr 0.3; M = 40 + 10 = 50, d = 4, the dense capacitance), each driven as
+# one chunk of EXTRAS_SIMS sims in phase 4. K11's cases (phase 3), each held
+# against mixedfit.joint_reml_plain bit for bit on the same generated rows:
+# the two arms, a launch of each extras flow (N_SIMS / 8 sims, lowered by the
+# flow: crossed Me = 25, nested Me = 48, dense M = 70), and off the path two
+# extra groupings (crossed 4, then nested 2 per parent: the stride chain),
+# a dense plan whose crossed grouping carries a slope of its own, p = 16
+# (the blocked p x p factor), and the forced-dense A/B of the structured
+# arm (EXTRAS_AB_THETA).
+EXTRAS_SIMS = 2_000
+_EXTRAS = dict(DESIGNS["lmm_headline"], cluster=dict(
+    DESIGNS["lmm_headline"]["cluster"],
+    extra_groupings=[dict(relation="crossed", n_levels=10, tau_squared=0.15)]))
+EXTRAS_DESIGNS = {
+    "lmm_extras": _EXTRAS,
+    "lmm_extras_dense": dict(_EXTRAS, cluster=dict(_EXTRAS["cluster"], slopes=[_SLOPE])),
+}
+K11_DESIGNS = {
+    "extras_two": dict(_EXTRAS, grid=[192], cluster=dict(
+        sizing_mode="fixed_clusters", sizing_value=12, tau_squared=0.25,
+        extra_groupings=[dict(relation="crossed", n_levels=4, tau_squared=0.15),
+                         dict(relation="nested", n_levels=2, tau_squared=0.1)])),
+    "extras_exslope": dict(_EXTRAS, grid=[160], cluster=dict(
+        sizing_mode="fixed_clusters", sizing_value=10, tau_squared=0.25,
+        extra_groupings=[dict(relation="crossed", n_levels=8, tau_squared=0.15,
+                              slopes=[dict(design_col=1, variance=0.1, intercept_corr=0.2)])])),
+    "extras_p16": dict(grid=[288], var_types=["normal"] * 15, effects=[0.0] + [0.05] * 15,
+                       target_cols=list(range(1, 16)), estimator="mle",
+                       cluster=dict(sizing_mode="fixed_clusters", sizing_value=12,
+                                    tau_squared=0.25, extra_groupings=[
+                                        dict(relation="crossed", n_levels=6,
+                                             tau_squared=0.15)])),
+}
+# Cases lowered by a flow of the extras: (flow, sims).
+K11_FLOW_CASES = {"crossed_flow_launch": ("model_crossed_power", N_SIMS // 8),
+                  "nested_flow_launch": ("model_nested_power", N_SIMS // 8),
+                  "dense_flow_launch": ("model_dense_extras_power", N_SIMS // 8)}
+K11_CHECKS = {
+    "lmm_extras": EXTRAS_SIMS, "lmm_extras_dense": 512, "crossed_flow_launch": N_SIMS // 8,
+    "nested_flow_launch": N_SIMS // 8, "dense_flow_launch": 512, "extras_two": 256,
+    "extras_exslope": 256, "extras_p16": 64,
+}
+# K2's joint mode against its plain version: structured, dense and p = 16.
+K2_JOINT_CHECKS = ("lmm_extras", "lmm_extras_dense", "extras_exslope", "extras_p16")
+
 
 def k7_args(spec, arr, X, y):
     """K7's arguments for a lowered GLMM design and its generated rows (the
@@ -734,6 +808,36 @@ def k10_plain():
         yield
     finally:
         glmmfit.glmm_slope_kernel = real
+
+
+@contextmanager
+def k11_plain():
+    """Inside the block, K11's and K2's joint-mode wrappers run their plain
+    versions (on the card): the plain path of an extras flow, its other
+    kernels kept."""
+    from mcpower_tpu_torch.engine import mixedfit, olsfit
+
+    real = mixedfit.joint_reml_kernel, olsfit.joint_suffstats_kernel
+    mixedfit.joint_reml_kernel = mixedfit.joint_reml_plain
+    olsfit.joint_suffstats_kernel = olsfit.joint_suffstats_plain
+    try:
+        yield
+    finally:
+        mixedfit.joint_reml_kernel, olsfit.joint_suffstats_kernel = real
+
+
+def k11_args(spec, suff):
+    """K11's arguments from a lowered extras design's joint statistics (the
+    order mixedfit.mixed_grid_stats passes them)."""
+    import torch
+
+    from mcpower_tpu_torch.engine import mixedfit
+
+    plan = mixedfit.grouping_plan(spec)
+    _, theta0, lower_ = mixedfit.theta_layout(plan)
+    return (suff["ztz"], suff["ztx"], suff["zty"], suff["xtx"], suff["xty"], suff["yty"],
+            torch.as_tensor(spec.grid, dtype=torch.float64, device=suff["xtx"].device),
+            [(m, q) for m, q, _, _, _ in plan], theta0, lower_)
 
 
 def k7_is_pr10(k) -> bool:
@@ -923,6 +1027,34 @@ GOLDEN = {
         "tau2_hat": [248.82575843569634],
         "n_done": 1024,
     },
+    # the JAX reference on the CPU, lmm_extras at GOLDEN_SIMS
+    "lmm_extras": {
+        "boundary_hit": [17],
+        "converged": [1024],
+        "joint_corr": [715],
+        "joint_unc": [715],
+        "nsig_hist_corr": [[6, 303, 715]],
+        "nsig_hist_unc": [[6, 303, 715]],
+        "pinned_comp": [[3, 14]],
+        "sig_corr": [[994, 739]],
+        "sig_unc": [[994, 739]],
+        "tau2_hat": [254.86853240096613],
+        "n_done": 1024,
+    },
+    # the JAX reference on the CPU, lmm_extras_dense at GOLDEN_SIMS
+    "lmm_extras_dense": {
+        "boundary_hit": [5],
+        "converged": [1024],
+        "joint_corr": [445],
+        "joint_unc": [445],
+        "nsig_hist_corr": [[91, 488, 445]],
+        "nsig_hist_unc": [[91, 488, 445]],
+        "pinned_comp": [[0, 3, 2]],
+        "sig_corr": [[666, 712]],
+        "sig_unc": [[666, 712]],
+        "tau2_hat": [254.53568191755173],
+        "n_done": 1024,
+    },
 }
 # The user flows of phase 6: ``MCPower`` built as a user writes it, then one
 # call. The OLS model is the README's first flow with the factor replaced by
@@ -974,6 +1106,26 @@ MODELS = {
                        cluster=dict(ICC=0.2, n_clusters=30, random_slopes=["treatment"],
                                     slope_variance=0.1),
                        types=None, corr=None, effects="treatment=0.4"),
+    # extra groupings (K2's joint mode and kernel K11), each grouping sized by
+    # its own set_cluster: examples/13_crossed_random_effects.py:12-22 as
+    # written (subjects x items, crossed), examples/15_advanced_mixed_models.py
+    # :32-42 as written (classrooms nested in schools) and README flow 2 with
+    # a crossed rater, as docs/api.md:63 writes it (the dense capacitance)
+    "crossed": dict(formula="rt = frequency + length + (1|subject) + (1|item)", family="lme",
+                    clusters=[("subject", dict(ICC=0.2, n_clusters=40)),
+                              ("item", dict(ICC=0.1, n_clusters=25))],
+                    cluster=None, types=None, corr=None,
+                    effects="frequency=-0.35, length=0.2"),
+    "nested": dict(formula="score = method + (1|school/classroom)", family="lme",
+                   clusters=[("school", dict(ICC=0.08, n_clusters=12)),
+                             ("school:classroom", dict(ICC=0.1, n_clusters=48, n_per_parent=4))],
+                   cluster=None, types="method=binary", corr=None, effects="method=0.35"),
+    "dense_extras": dict(formula="y ~ treatment + (1+treatment|site) + (1|rater)", family="lme",
+                         clusters=[("site", dict(ICC=0.2, n_clusters=30,
+                                                 random_slopes=["treatment"],
+                                                 slope_variance=0.1)),
+                                   ("rater", dict(ICC=0.1, n_clusters=10))],
+                         cluster=None, types=None, corr=None, effects="treatment=0.4"),
 }
 # flow -> (model, method, arguments, the kernels its path must launch)
 MODEL_FLOWS = {
@@ -1048,6 +1200,23 @@ MODEL_FLOWS = {
     "model_glmm_slopes_scenarios": ("glmm_slopes", "find_power",
                                     dict(sample_size=480, scenarios=True),
                                     ("philox_fill", "glmm_slope")),
+    # the LMM with extra groupings (K2's joint mode and kernel K11): example
+    # 13's crossed design (find_power as written, a sample-size search on its
+    # 1,000-row atom, 40 subjects x 25 items, whose grid from 500 to 1,500
+    # by 100 holds one feasible point, so 1,000 to 3,000; its three
+    # scenarios), example 15's nested design and the dense capacitance of a
+    # slope beside a crossed grouping
+    "model_crossed_power": ("crossed", "find_power", dict(sample_size=1000),
+                            ("philox_fill", "grid_suffstats", "joint_reml")),
+    "model_crossed_sample_size": ("crossed", "find_sample_size",
+                                  dict(from_size=1000, to_size=3000),
+                                  ("philox_fill", "grid_suffstats", "joint_reml")),
+    "model_crossed_scenarios": ("crossed", "find_power", dict(sample_size=1000, scenarios=True),
+                                ("philox_fill", "grid_suffstats", "joint_reml")),
+    "model_nested_power": ("nested", "find_power", dict(sample_size=720),
+                           ("philox_fill", "grid_suffstats", "joint_reml")),
+    "model_dense_extras_power": ("dense_extras", "find_power", dict(sample_size=600),
+                                 ("philox_fill", "grid_suffstats", "joint_reml")),
 }
 
 
@@ -1055,6 +1224,9 @@ MODEL_FLOWS = {
 # and of the GLMM with random slopes (SLOPE_GLMM_PIN_FLIPS).
 SLOPE_FLOWS = tuple(name for name, flow in MODEL_FLOWS.items() if flow[0] == "lmm_slopes")
 SLOPE_GLMM_FLOWS = tuple(name for name, flow in MODEL_FLOWS.items() if flow[0] == "glmm_slopes")
+# The flows of the LMM with extra groupings (EXTRAS_PIN_FLIPS, EXTRAS_TAU2_REL).
+EXTRAS_FLOWS = tuple(name for name, flow in MODEL_FLOWS.items()
+                     if flow[0] in ("crossed", "nested", "dense_extras"))
 
 
 def build_model(mcpower_cls, model: str):
@@ -1064,6 +1236,8 @@ def build_model(mcpower_cls, model: str):
     m = mcpower_cls(c["formula"], family=c["family"])
     if c["cluster"]:
         m.set_cluster(c.get("cluster_name", "cluster"), **c["cluster"])
+    for name, kw in c.get("clusters", ()):  # one call per grouping
+        m.set_cluster(name, **kw)
     if c["types"]:
         m.set_variable_type(c["types"])
     if c["corr"]:
@@ -1702,6 +1876,67 @@ MODEL_GOLDEN = {
             "boundary_component_counts": [[43]],
         },
     },
+    # the extras flows: the JAX reference's MCPower on the CPU at GOLDEN_SIMS
+    "model_crossed_power": {
+        "success_counts_uncorrected": [[1024, 1024]],
+        "success_counts_corrected": [[1024, 1024]],
+        "joint_counts_uncorrected": [1024],
+        "joint_counts_corrected": [1024],
+        "tau_squared_hat_mean": [0.25126564627995057],
+        "boundary_component_counts": [[0, 0]],
+    },
+    "model_crossed_sample_size": {
+        "success_counts_uncorrected": [[1024, 1024], [1024, 1024], [1024, 1024]],
+        "success_counts_corrected": [[1024, 1024], [1024, 1024], [1024, 1024]],
+        "joint_counts_uncorrected": [1024, 1024, 1024],
+        "joint_counts_corrected": [1024, 1024, 1024],
+        "tau_squared_hat_mean": [0.2512743486117039, 0.2505607831543924, 0.25071274608903527],
+        "boundary_component_counts": [[0, 0], [0, 0], [0, 0]],
+        "first_achieved": {"frequency": 1000, "length": 1000},
+        "fitted": {"frequency": None, "length": None},
+    },
+    "model_crossed_scenarios": {
+        "optimistic": {
+            "success_counts_uncorrected": [[1024, 1024]],
+            "success_counts_corrected": [[1024, 1024]],
+            "joint_counts_uncorrected": [1024],
+            "joint_counts_corrected": [1024],
+            "tau_squared_hat_mean": [0.25126564627995057],
+            "boundary_component_counts": [[0, 0]],
+        },
+        "realistic": {
+            "success_counts_uncorrected": [[1024, 1020]],
+            "success_counts_corrected": [[1024, 1020]],
+            "joint_counts_uncorrected": [1020],
+            "joint_counts_corrected": [1020],
+            "tau_squared_hat_mean": [0.2560146367399002],
+            "boundary_component_counts": [[33, 139]],
+        },
+        "doomer": {
+            "success_counts_uncorrected": [[998, 961]],
+            "success_counts_corrected": [[998, 961]],
+            "joint_counts_uncorrected": [939],
+            "joint_counts_corrected": [939],
+            "tau_squared_hat_mean": [0.286205609435525],
+            "boundary_component_counts": [[148, 212]],
+        },
+    },
+    "model_nested_power": {
+        "success_counts_uncorrected": [[1021]],
+        "success_counts_corrected": [[1021]],
+        "joint_counts_uncorrected": [1021],
+        "joint_counts_corrected": [1021],
+        "tau_squared_hat_mean": [0.0863962356021785],
+        "boundary_component_counts": [[50, 0]],
+    },
+    "model_dense_extras_power": {
+        "success_counts_uncorrected": [[1024]],
+        "success_counts_corrected": [[1024]],
+        "joint_counts_uncorrected": [1024],
+        "joint_counts_corrected": [1024],
+        "tau_squared_hat_mean": [0.2523622606826891],
+        "boundary_component_counts": [[0, 0, 2]],
+    },
 }
 
 # The f32 generation path's log may differ by an ULP between XLA:CPU and
@@ -1747,10 +1982,40 @@ SLOPE_PIN_FLIPS = 6
 # frozen before the first card run.
 SLOPE_GLMM_PIN_FLIPS = 6
 SLOPE_GLMM_TAU2_REL = 1e-3
+# The LMM with extra groupings (K11): its Nelder-Mead ranks on f32
+# deviances of the joint capacitance, as the slope LMM's does, so most cells
+# stop at another simplex point than the reference's, and its pins (a
+# Cholesky diagonal below 1e-4 at the optimum), its significance counts
+# where a cell sits near its threshold, and its tau^2 sums carry the
+# difference. Measured on the CPU before any card run of the goldens, the
+# port's plain path against the JAX reference at 1,024 sims (the two extras
+# arms and the five extras flows): pin counts at most 7 apart (the crossed
+# doomer scenario's item pins, 205 against 212, where ICC noise drives an
+# item variance to 0 and the searches stop on either side of the 1e-4 pin
+# on a flat deviance; 3 in the realistic one, at most 2 elsewhere),
+# significance counts at most 2 (the dense arm's x1, 664 against 666; its
+# joint and histogram counts 1), the mean tau^2 at most 4.0e-4 relative
+# (model_nested_power). The bands: twice the measured for pins and counts
+# (EXTRAS_PIN_FLIPS 14, EXTRAS_COUNT_FLIPS 4; MAX_FLIPS elsewhere), and
+# TAU2_REL's 2e-3 for tau^2 (5x the measured). A standing record in ROADMAP
+# C; frozen before the first card run of the goldens.
+EXTRAS_PIN_FLIPS = 14
+EXTRAS_COUNT_FLIPS = 4
+EXTRAS_TAU2_REL = 2e-3
+# The structured arm forced through the dense capacitance (phase 3). The two
+# forms agree to rounding at one theta (measured on the CPU: the f64
+# deviance to 2.1e-16 relative; on the H100: beta 1.5e-14, tau^2 6e-16),
+# but each search ranks its own f32 roundings, so the two searches stop
+# apart (measured: theta up to 1.8e-3 on the CPU, 2.1e-3 on the H100, pins
+# equal): the fits at one theta within EXTRAS_AB_FIT_REL, the searches'
+# theta within EXTRAS_AB_THETA, every pin equal.
+EXTRAS_AB_FIT_REL = 1e-10
+EXTRAS_AB_THETA = 1e-2
 
 # Kernel tolerances on the card, against the plain versions on the same
 # inputs. Relative errors are max |kernel - plain| / max |plain| per output.
 K2_REL = 1e-12  # f64 sums in another order
+K2_JOINT_REL = 1e-13  # the joint mode's f64 sums, rows in order against scatter_add's
 K3_REL = 1e-10  # f64 solve, same operation order except sums
 K4_REL = 1e-7  # 20-step search whose last steps are decided by rounding
 # The same IRLS steps in the same order and the same libdevice
@@ -1795,6 +2060,10 @@ KERNEL_META = {
                        "mcpower_tpu/engine/glmmfit.py:909"),
     "slope_reml": ("mcpower_tpu_torch/csrc/slope_reml.cu", "mcpower_tpu/engine/mixedfit.py:385"),
     "glmm_slope": ("mcpower_tpu_torch/csrc/glmm_slope.cu", "mcpower_tpu/engine/glmmfit.py:556"),
+    "joint_reml": ("mcpower_tpu_torch/csrc/joint_reml.cu", "mcpower_tpu/engine/mixedfit.py:719"),
+    # K2's joint mode, an entry of grid_suffstats.cu counted under its tag
+    "grid_suffstats_joint": ("mcpower_tpu_torch/csrc/grid_suffstats.cu",
+                             "mcpower_tpu/engine/mixedfit.py:570"),
 }
 # Kernels that the arms of DESIGNS launch; K8 draws count outcomes, which
 # only the Poisson flow of phase 6 has.
@@ -1820,15 +2089,21 @@ def lower_design(lower_mod, cluster_cls, name: str):
     ``truth_start`` entry becomes the scenario's."""
     kw = dict({**DESIGNS, **SCENARIO_ARMS, **SCENARIO_DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS,
                **FACTOR_DESIGNS, **K6_DESIGNS, **GLMM_DESIGNS, **K7_DESIGNS, **SLOPE_DESIGNS,
-               **K9_DESIGNS, **SLOPE_GLMM_DESIGNS, **K10_DESIGNS}[name])
+               **K9_DESIGNS, **SLOPE_GLMM_DESIGNS, **K10_DESIGNS, **EXTRAS_DESIGNS,
+               **K11_DESIGNS}[name])
     for key in ("corr", "effects"):
         if key in kw:
             kw[key] = np.asarray(kw[key], dtype=np.float64)
     if "cluster" in kw:
         cl = dict(kw["cluster"])
-        if "slopes" in cl:  # the same package's SlopeStatic
-            slope_cls = sys.modules[cluster_cls.__module__].SlopeStatic
-            cl["slopes"] = tuple(slope_cls(**sl) for sl in cl["slopes"])
+        mod = sys.modules[cluster_cls.__module__]  # the same package's SlopeStatic
+        if "slopes" in cl:
+            cl["slopes"] = tuple(mod.SlopeStatic(**sl) for sl in cl["slopes"])
+        if "extra_groupings" in cl:
+            cl["extra_groupings"] = tuple(
+                mod.ExtraGroupingStatic(**dict(eg, slopes=tuple(
+                    mod.SlopeStatic(**sl) for sl in eg.get("slopes", ()))))
+                for eg in cl["extra_groupings"])
         kw["cluster"] = cluster_cls(**cl)
     if "truth_start" in kw:
         kw["scenario"] = lower_mod.ScenarioStatic(truth_start=kw.pop("truth_start"))
@@ -2205,6 +2480,62 @@ def k10_bound(args, outs) -> Tuple[float, str]:
     return bound(read + nbytes(beta0, *(o for o in outs if hasattr(o, "numel"))), ops)
 
 
+def k11_bound(args, outs) -> Tuple[float, str]:
+    """Every cell's fit as K11 runs it: d + 1 + 4 x 140 f32 evaluations and
+    one f64 refit, each evaluation's operations (a multiply-add two
+    operations: K11 is built without contraction) counted by its form:
+    structured (a, Cpe, Cpe / a, rp, rp / a, re; S over the m1 primary
+    levels; the Me x Me factor and the solves of p + 1 columns; xp; the
+    tail's (p + 1)^2 row sums; m1 + Me logs) or dense (C = I + Lam' ztz Lam
+    entry by entry over each grouping's components, the M x M factor, the
+    solves, the tail, M logs); then the p x p factor, solve and logs, and
+    the final inverse. Bytes: every input read once, every output written
+    once."""
+    from mcpower_tpu_torch.engine import mixedfit
+
+    ztz, ztx, zty, xtx, xty, yty, _, shape = args[:8]
+    M, p, cells = ztz.shape[-1], xtx.shape[-1], float(yty.numel())
+    r = p + 1
+    d = sum(q * (q + 1) // 2 for _, q in shape)
+    if all(q == 1 for _, q in shape):
+        m1 = shape[0][0]
+        n = M - m1
+        mac = (m1 + m1 * n + m1 * r + n * r  # a, Cpe, rp, re
+               + n * (n + 1) // 2 * (m1 + 1) + n * r * m1  # S, t
+               + m1 * r * n + r * r * M)  # xp, the tail
+        divs, logs = m1 * n + m1 * r + 2 * m1 * r, m1 + n
+    else:
+        # a column's terms: its grouping's components from its own on
+        k = [q - c for m, q in shape for _ in range(m) for c in range(q)]
+        mac = (sum(ka * kb + kb for i, ka in enumerate(k) for kb in k[:i + 1])  # C
+               + r * sum(k) + r * r * M)  # [Lam' zty | Lam' ztx], the tail
+        n, divs, logs = M, 0, M
+    mac += n ** 3 // 6 + r * n * n  # the factor; forward and backward solves
+    divs += n * (n + 1) // 2 + 2 * n * r
+    pmac = p ** 3 // 6 + p * p + p
+    per_eval = {"f32": 2 * (mac + pmac) + (divs + 3 * p + n) * F32_DIV_OPS
+                + (logs + p + 1) * F32_EXP_OPS,
+                "f64": 2 * (mac + pmac) + (divs + 3 * p) * F64_DIV_INSTR + n * F64_SQRT_INSTR
+                + (logs + p + 1) * F64_LOG_INSTR}
+    evals = {"f32": d + 1 + 4 * mixedfit.SLOPE_NM_ITERS, "f64": 1}
+    ops = {k: cells * evals[k] * per_eval[k] for k in evals}
+    ops["f64"] += cells * (p ** 3 + p * p)
+    return bound(nbytes(*args[:6], *(o for o in outs if hasattr(o, "numel"))), ops)
+
+
+def k2_joint_bound(spec, X, y, out) -> Tuple[float, str]:
+    """K2's joint mode: X and y read once, ztz, ztx and zty written once per
+    grid point; Q^2 + Q p + Q f64 multiply-adds a row (Q components)."""
+    from mcpower_tpu_torch.engine import olsfit
+
+    groups, _ = olsfit.joint_layout(spec)
+    Q = sum(1 + len(cols) for _, _, cols in groups)
+    p = len(spec.effective_fit_cols)
+    rows = float(X.shape[0] * X.shape[1])
+    return bound(nbytes(X, y, out["ztz"], out["ztx"], out["zty"]),
+                 {"f64": 2 * rows * (Q * Q + Q * p + Q)})
+
+
 def rel_err_finite(name: str, a, b) -> float:
     """rel_err over the entries finite in both, after checking that the
     same entries are finite."""
@@ -2263,13 +2594,18 @@ def device_ms(fn, copies, reps: int, kernel: str = "", launches: int = None) -> 
 
     counted = []
 
+    def launched(name):  # K2's joint mode is counted under its tag
+        if name == "grid_suffstats_joint":
+            return kernels.tagged_counts().get("grid_suffstats", {}).get("joint", 0)
+        return kernels.counts()[name]
+
     def calls():
         name = kernel.removesuffix("_kernel")
-        before = kernels.counts()[name] if launches else 0
+        before = launched(name) if launches else 0
         for i in range(reps):
             fn(*copies[i % len(copies)])
         if launches:
-            counted.append(kernels.counts()[name] - before)
+            counted.append(launched(name) - before)
 
     events = device_events(calls, kernel or "the plain version", kernel,
                            before=lambda: _warm_then_flush(fn, copies))
@@ -2318,10 +2654,14 @@ class ClockSampler:
 
 
 PROFILE_REPS = 7
+# The extras flows and arms: K11 takes tenths of a second a launch (a first
+# version), so their walls are medians of 3 calls, to keep the script within
+# its time.
+EXTRAS_PROFILE_REPS = 3
 
 
-def profile_arm(run, after_each=None) -> Dict:
-    """Wall of ``PROFILE_REPS`` calls of ``run`` (host clock; each call ends
+def profile_arm(run, after_each=None, reps: int = None) -> Dict:
+    """Wall of ``reps`` (PROFILE_REPS) calls of ``run`` (host clock; each call ends
     with the counts on the host), then one call under torch.profiler: the
     summed device time of its kernels, their count and the largest by
     name (ms). ``after_each()`` is called after each timed call, outside
@@ -2330,7 +2670,7 @@ def profile_arm(run, after_each=None) -> Dict:
     from collections import defaultdict
 
     walls = []
-    for _ in range(PROFILE_REPS):
+    for _ in range(reps or PROFILE_REPS):
         t0 = time.perf_counter()
         run()
         walls.append((time.perf_counter() - t0) * 1e3)
@@ -2437,7 +2777,12 @@ def _ptxas_lines(name: str, log: str) -> list:
                 out.append(f"  ptxas {name} {tag}: " + ", ".join(
                     f"p={q}: {v['regs']} registers, {v.get('spill', 0)} B spill stores"
                     for q, v in sorted(rows, key=lambda r: r[0])))
+        out += [f"  ptxas {name} joint mode: {v['regs']} registers, {v.get('spill', 0)} B spill "
+                f"stores" for mangled, v in _ptxas_by_kernel(log).items() if "joint" in mangled]
         return out
+    if name == "joint_reml":
+        return [f"  ptxas {name}: {v['regs']} registers, {v.get('spill', 0)} B spill stores"
+                for v in _ptxas_by_kernel(log).values()]
     if name == "philox_fill":
         rows = []
         for mangled, v in sorted(_ptxas_by_kernel(log).items()):
@@ -2636,6 +2981,7 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
         with stage_clock(model_mod, runner, batch) as clock:
             res = run()
         launched, tagged = kernels.counts(), kernels.tagged_counts()
+        launched["grid_suffstats_joint"] = tagged.get("grid_suffstats", {}).get("joint", 0)
         got = clock.take()
         lowered = got["lowered"]
         print(f"flow {name}: kernel launches {launched}"
@@ -2668,18 +3014,30 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
 
         card = run(GOLDEN_SIMS)
         pins = (SLOPE_PIN_FLIPS if name in SLOPE_FLOWS else
-                SLOPE_GLMM_PIN_FLIPS if name in SLOPE_GLMM_FLOWS else None)
+                SLOPE_GLMM_PIN_FLIPS if name in SLOPE_GLMM_FLOWS else
+                EXTRAS_PIN_FLIPS if name in EXTRAS_FLOWS else None)
         tau_rel = (SLOPE_GLMM_TAU2_REL if name in SLOPE_GLMM_FLOWS else
-                   GLMM_TAU2_REL if name.startswith("model_glmm") else None)
+                   GLMM_TAU2_REL if name.startswith("model_glmm") else
+                   EXTRAS_TAU2_REL if name in EXTRAS_FLOWS else None)
+        if name in EXTRAS_FLOWS:  # K2's joint mode once a chunk beside its main entry
+            check(launched["grid_suffstats_joint"] == got["chunks"]
+                  and launched["joint_reml"] == got["chunks"],
+                  f"flow {name}: K2's joint mode {launched['grid_suffstats_joint']} and K11 "
+                  f"{launched['joint_reml']} launches in {got['chunks']} chunks")
+        counts_band = EXTRAS_COUNT_FLIPS if name in EXTRAS_FLOWS else None
         flips = compare_trees(name, flow_summary(card), MODEL_GOLDEN[name], tau_rel=tau_rel,
-                              pin_flips=pins)
+                              pin_flips=pins, max_flips=counts_band)
         card = run(TREE_SIMS)
         if name in SLOPE_GLMM_FLOWS:  # K10's plain version on the card: the CPU's takes minutes
             with k10_plain():
                 plain_tree, where = run(TREE_SIMS), "on the card (K10's plain version)"
+        elif name in EXTRAS_FLOWS:  # likewise K11's and K2's joint mode's
+            with k11_plain():
+                plain_tree, where = run(TREE_SIMS), ("on the card (K2's joint mode's and K11's "
+                                                     "plain versions)")
         else:
             plain_tree, where = run(TREE_SIMS, "cpu"), "on the CPU"
-        tree_flips = compare_trees(name, card, plain_tree, pin_flips=pins)
+        tree_flips = compare_trees(name, card, plain_tree, pin_flips=pins, max_flips=counts_band)
         print(f"golden {name} at {GOLDEN_SIMS} sims against the JAX MCPower: "
               f"{'identical' if not flips else 'flips ' + '; '.join(flips)}; whole result tree "
               f"at {TREE_SIMS} sims ({len(tree_keys(card))} keys) against the plain path's "
@@ -2687,8 +3045,9 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
               flush=True)
 
         splits = []
+        reps = EXTRAS_PROFILE_REPS if name in EXTRAS_FLOWS else PROFILE_REPS
         with stage_clock(model_mod, runner, batch) as clock:
-            prof = profile_arm(run, after_each=lambda: splits.append(clock.take()))
+            prof = profile_arm(run, after_each=lambda: splits.append(clock.take()), reps=reps)
         split = {st: statistics.median(s["ms"].get(st, 0.0) for s in splits)
                  for st in ("projection", "lowering", "runner", "run_batch", "packaging")}
         split["other"] = statistics.median(
@@ -2697,7 +3056,7 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
             for w, s in zip(prof["walls"], splits))
         chunks = splits[0]["chunks"]
         one = profile_arm(lambda: [batch.run_batch(sp, ar, N_SIMS, SEED, chunk_size=N_SIMS,
-                                                   device=dev) for sp, ar in lowered])
+                                                   device=dev) for sp, ar in lowered], reps=reps)
         busy = prof["device_ms"] / prof["median_ms"]
         flows[name] = dict(
             wall_median_ms=prof["median_ms"], wall_min_ms=prof["min_ms"],
@@ -2711,7 +3070,7 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
         items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
         host = ", ".join(f"{k} {v:.3f}" for k, v in prof["host_items"])
         print(f"flow {name} ({N_SIMS} sims; {smi}): wall median {prof['median_ms']:.3f} ms "
-              f"(range {prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {PROFILE_REPS} calls); split "
+              f"(range {prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {reps} calls); split "
               f"(medians, ms): projection {split['projection']:.3f}, lowering "
               f"{split['lowering']:.3f}, runner {split['runner']:.3f} (run_batch inside it "
               f"{split['run_batch']:.3f}), packaging {split['packaging']:.3f}, other "
@@ -3184,6 +3543,83 @@ def main(argv=None) -> int:
               + f"; {time.perf_counter() - t_case:.1f} s", flush=True)
         check(not any(diffs.values()), f"K10 {name}: outputs differ from the plain version's {diffs}")
     records["glmm_slope"] = {"max_abs_err": k10_err}
+
+    # K2's joint mode on generated extras designs: counts exact, the X sums
+    # within K2_JOINT_REL
+    k2j_err = 0.0
+    for name in K2_JOINT_CHECKS:
+        spec_, arr_ = lower_design(lower, ClusterStatic, name)
+        X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
+                                           sim_ids[:GOLDEN_SIMS], plain=True)
+        got = olsfit.joint_suffstats_kernel(spec_, X_, y_)
+        want = olsfit.joint_suffstats_plain(spec_, X_, y_)
+        check(set(got) == set(want), f"K2 joint mode outputs {sorted(got)} != {sorted(want)}")
+        rel = max(rel_err(got[k], want[k]) for k in ("ztz", "ztx", "zty"))
+        k2j_err = max(k2j_err, max((got[k] - want[k]).abs().max().item()
+                                   for k in ("ztz", "ztx", "zty")))
+        groups, M_ = olsfit.joint_layout(spec_)
+        q1 = all(not cols for _, _, cols in groups)
+        if q1:  # every ztz entry a count
+            check(torch.equal(got["ztz"], want["ztz"]), f"K2 joint mode {name}: counts differ")
+        print(f"K2 grid_suffstats joint mode {name} X {tuple(X_.shape)}, p "
+              f"{len(spec_.effective_fit_cols)}, M {M_} ({len(groups)} groupings"
+              f"{', counts exact' if q1 else ''}): max rel err {rel:.3e}", flush=True)
+        check(rel <= K2_JOINT_REL, f"K2 joint mode {name}: rel err {rel:.3e} > {K2_JOINT_REL}")
+    records["grid_suffstats_joint"] = {"max_abs_err": k2j_err}
+
+    # K11 on K2's joint statistics of generated rows, bit for bit (theta too)
+    k11_args_by, k11_out = {}, {}
+    flow_cases11 = {name: flow_lowered(flow)[0] for name, (flow, _) in K11_FLOW_CASES.items()}
+    k11_err = 0.0
+    for name, n in K11_CHECKS.items():
+        t_case = time.perf_counter()
+        spec_, arr_ = flow_cases11[name] if name in flow_cases11 else \
+            lower_design(lower, ClusterStatic, name)
+        X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
+                                           sim_ids[:n], plain=True)
+        args = k11_args(spec_, olsfit.joint_suffstats_plain(spec_, X_, y_))
+        k11_args_by[name] = args
+        got = mixedfit.joint_reml_kernel(*args, with_theta=True)
+        want = mixedfit.joint_reml_plain(*args, with_theta=True)
+        k11_out[name] = got
+        cells, nq = want[2].numel(), want[5].shape[-1]
+        n_conv, n_bnd = int(want[2].sum()), int(want[3].sum())
+        pins = want[5].reshape(-1, nq).sum(0).tolist()
+        plan_ = mixedfit.grouping_plan(spec_)
+        form = "structured" if mixedfit.plan_all_q1(plan_) else "dense"
+        check(n_conv > 0.9 * cells, f"K11 {name}: only {n_conv} of {cells} converged")
+        diffs = {k: int((~((g == w) | (g.isnan() & w.isnan()))).sum())
+                 for k, g, w in zip(("beta", "cov", "converged", "boundary", "tau2", "pinned",
+                                     "theta"), got, want)}
+        k11_err = max(k11_err, max(float((g - w)[torch.isfinite(w)].abs().max())
+                                   for g, w in zip(got[:2] + got[4:5], want[:2] + want[4:5])))
+        print(f"K11 joint_reml {name} cells {tuple(got[2].shape)} p {args[3].shape[-1]} M "
+              f"{args[0].shape[-1]} ({form}, groupings {args[7]}): {n_conv} converged, {n_bnd} "
+              f"with a pin (per component {pins}); entries that differ from the plain version: "
+              + ", ".join(f"{k} {v}" for k, v in diffs.items())
+              + f"; {time.perf_counter() - t_case:.1f} s", flush=True)
+        check(not any(diffs.values()), f"K11 {name}: outputs differ from the plain version's {diffs}")
+    # the structured arm forced through the dense capacitance: at the
+    # structured fit's theta, then by its own search
+    args, st = k11_args_by["lmm_extras"], k11_out["lmm_extras"]
+    at = mixedfit.joint_reml_kernel(*args, theta=st[6], dense=True, with_theta=True)
+    at_plain = mixedfit.joint_reml_plain(*args, theta=st[6], dense=True, with_theta=True)
+    own = mixedfit.joint_reml_kernel(*args, dense=True, with_theta=True)
+    own_plain = mixedfit.joint_reml_plain(*args, dense=True, with_theta=True)
+    diffs = [int((a != b).sum()) for a, b in zip(at + own, at_plain + own_plain)]
+    fit_rel = max(rel_err(a, b) for a, b in ((at[0], st[0]), (at[1], st[1]), (at[4], st[4])))
+    theta_gap = float((own[6] - st[6]).abs().max())
+    pin_diff = int((at[5] != st[5]).sum()) + int((own[5] != st[5]).sum())
+    print(f"K11 forced-dense A/B of lmm_extras ({st[2].numel()} cells, M {args[0].shape[-1]}): "
+          f"the dense form at the structured theta, beta, cov and tau^2 within {fit_rel:.2e} "
+          f"relative; its own search's theta within {theta_gap:.2e}; pins that differ "
+          f"{pin_diff}; entries that differ from the plain version {sum(diffs)}", flush=True)
+    check(not any(diffs), f"K11 forced dense: outputs differ from the plain version's {diffs}")
+    check(fit_rel <= EXTRAS_AB_FIT_REL and theta_gap <= EXTRAS_AB_THETA and pin_diff == 0,
+          f"K11 forced dense against structured: fit {fit_rel:.2e}, theta {theta_gap:.2e}, pins "
+          f"{pin_diff}")
+    records["joint_reml"] = {"max_abs_err": k11_err, "forced_dense_ab": dict(
+        fit_rel=fit_rel, theta_gap=theta_gap, pins_differ=pin_diff)}
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if opts.checks_only:
@@ -3229,7 +3665,8 @@ def main(argv=None) -> int:
             if key in ("tau2_hat", "glm_baseline"):
                 band = (GLM_BASELINE_REL if key == "glm_baseline" else
                         GLMM_TAU2_REL if name in GLMM_DESIGNS else
-                        SLOPE_GLMM_TAU2_REL if name in SLOPE_GLMM_DESIGNS else TAU2_REL)
+                        SLOPE_GLMM_TAU2_REL if name in SLOPE_GLMM_DESIGNS else
+                        EXTRAS_TAU2_REL if name in EXTRAS_DESIGNS else TAU2_REL)
                 rel = float(np.abs(got - want).max() / np.abs(want).max())
                 check(rel <= band, f"{name} {key} rel {rel:.2e} > {band}")
                 continue
@@ -3240,6 +3677,9 @@ def main(argv=None) -> int:
                                                                         "boundary_hit")
                     else SLOPE_GLMM_PIN_FLIPS if name in SLOPE_GLMM_DESIGNS and key in (
                         "pinned_comp", "boundary_hit", "singular")
+                    else EXTRAS_PIN_FLIPS if name in EXTRAS_DESIGNS and key in (
+                        "pinned_comp", "boundary_hit")
+                    else EXTRAS_COUNT_FLIPS if name in EXTRAS_DESIGNS
                     else MAX_FLIPS)
             check(int(diff.max()) <= band, f"{name} {key}: {got.tolist()} vs golden {want.tolist()}")
         extra = set(counts) - set(GOLDEN[name])
@@ -3383,6 +3823,61 @@ def main(argv=None) -> int:
               f"{name}: the card's counts differ from the plain path's in {differ}")
         print(f"arm {name} at {GOLDEN_SIMS} sims: every count the plain path's on the card",
               flush=True)
+        for k in launches:
+            launches[k] += got_l[k]
+
+    # The extras arms: one chunk of EXTRAS_SIMS sims each through K1, K2
+    # (twice: its main entry, then its joint mode) and K11; at GOLDEN_SIMS
+    # the reference's counts and the plain path's on the card (K2's joint
+    # statistics and the plain ones differ in the last bits of the X sums,
+    # so the counts hold to the golden bands, and were equal at every run)
+    extras_specs = {name: lower_design(lower, ClusterStatic, name) for name in EXTRAS_DESIGNS}
+    extras_arm_s = {}
+    launches["grid_suffstats_joint"] = 0
+    for name, (spec_, arr_) in extras_specs.items():
+        batch.run_batch(spec_, arr_, EXTRAS_SIMS, 1, chunk_size=EXTRAS_SIMS, device=dev)  # warm-up
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        counts = batch.run_batch(spec_, arr_, EXTRAS_SIMS, SEED, chunk_size=EXTRAS_SIMS,
+                                 device=dev)
+        extras_arm_s[name] = time.perf_counter() - t0
+        got_l = kernels.counts()
+        got_l["grid_suffstats_joint"] = kernels.tagged_counts().get(
+            "grid_suffstats", {}).get("joint", 0)
+        launches_by_arm[name] = got_l
+        check(got_l["joint_reml"] == 1 and got_l["grid_suffstats"] == 2
+              and got_l["grid_suffstats_joint"] == 1 and got_l["philox_fill"] == 1,
+              f"{name}: K11 launched {got_l['joint_reml']} times, K2 {got_l['grid_suffstats']} "
+              f"(joint mode {got_l['grid_suffstats_joint']}), K1 {got_l['philox_fill']} (1, 2 "
+              f"(1), 1 expected)")
+        check(int(counts["n_done"]) == EXTRAS_SIMS, f"{name}: n_done {counts['n_done']}")
+        conv = np.asarray(counts["converged"])
+        check(bool((conv > 0.9 * EXTRAS_SIMS).all()), f"{name}: converged {conv.tolist()}")
+        for key, v in counts.items():
+            check(bool(np.isfinite(np.asarray(v, dtype=np.float64)).all()), f"{name}: {key} not finite")
+        power = np.asarray(counts["sig_unc"])[-1] / EXTRAS_SIMS
+        print(f"arm {name}: {extras_arm_s[name] * 1e3:.1f} ms for {EXTRAS_SIMS} sims through the "
+              f"kernels (one chunk; launches {got_l}); power at N={spec_.max_n}: "
+              f"{np.round(power, 4).tolist()}, pins per component "
+              f"{np.asarray(counts['pinned_comp'])[-1].tolist()}", flush=True)
+        check_golden(name, spec_, arr_)
+        card = batch.run_batch(spec_, arr_, GOLDEN_SIMS, SEED, chunk_size=GOLDEN_SIMS, device=dev)
+        plain_c = batch.run_batch(spec_, arr_, GOLDEN_SIMS, SEED, chunk_size=GOLDEN_SIMS,
+                                  device=dev, plain=True)
+        check(sorted(card) == sorted(plain_c), f"{name}: count sets differ")
+        differ = {}
+        for k in plain_c:
+            g, w = np.asarray(card[k], np.float64), np.asarray(plain_c[k], np.float64)
+            if k == "tau2_hat":
+                rel = float(np.abs(g - w).max() / np.abs(w).max())
+                check(rel <= EXTRAS_TAU2_REL, f"{name}: tau2_hat rel {rel:.2e} to the plain path")
+            elif not np.array_equal(g, w):
+                differ[k] = int(np.abs(g - w).max())
+                band = EXTRAS_PIN_FLIPS if k in ("pinned_comp", "boundary_hit") else \
+                    EXTRAS_COUNT_FLIPS
+                check(differ[k] <= band, f"{name}: {k} {g.tolist()} vs the plain path's {w.tolist()}")
+        print(f"arm {name} at {GOLDEN_SIMS} sims against the plain path's on the card: "
+              + (f"flips {differ}" if differ else "every count equal"), flush=True)
         for k in launches:
             launches[k] += got_l[k]
 
@@ -3548,21 +4043,75 @@ def main(argv=None) -> int:
         out_ = olsfit.grid_suffstats_kernel(spec_, X_, y_, with_slopes=True)
         timing.append((f"grid_suffstats {arm}", shape.format(tuple(X_.shape)) + ", slope mode",
                        *k2s(spec_), (X_, y_), k2_bound(spec_, X_, y_, out_), None))
+    # K11 at the lmm_extras arm's cells (structured, Me 10), at a launch of
+    # the crossed flow (structured, Me 25) and of the dense extras flow (M
+    # 70); K2's joint mode at the arm's rows and the crossed launch's, beside
+    # one torch.bmm of the dense f64 one-hot Z against [Z | X | y] (built
+    # here, outside the timed window), the one PyTorch call that computes the
+    # same sums at a single grid point
+    dense_case = flow_cases11["dense_flow_launch"]
+    Xd, yd, _ = datagen.generate_batch(dense_case[0], datagen.to_device(dense_case[1], dev), SEED,
+                                       0, sim_ids[:N_SIMS // 8], plain=True)
+    k11_args_by["dense_flow_timed"] = k11_args(dense_case[0],
+                                               olsfit.joint_suffstats_plain(dense_case[0], Xd, yd))
+    for key, case, shape in (
+            ("joint_reml arm", "lmm_extras",
+             "lmm_extras arm cells {}, N 200, M 30 (m 20 + 10), p 3, structured"),
+            ("joint_reml crossed", "crossed_flow_launch",
+             "crossed flow launch, cells {}, N 1000, M 65 (m 40 + 25), p 3, structured"),
+            ("joint_reml dense", "dense_flow_timed",
+             "dense extras flow launch, cells {}, N 600, M 70 (30 x 2 + 10), p 2, dense")):
+        args_ = k11_args_by[case]
+        out_ = mixedfit.joint_reml_kernel(*args_)
+        timing.append((key, shape.format(tuple(out_[2].shape)), mixedfit.joint_reml_kernel,
+                       mixedfit.joint_reml_plain, args_, k11_bound(args_, out_), None))
+
+    def k2j(spec_):  # K2's joint mode and its plain version, taking (X, y)
+        return (lambda X_, y_: olsfit.joint_suffstats_kernel(spec_, X_, y_),
+                lambda X_, y_: olsfit.joint_suffstats_plain(spec_, X_, y_))
+
+    for arm, (spec_, arr_), n, shape in (
+            ("arm", extras_specs["lmm_extras"], EXTRAS_SIMS, "lmm_extras X {}, M 30"),
+            ("crossed", flow_cases11["crossed_flow_launch"], N_SIMS // 8,
+             "crossed flow launch X {}, M 65")):
+        X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
+                                           sim_ids[:n], plain=True)
+        out_ = olsfit.joint_suffstats_kernel(spec_, X_, y_)
+        Z_ = torch.zeros(X_.shape[:2] + (out_["ztz"].shape[-1],), dtype=torch.float64, device=dev)
+        zcols, zvals, _ = olsfit._joint_z(spec_, X_)
+        Z_.scatter_(2, zcols.expand(X_.shape[0], -1, -1), zvals)
+        rhs_ = torch.cat([Z_, X_[..., list(spec_.effective_fit_cols)].double(), y_.double()[..., None]],
+                         dim=-1)
+        Zt_ = Z_.transpose(1, 2).contiguous()
+        lib = (lambda a, b: torch.bmm(a, b), (Zt_, rhs_))
+        got_lib = torch.bmm(Zt_, rhs_)
+        M_ = Z_.shape[-1]
+        lib_rel = max(rel_err(got_lib[..., :M_], out_["ztz"][:, -1]),
+                      rel_err(got_lib[..., -1], out_["zty"][:, -1]))
+        check(lib_rel <= K2_JOINT_REL, f"the joint bmm yardstick differs from K2 by {lib_rel:.3e}")
+        timing.append((f"grid_suffstats_joint {arm}", shape.format(tuple(X_.shape)) + ", joint mode",
+                       *k2j(spec_), (X_, y_), k2_joint_bound(spec_, X_, y_, out_), lib))
     timed = {}
     with ClockSampler() as clocks:  # a process; ended however the block exits
         for key, shape, fk, fp, inputs, (bound_ms, bound_by), lib in timing:
             kname = key.split()[0] + "_kernel"  # the CUDA function's name
             t_row = time.perf_counter()
             copies = input_copies(inputs)
-            # K7's, K9's and K10's plain versions make thousands to tens of
-            # thousands of small launches a call, whose profiler events take
-            # tens of seconds to collect: one window of one call
-            heavy = kname in ("glmm_intercept_kernel", "slope_reml_kernel", "glmm_slope_kernel")
-            plain_ms = device_ms(fp, copies, 1 if heavy else 3)
-            ms = device_ms(fk, copies, reps, kname, launches=1)
+            # K6's, K7's, K9's and K10's plain versions make thousands to
+            # tens of thousands of small launches a call, whose profiler
+            # events take tens of seconds to collect: one window of one call.
+            # K11's makes hundreds of thousands: CUDA events around one call
+            # (the device's gaps between its launches included)
+            heavy = kname in ("glm_irls_kernel", "glmm_intercept_kernel", "slope_reml_kernel",
+                              "glmm_slope_kernel", "joint_reml_kernel")
+            plain_ms = (cuda_ms(fp, copies, 1) if kname == "joint_reml_kernel"
+                        else device_ms(fp, copies, 1 if heavy else 3))
+            # K11 takes tenths of a second a launch: 5 timed launches
+            k_reps = 5 if kname == "joint_reml_kernel" else reps
+            ms = device_ms(fk, copies, k_reps, kname, launches=1)
             if not heavy:
                 plain_ms = (plain_ms + device_ms(fp, copies, 3)) / 2.0
-            call_ms = cuda_ms(fk, copies, reps)
+            call_ms = cuda_ms(fk, copies, k_reps)
             library_ms = device_ms(lib[0], input_copies(lib[1]), reps) if lib is not None else None
             timed[key] = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=library_ms, call_ms=call_ms)
@@ -3658,6 +4207,10 @@ def main(argv=None) -> int:
         shape: timed[f"slope_reml {shape}"] for shape in ("readme2", "lmm_slopes", "multislope")})
     records["glmm_slope"].update(timed["glmm_slope flow"], by_shape={
         shape: timed[f"glmm_slope {shape}"] for shape in ("flow", "arm")})
+    records["joint_reml"].update(timed["joint_reml crossed"], by_shape={
+        shape: timed[f"joint_reml {shape}"] for shape in ("arm", "crossed", "dense")})
+    records["grid_suffstats_joint"].update(timed["grid_suffstats_joint crossed"], by_arm={
+        arm: timed[f"grid_suffstats_joint {arm}"] for arm in ("arm", "crossed")})
     records["glm_irls"]["by_shape"] = {"arm": timed["glm_irls"], "flow": timed["glm_irls flow"],
                                        "factor_flow": timed["glm_irls factor"],
                                        "factor_flow_fallback": timed["glm_irls fallback"]}
@@ -3748,6 +4301,23 @@ def main(argv=None) -> int:
               f"{prof['device_ms'] / prof['median_ms']:.1%} of the median wall, "
               f"{prof['launches']} kernels; largest device items (ms): {items}", flush=True)
 
+    for name, (spec_, arr_) in extras_specs.items():  # the extras arms' walls and profiles
+        t0 = time.perf_counter()
+        batch.run_batch(spec_, arr_, EXTRAS_SIMS, SEED, chunk_size=EXTRAS_SIMS, device=dev)
+        again_s = time.perf_counter() - t0
+        print(f"arm {name} ({EXTRAS_SIMS} sims, wall): kernels {extras_arm_s[name] * 1e3:.1f} ms "
+              f"and {again_s * 1e3:.1f} ms (the plain path's at {GOLDEN_SIMS} sims is phase 4's "
+              f"check)", flush=True)
+        prof = profile_arm(lambda: batch.run_batch(spec_, arr_, EXTRAS_SIMS, SEED,
+                                                   chunk_size=EXTRAS_SIMS, device=dev),
+                           reps=EXTRAS_PROFILE_REPS)
+        items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
+        print(f"profile {name} ({EXTRAS_SIMS} sims): wall median {prof['median_ms']:.3f} ms "
+              f"(range {prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {EXTRAS_PROFILE_REPS} calls), device "
+              f"kernel time {prof['device_ms']:.3f} ms, busy "
+              f"{prof['device_ms'] / prof['median_ms']:.1%} of the median wall, "
+              f"{prof['launches']} kernels; largest device items (ms): {items}", flush=True)
+
     # --- phase 6: the user flows through MCPower ---
     print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     flows = run_user_flows(smi, specs)
@@ -3763,8 +4333,8 @@ def main(argv=None) -> int:
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches, **r,
-            "launches_by_arm": {a: v[name] for a, v in launches_by_arm.items()},
-            "launches_by_flow": {f: v["launches"][name] for f, v in flows.items()},
+            "launches_by_arm": {a: v.get(name, 0) for a, v in launches_by_arm.items()},
+            "launches_by_flow": {f: v["launches"].get(name, 0) for f, v in flows.items()},
             **({"fallback_launches_by_flow": {f: v["fallback_launches"] for f, v in flows.items()
                                               if v["fallback_launches"]}}
                if name == "glm_irls" else {}),

@@ -591,3 +591,172 @@ extern "C" int mcp_grid_suffstats(const void* X, const void* y, int sims, int ma
     a.t = (double*)t;
     MCP_DISPATCH_P(pf, launch, a, lay, z, (cudaStream_t)stream)
 }
+
+// ---------------------------------------------------------------------------
+// The joint mode: the joint-Z statistics of extra groupings.
+//
+// Replaces: mcpower_tpu/engine/mixedfit.py::_joint_suffstats (:570) with
+// _build_joint_z (:511). The joint Z has M = sum_g m_g q_g columns: grouping
+// g (the primary first) owns columns off_g + level * q_g + r, where a row at
+// level l_g(i) holds 1 (r = 0) or X[i, slope column r - 1]. Per grid prefix,
+// in f64: ztz = Z'Z (M, M), ztx = Z'X_fit (M, p), zty = Z'y (M); xtx, xty,
+// yty come from the launch of the main entry beside this one.
+//
+// No dense Z: each row touches Q = sum_g q_g columns, so it adds Q^2 entries
+// to ztz, Q p to ztx and Q to zty. One block per sim keeps the sim's ztz,
+// ztx and zty in shared memory (M <= 128: 148 KB at p = 16). The entries
+// split into streams by the pair of components they join ((a, b) for ztz,
+// (a, k) for ztx, a for zty): a stream's entries are its own, so each stream
+// is walked by one thread over the rows in order, no atomics, the same sums
+// on every run. After each grid segment the block writes its running sums
+// (the prefix) out. Counts (products of ones) are exact; the X sums agree
+// with the plain version (scatter_add over the rows) to rounding.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int JOINT_MAX_GROUPS = 4;
+constexpr int JOINT_MAX_Q = 16;  // components over all groupings
+constexpr int JOINT_MAX_M = 128;
+constexpr int JOINT_THREADS = 128;
+
+struct JointArgs {
+    const float* X;
+    const float* y;
+    const int* grid;  // (G,) device
+    const int* ids;   // (groups, max_n) device
+    int sims, max_n, P, G, pf, M, Q;
+    int fit[MCP_MAX_P];
+    // per component a: its grouping's column offset, q_g, r and the X column
+    // of its value (-1: the intercept's 1)
+    int off[JOINT_MAX_Q], qg[JOINT_MAX_Q], r[JOINT_MAX_Q], xcol[JOINT_MAX_Q], grp[JOINT_MAX_Q];
+    double *ztz, *ztx, *zty;
+};
+
+__device__ __forceinline__ void joint_col(const JointArgs& a, int comp, int i, const float* Xs,
+                                          int& col, double& v) {
+    const int lv = a.ids[(long long)a.grp[comp] * a.max_n + i];
+    col = a.off[comp] + lv * a.qg[comp] + a.r[comp];
+    v = a.xcol[comp] < 0 ? 1.0 : (double)Xs[(long long)i * a.P + a.xcol[comp]];
+}
+
+__global__ void __launch_bounds__(JOINT_THREADS) grid_suffstats_joint_kernel(const JointArgs a) {
+    extern __shared__ __align__(16) double joint_smem[];
+    double* zz = joint_smem;
+    const int M = a.M, Q = a.Q, p = a.pf;
+    double* zx = zz + (size_t)M * M;
+    double* zy = zx + (size_t)M * p;
+    const long long sim = blockIdx.x;
+    const float* Xs = a.X + sim * a.max_n * a.P;
+    const float* ys = a.y + sim * a.max_n;
+    const int total = M * M + M * p + M;
+    for (int e = threadIdx.x; e < total; e += blockDim.x) zz[e] = 0.0;
+    __syncthreads();
+    const int streams = Q * Q + Q * p + Q;
+    int prev = 0;
+    for (int g = 0; g < a.G; ++g) {
+        const int n = a.grid[g];
+        for (int s = threadIdx.x; s < streams; s += blockDim.x) {
+            if (s < Q * Q) {
+                const int ca = s / Q, cb = s % Q;
+                for (int i = prev; i < n; ++i) {
+                    int ia, ib;
+                    double va, vb;
+                    joint_col(a, ca, i, Xs, ia, va);
+                    joint_col(a, cb, i, Xs, ib, vb);
+                    zz[ia * M + ib] += va * vb;
+                }
+            } else if (s < Q * Q + Q * p) {
+                const int ca = (s - Q * Q) / p, k = (s - Q * Q) % p;
+                for (int i = prev; i < n; ++i) {
+                    int ia;
+                    double va;
+                    joint_col(a, ca, i, Xs, ia, va);
+                    zx[ia * p + k] += va * (double)Xs[(long long)i * a.P + a.fit[k]];
+                }
+            } else {
+                const int ca = s - Q * Q - Q * p;
+                for (int i = prev; i < n; ++i) {
+                    int ia;
+                    double va;
+                    joint_col(a, ca, i, Xs, ia, va);
+                    zy[ia] += va * (double)ys[i];
+                }
+            }
+        }
+        __syncthreads();
+        const long long cell = sim * a.G + g;
+        for (int e = threadIdx.x; e < M * M; e += blockDim.x) a.ztz[cell * M * M + e] = zz[e];
+        for (int e = threadIdx.x; e < M * p; e += blockDim.x) a.ztx[cell * M * p + e] = zx[e];
+        for (int e = threadIdx.x; e < M; e += blockDim.x) a.zty[cell * M + e] = zy[e];
+        __syncthreads();
+        prev = n;
+    }
+}
+
+}  // namespace
+
+// The joint mode. fit: pf column indices of X; grid: G ascending row counts
+// (host, for the checks) and grid_dev (device, the same); ids: (groups,
+// max_n) int32 level ids in device memory, the primary first; levels and
+// comps: m_g and q_g per grouping; zc: the X columns of the slopes, grouping
+// by grouping (q_g - 1 each). Writes ztz (sims, G, M, M), ztx (sims, G, M,
+// pf) and zty (sims, G, M), M = sum m_g q_g. Returns a cudaError_t.
+extern "C" int mcp_grid_suffstats_joint(const void* X, const void* y, int sims, int max_n, int P,
+                                        const int* fit, int pf, const int* grid,
+                                        const void* grid_dev, int G, const void* ids, int groups,
+                                        const int* levels, const int* comps, const int* zc,
+                                        void* ztz, void* ztx, void* zty, void* stream) {
+    if (sims <= 0 || max_n <= 0 || P <= 0 || pf <= 0 || pf > MCP_MAX_P || G <= 0 ||
+        groups <= 0 || groups > JOINT_MAX_GROUPS || grid_dev == nullptr || ids == nullptr)
+        return (int)cudaErrorInvalidValue;
+    JointArgs a;
+    a.X = (const float*)X;
+    a.y = (const float*)y;
+    a.grid = (const int*)grid_dev;
+    a.ids = (const int*)ids;
+    a.sims = sims;
+    a.max_n = max_n;
+    a.P = P;
+    a.G = G;
+    a.pf = pf;
+    for (int i = 0; i < pf; ++i) {
+        if (fit[i] < 0 || fit[i] >= P) return (int)cudaErrorInvalidValue;
+        a.fit[i] = fit[i];
+    }
+    for (int g = 0; g < G; ++g)
+        if (grid[g] < (g ? grid[g - 1] : 0) || grid[g] > max_n) return (int)cudaErrorInvalidValue;
+    if (grid[G - 1] != max_n) return (int)cudaErrorInvalidValue;
+    int M = 0, Q = 0, zi = 0;
+    for (int g = 0; g < groups; ++g) {
+        if (levels[g] <= 0 || comps[g] <= 0 || Q + comps[g] > JOINT_MAX_Q)
+            return (int)cudaErrorInvalidValue;
+        for (int r = 0; r < comps[g]; ++r) {
+            a.off[Q] = M;
+            a.qg[Q] = comps[g];
+            a.r[Q] = r;
+            a.grp[Q] = g;
+            if (r == 0) {
+                a.xcol[Q] = -1;
+            } else {
+                if (zc[zi] < 0 || zc[zi] >= P) return (int)cudaErrorInvalidValue;
+                a.xcol[Q] = zc[zi++];
+            }
+            ++Q;
+        }
+        M += levels[g] * comps[g];
+    }
+    if (M > JOINT_MAX_M) return (int)cudaErrorInvalidValue;
+    a.M = M;
+    a.Q = Q;
+    a.ztz = (double*)ztz;
+    a.ztx = (double*)ztx;
+    a.zty = (double*)zty;
+    const size_t smem = sizeof(double) * ((size_t)M * M + (size_t)M * pf + M);
+    if (smem > (size_t)MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(grid_suffstats_joint_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    grid_suffstats_joint_kernel<<<sims, JOINT_THREADS, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}

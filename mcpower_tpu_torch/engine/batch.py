@@ -7,7 +7,8 @@ the Philox fills (K1: the long normals; a words or uniforms fill for a
 logit or count outcome, whose counts go through K8, a uniform residual and
 sampled factor levels; a scenario's short SCENARIO and HET streams), the
 scenario's per-sim design, the design and outcome, the fit (K2 + K3 for
-OLS, K2 + K4 for the random-intercept LMM, K6
+OLS, K2 + K4 for the random-intercept LMM, K2's joint mode + K11 for the
+LMM with extra groupings, K6
 for an unclustered GLM, with a second K6 launch for the separation fallback
 of a design with factors, K7 for the random-intercept GLMM), t^2 thresholds and corrections (with the
 reduced-df crit rows of cells whose sparse factor levels were excluded),
@@ -148,6 +149,29 @@ def _reduce_counts(per_sim: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return counts
 
 
+# The joint statistics of extra groupings are the largest tensor of a chunk:
+# ztz (chunk, G, M, M) f64, 465 MB at M = 65, G = 11 and 1,250 sims. The
+# reference caps such a chunk at 1,024 or 4,096 sims, a TPU runtime limit
+# (batch.py:304-335); the port sizes it by memory instead: ztz may take at
+# most JOINT_MEMORY_SHARE of the card's memory (JOINT_CPU_BYTES on the CPU).
+JOINT_MEMORY_SHARE = 1 / 8
+JOINT_CPU_BYTES = 1 << 30
+
+
+def joint_chunk_cap(spec: SimSpec, device) -> Optional[int]:
+    """The most sims a chunk of an extra-grouping spec holds, or None."""
+    if spec.cluster is None or not spec.cluster.extra_groupings:
+        return None
+    M = mixedfit.joint_width(mixedfit.grouping_plan(spec))
+    per_sim = spec.n_grid * M * M * 8
+    device = torch.device(device)
+    if device.type == "cuda":
+        budget = torch.cuda.get_device_properties(device).total_memory * JOINT_MEMORY_SHARE
+    else:
+        budget = JOINT_CPU_BYTES
+    return max(int(budget // per_sim), 1)
+
+
 def run_batch(
     spec: SimSpec,
     arrays: Dict,
@@ -181,6 +205,14 @@ def run_batch(
     seed_lo, seed_hi = _split_seed(base_seed)
 
     chunk = int(chunk_size) if chunk_size else max(min(n_sims, 4096), 1)
+    cap = joint_chunk_cap(spec, device)
+    if cap is not None and cap < chunk:
+        if chunk_size:
+            import warnings
+
+            warnings.warn(f"extra-grouping spec: chunk capped at {cap} sims by memory "
+                          f"(requested {chunk})", UserWarning, stacklevel=2)
+        chunk = cap
     totals: Dict[str, np.ndarray] = {}
     done = 0
     while done < n_sims:

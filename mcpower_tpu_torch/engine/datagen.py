@@ -20,7 +20,8 @@ residual swaps, the ICC jitter), the f32 mix ``z @ L.T``, the marginals, the
 reference-coded factor dummies, the cluster-level broadcast, the
 interactions, the heterogeneity beta-jitter, ``eta = X @ beta``, the random
 effects (an intercept and any slopes, each component's draws normal or
-heavy-tailed, mixed by the Cholesky of their covariance) and the outcome: a residual of the
+heavy-tailed, mixed by the Cholesky of their covariance; then each extra
+grouping's, crossed or nested, at its level ids) and the outcome: a residual of the
 scenario's family (with heteroskedasticity), a binary draw (logit: a
 top-24-bit uniform of the RESID words against ``sigmoid(eta)``; probit: the
 RESID normal against ``eta``) or a Poisson count (the open uniform of the
@@ -57,8 +58,10 @@ FLOAT_NEAR_ZERO = 1e-12
 MAX_RE_Q = 4
 # CLUSTER stream columns of one random-effect component: component c draws
 # its normals at column c * RE_COLUMNS, a heavy-tailed one its chi-square
-# planes at the columns after it.
+# planes at the columns after it; extra grouping g (0-based) shifts its
+# components by (g + 1) * GROUPING_COLUMNS (the reference's column bases).
 RE_COLUMNS = 32
+GROUPING_COLUMNS = 1024
 
 # Scenario-stream column ids (CLASS_SCENARIO), the reference's.
 _SC_CORR = 0
@@ -112,7 +115,13 @@ def unsupported(spec: SimSpec) -> str:
     c = spec.cluster
     if c is not None:
         if c.extra_groupings:
-            return "extra groupings (ROADMAP A12)"
+            if spec.outcome != "continuous":
+                return "a GLMM with extra groupings (ROADMAP A12.2)"
+            from .mixedfit import joint_unsupported
+
+            why = joint_unsupported(spec)
+            if why:
+                return why
         if c.q > MAX_RE_Q:
             kernel = "K9" if spec.outcome == "continuous" else "K10"
             return (f"{c.q} random-effect components; kernel {kernel} takes q <= {MAX_RE_Q} "
@@ -247,9 +256,14 @@ def stream_plan(spec: SimSpec) -> List[Tuple[int, int, int]]:
     1..round(df))."""
     plan = [(rng.CLASS_XNORM, j, spec.max_n) for j in range(spec.n_cont)]
     if spec.cluster is not None:
+        planes = 1 + heavy_re_planes(spec)
         m = spec.cluster.n_clusters_at(spec.max_n)
         plan += [(rng.CLASS_CLUSTER, comp * RE_COLUMNS + c, m)
-                 for comp in range(spec.cluster.q) for c in range(1 + heavy_re_planes(spec))]
+                 for comp in range(spec.cluster.q) for c in range(planes)]
+        for g, eg in enumerate(spec.cluster.extra_groupings):
+            n_lv = extra_grouping_ids(spec, g)[1]
+            plan += [(rng.CLASS_CLUSTER, re_column_base(1 + g, comp) + c, n_lv)
+                     for comp in range(1 + len(eg.slopes)) for c in range(planes)]
     if spec.outcome == "continuous" or (spec.outcome == "binary" and spec.link == "probit"):
         plan += [(rng.CLASS_RESID, c, spec.max_n) for c in range(1 + chi2_planes(spec))]
     return plan
@@ -282,8 +296,8 @@ def scenario_plans(spec: SimSpec) -> List[Tuple[int, List[Tuple[int, int, int]]]
     normals, words = [], []
     if _corr_noise(spec):
         normals.append((rng.CLASS_SCENARIO, _SC_CORR, n * (n - 1) // 2))
-    if _icc_noise(spec):
-        normals.append((rng.CLASS_SCENARIO, _SC_ICC, 1))
+    if _icc_noise(spec):  # one row per grouping, the primary first
+        normals.append((rng.CLASS_SCENARIO, _SC_ICC, 1 + len(spec.cluster.extra_groupings)))
     if _het(spec) > FLOAT_NEAR_ZERO:
         normals.append((rng.CLASS_HET, 0, spec.n_predictors))
     if swappable_cols(spec):
@@ -341,6 +355,41 @@ def cluster_ids(spec: SimSpec, device=None) -> torch.Tensor:
         return torch.zeros_like(rows)
     s = max(c.sizing_value, 1)
     return rows % s if c.sizing_mode == "fixed_clusters" else rows // s
+
+
+def extra_grouping_ids(spec: SimSpec, g: int, device=None):
+    """Level id per row ``(max_n,)`` int32 of extra grouping ``g`` and its
+    level count, the reference's ``extra_grouping_ids`` (:120): the
+    lexicographic stride chain, so each atom block holds every (primary,
+    level_1, ..., level_g) combination once. ``fixed_clusters``: stride =
+    S * the block levels of the earlier groupings, ``within = (i / stride)
+    % blk``; crossed takes ``within`` (blk levels), nested ``(i % S) * blk +
+    within`` (S * blk). ``fixed_size`` (nested only): ``(i / cs) * blk + (i %
+    cs) % blk``."""
+    c = spec.cluster
+    eg = c.extra_groupings[g]
+    rows = torch.arange(spec.max_n, dtype=torch.int32, device=device)
+    blk = max(eg.n_levels, 1)  # crossed: the level count; nested: levels per parent
+    if c.sizing_mode == "fixed_size":
+        if eg.relation == "crossed":
+            raise ValueError("crossed extra groupings require fixed_clusters sizing "
+                             "(reference validate: Crossed x FixedSize is rejected)")
+        cs = max(c.sizing_value, 1)
+        return (rows // cs) * blk + (rows % cs) % blk, c.n_clusters_at(spec.max_n) * blk
+    s = max(c.sizing_value, 1)
+    stride = s
+    for h in c.extra_groupings[:g]:
+        stride *= max(h.n_levels, 1)
+    within = (rows // stride) % blk
+    if eg.relation == "crossed":
+        return within, blk
+    return (rows % s) * blk + within, s * blk
+
+
+def re_column_base(grouping: int, comp: int) -> int:
+    """The CLUSTER column of component ``comp`` of grouping ``grouping`` (0
+    the primary, 1 + g extra grouping g)."""
+    return grouping * GROUPING_COLUMNS + comp * RE_COLUMNS
 
 
 def rep_rows(spec: SimSpec, device=None) -> torch.Tensor:
@@ -456,6 +505,22 @@ def design_draw(spec: SimSpec, arr: Dict[str, torch.Tensor], draws: Draws, sims:
     return L, var_codes, resid_code, tau2_eff
 
 
+def extra_tau2_eff(spec: SimSpec, draws: Draws) -> list:
+    """The f32 variance of each extra grouping's intercept, in order: its
+    tau^2, or under ICC noise ``max(tau^2 + z sd, 0)`` with z row 1 + g of
+    the ICC draw (row 0 is the primary's, :func:`design_draw`), each
+    ``(sims,)``, as the reference's per-grouping ``tau2_eff`` (:365-379)."""
+    f32 = marginals.f32
+    out = []
+    for g, eg in enumerate(spec.cluster.extra_groupings):
+        tau2 = f32(eg.tau_squared)
+        if _icc_noise(spec):
+            jitter = draws.normals(rng.CLASS_SCENARIO, _SC_ICC)[:, 1 + g]
+            tau2 = torch.clamp(tau2 + jitter * f32(spec.scenario.icc_noise_sd), min=0.0)
+        out.append(tau2)
+    return out
+
+
 def _t_scaled(z: torch.Tensor, chi2: torch.Tensor, df: float) -> torch.Tensor:
     """``where(denom > 0, z / denom, z)`` with ``denom = sqrt(chi2 / df)``
     (f32 division by the f32 df)."""
@@ -499,13 +564,14 @@ def unit_residuals(spec: SimSpec, draws: Draws, resid_code) -> torch.Tensor:
     return out
 
 
-def re_draws(spec: SimSpec, draws: Draws, comp: int = 0) -> torch.Tensor:
-    """Unit-variance draws ``(sims, clusters)`` of random-effect component
-    ``comp`` (0 the intercept, 1 + k slope k) under the scenario's RE
-    distribution, as the reference's ``_re_draw`` (:391) at column base
-    ``comp * RE_COLUMNS``: CLUSTER column base, or the standardized t(df) of
-    columns base..base + round(df), scaled by sqrt((df - 2) / df)."""
-    base = comp * RE_COLUMNS
+def re_draws(spec: SimSpec, draws: Draws, comp: int = 0, grouping: int = 0) -> torch.Tensor:
+    """Unit-variance draws ``(sims, levels)`` of random-effect component
+    ``comp`` (0 the intercept, 1 + k slope k) of grouping ``grouping`` (0
+    the primary) under the scenario's RE distribution, as the reference's
+    ``_re_draw`` (:391) at column base :func:`re_column_base`: CLUSTER
+    column base, or the standardized t(df) of columns base..base +
+    round(df), scaled by sqrt((df - 2) / df)."""
+    base = re_column_base(grouping, comp)
     z = draws.normals(rng.CLASS_CLUSTER, base)
     planes = heavy_re_planes(spec)
     if not planes:
@@ -518,27 +584,35 @@ def re_draws(spec: SimSpec, draws: Draws, comp: int = 0) -> torch.Tensor:
 def re_contribution(spec: SimSpec, draws: Draws, X: torch.Tensor, tau2_eff,
                     ids: torch.Tensor) -> torch.Tensor:
     """The random-effect value of each row ``(sims, max_n)``, as the
-    reference's ``_cluster_re_contribution`` (:441-459) for the primary
-    grouping: the component draws ``z (sims, clusters, q)``, ``u = z @ L^T``
-    with L = :func:`re_chol` (per sim under ICC noise, which scales the
-    intercept alone), then ``u[ids, 0] + sum_k u[ids, 1 + k] X[:, col_k]``.
+    reference's ``_cluster_re_contribution`` (:441-475): per grouping (the
+    primary, then each extra grouping at its level ids) the component draws
+    ``z (sims, levels, q)``, ``u = z @ L^T`` with L = :func:`re_chol` of its
+    ``tau2_eff`` (per sim under ICC noise, which scales the intercept
+    alone), then ``u[ids, 0] + sum_k u[ids, 1 + k] X[:, col_k]`` added on.
     ``z @ L^T`` is written out in f32 multiply-adds over L's lower triangle,
     in column order, so that the CPU and the card agree; with no slope it is
-    the intercept draw times its scale."""
-    slopes = spec.cluster.slopes
-    q = 1 + len(slopes)
-    L = re_chol(tau2_eff, slopes)
-    if L.dim() == 3:  # per sim: (sims, 1, q, q) against (sims, clusters)
-        L = L[:, None]
-    z = [re_draws(spec, draws, comp) for comp in range(q)]
-    idx = ids.long()
+    the intercept draw times its scale. ``tau2_eff`` is the primary's."""
+    c = spec.cluster
+    groups = [(c.slopes, tau2_eff, ids)]
+    extras = extra_tau2_eff(spec, draws) if c.extra_groupings else []
+    for g, eg in enumerate(c.extra_groupings):
+        groups.append((eg.slopes, extras[g], extra_grouping_ids(spec, g, ids.device)[0]))
     u_re = None
-    for i in range(q):
-        ui = z[0] * L[..., i, 0]
-        for k in range(1, i + 1):
-            ui = ui + z[k] * L[..., i, k]
-        term = ui[:, idx]
-        u_re = term if i == 0 else u_re + term * X[..., slopes[i - 1].design_col]
+    for grouping, (slopes, tau2, gids) in enumerate(groups):
+        q = 1 + len(slopes)
+        L = re_chol(tau2, slopes)
+        if L.dim() == 3:  # per sim: (sims, 1, q, q) against (sims, levels)
+            L = L[:, None]
+        z = [re_draws(spec, draws, comp, grouping) for comp in range(q)]
+        idx = gids.long()
+        for i in range(q):
+            ui = z[0] * L[..., i, 0]
+            for k in range(1, i + 1):
+                ui = ui + z[k] * L[..., i, k]
+            term = ui[:, idx]
+            if i:
+                term = term * X[..., slopes[i - 1].design_col]
+            u_re = term if u_re is None else u_re + term
     return u_re
 
 

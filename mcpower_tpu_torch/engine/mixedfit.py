@@ -30,6 +30,16 @@ f64 zero-column pin probes and the final f64 fit: kernel K9
 (``csrc/slope_reml.cu``, a warp per cell), whose plain version
 :func:`slope_reml_plain` sums in K9's order so that the two agree bit for
 bit.
+
+With extra groupings (crossed or nested, the reference's
+``_joint_grid_stats``) the random-effect design is one joint Z of M = sum
+of levels x components columns, its statistics Z'Z, Z'X, Z'y come from
+K2's joint mode, and each deviance runs through the joint capacitance: a
+Schur complement of the extras block when every grouping is
+intercept-only, the dense M x M factor otherwise, in ``smallchol``'s
+blocked order. The search is the same Nelder-Mead on f32 twins, then an
+f64 refit: kernel K11 (``csrc/joint_reml.cu``), whose plain version is
+:func:`joint_reml_plain`.
 """
 
 from __future__ import annotations
@@ -551,6 +561,359 @@ def slope_reml(G, A, b, xtx, xty, yty, ns, theta0, lower):
 
 
 # ---------------------------------------------------------------------------
+# K11: the joint-Z REML fit of extra groupings per (sim, grid) cell
+# ---------------------------------------------------------------------------
+
+# Kernel K11's limits: theta of d <= JOINT_MAX_D entries (the Nelder-Mead's
+# range, as K9's), a joint Z of M <= JOINT_MAX_M columns (the M x M
+# capacitance and K2's joint accumulator in shared memory), p <= MAX_P.
+JOINT_MAX_D = 10
+JOINT_MAX_M = 128
+JOINT_MAX_GROUPINGS = 4
+# The reference's pin of a joint fit (mixedfit.py:797-806): a component
+# whose Cholesky diagonal ends below this.
+JOINT_PIN = 1e-4
+
+
+def grouping_plan(spec: SimSpec):
+    """``[(n_levels, q_g, slope_cols, tau2, slopes)]`` per grouping, the
+    primary first, then the extra groupings in declaration order (the
+    reference's ``_grouping_plan``, :482)."""
+    from . import datagen
+
+    c = spec.cluster
+    plan = [(c.n_clusters_at(spec.max_n), c.q, tuple(s.design_col for s in c.slopes),
+             c.tau_squared, c.slopes)]
+    for g, eg in enumerate(c.extra_groupings):
+        plan.append((datagen.extra_grouping_ids(spec, g)[1], 1 + len(eg.slopes),
+                     tuple(s.design_col for s in eg.slopes), eg.tau_squared, eg.slopes))
+    return plan
+
+
+def plan_all_q1(plan) -> bool:
+    """Every grouping intercept-only: the structured capacitance."""
+    return all(q == 1 for _, q, _, _, _ in plan)
+
+
+def joint_width(plan) -> int:
+    """M, the columns of the joint Z: sum of levels x components."""
+    return sum(n_lv * q for n_lv, q, _, _, _ in plan)
+
+
+def theta_layout(plan):
+    """Per-grouping vech sizes, the truth start and the lower bounds, in
+    numpy (the reference's ``_theta_layout``, :536): each grouping's theta
+    is vech chol(D + 1e-10 I) of its generating D, variances floored at
+    1e-4; 0 bounds the Cholesky diagonals, -inf the rest."""
+    sizes = [q * (q + 1) // 2 for _, q, _, _, _ in plan]
+    theta0, lower = [], []
+    for _, q, _, tau2, slopes in plan:
+        taus = np.sqrt([max(tau2, 1e-4)] + [max(s.variance, 1e-4) for s in slopes])
+        corr = np.eye(q)
+        for i, s in enumerate(slopes):
+            corr[0, 1 + i] = corr[1 + i, 0] = s.intercept_corr
+        for i, si in enumerate(slopes):
+            for j, sj in enumerate(slopes):
+                if i != j:
+                    corr[1 + i, 1 + j] = si.intercept_corr * sj.intercept_corr
+        D = np.outer(taus, taus) * corr
+        L0 = np.linalg.cholesky(D + 1e-10 * np.eye(q))
+        theta0.extend(np.concatenate([L0[j:, j] for j in range(q)]))
+        lower.extend(0.0 if i == j else -np.inf for j in range(q) for i in range(j, q))
+    return sizes, np.asarray(theta0, np.float64), np.asarray(lower, np.float64)
+
+
+def joint_unsupported(spec: SimSpec) -> str:
+    """Why kernels K2 (joint mode) and K11 cannot fit ``spec``'s extra
+    groupings; '' when they can."""
+    plan = grouping_plan(spec)
+    d = sum(sizes for sizes in theta_layout(plan)[0])
+    M = joint_width(plan)
+    if len(plan) > JOINT_MAX_GROUPINGS:
+        return f"{len(plan)} groupings; kernel K11 takes at most {JOINT_MAX_GROUPINGS}"
+    if d > JOINT_MAX_D:
+        return (f"a joint theta of {d} entries; kernel K11 takes d <= {JOINT_MAX_D} "
+                f"(optim.py's range)")
+    if M > JOINT_MAX_M:
+        return (f"a joint Z of {M} columns; kernels K2 (joint mode) and K11 take M <= "
+                f"{JOINT_MAX_M} (the M x M capacitance in shared memory)")
+    return ""
+
+
+def _joint_lams(theta, plan_shape):
+    """Each grouping's Lg ``(..., q, q)`` from the stacked theta."""
+    out, off = [], 0
+    for _, q in plan_shape:
+        sz = q * (q + 1) // 2
+        out.append(vech_to_lower(theta[..., off:off + sz], q))
+        off += sz
+    return out
+
+
+def _lam_rows(lams, plan_shape, v):
+    """Lam' v for v ``(..., M, r)``: row (g, level, r) is sum over r' >= r of
+    Lg[r', r] v[(g, level, r')], from r' = r up."""
+    rows, off = [], 0
+    for Lg, (m, q) in zip(lams, plan_shape):
+        blk = v[..., off:off + m * q, :].reshape(*v.shape[:-2], m, q, v.shape[-1])
+        lam = Lg[..., None, :, :, None]  # (..., 1, q, q, 1) against (..., m, q, r)
+        comps = [_ordered_sum([lam[..., rr, r, :] * blk[..., rr, :] for rr in range(r, q)])
+                 for r in range(q)]
+        rows.append(torch.stack(comps, dim=-2).reshape(*v.shape[:-2], m * q, v.shape[-1]))
+        off += m * q
+    return torch.cat(rows, dim=-2)
+
+
+def _contract_rows(U, V):
+    """sum over rows of U[row, i] V[row, j], ``(..., M, r)`` twice -> ``(...,
+    r, r)``, the rows added to a zero in ascending order."""
+    acc = torch.zeros(U.shape[:-2] + (U.shape[-1], V.shape[-1]), dtype=U.dtype, device=U.device)
+    for row in range(U.shape[-2]):
+        acc = acc + U[..., row, :, None] * V[..., row, None, :]
+    return acc
+
+
+def _joint_tail(rhs, sol, logdet_v, xtx, xty, yty, n, p: int, full: bool):
+    """X'V^-1X = X'X - At' sol_A, X'V^-1y, y'V^-1y from the capacitance solve,
+    then the p x p factor (chol_auto), beta, rss and the deviance."""
+    acc = _contract_rows(rhs, sol)
+    a_xx = xtx - acc[..., 1:, 1:]
+    a_xy = xty - acc[..., 1:, 0]
+    a_yy = yty - acc[..., 0, 0]
+    chol = smallchol.chol_auto(a_xx)
+    beta = smallchol.cho_solve_auto(chol, a_xy)
+    rss = a_yy - _ordered_sum([beta[..., a] * a_xy[..., a] for a in range(p)])
+    df = n - torch.full((), float(p), dtype=n.dtype, device=n.device)
+    dev = (logdet_v + smallchol.logdet_ordered(chol)) + df * torch.log(rss)
+    if not full:
+        return dev
+    return dev, beta, chol, rss / df
+
+
+def joint_deviance(theta, plan_shape, ztz, ztx, zty, xtx, xty, yty, n, full: bool = False,
+                   dense: bool = False):
+    """The profiled REML deviance with the joint capacitance at ``theta
+    (cells, k, d)``, k candidates a cell, in the statistics' dtype (the
+    reference's ``_reml_quantities_joint`` and ``_reml_quantities_joint_q1``,
+    :588-717, in kernel K11's order). ``plan_shape`` is ``[(levels, q)]`` per
+    grouping; statistics ``ztz (cells, M, M)``, ``ztx (cells, M, p)``,
+    ``zty (cells, M)``, ``xtx``, ``xty``, ``yty``, ``n (cells,)``.
+
+    All groupings intercept-only (structured): Lam = diag(d), a = 1 + l1^2
+    diag(G_PP), Cpe = (l1 G_PE) dE, S = (I + (dE dE') G_EE) - Cpe' (Cpe /
+    a) summed over the primary levels in order, S's factor (chol_auto),
+    the extras' solves t = re - Cpe' (rp / a) and xe = S^-1 t, the primary's
+    xp = rp / a - (Cpe xe) / a (the sums over levels in order), log|C| =
+    sum log a + log|S|. Otherwise (dense): C = I + Lam' ztz Lam with Lam =
+    blockdiag(I_m (x) Lg) applied block by block (:func:`_lam_rows`), its
+    blocked factor and the blocked solve of [Lam' zty | Lam' ztx]. Then
+    :func:`_joint_tail`. ``dense=True`` takes the dense form for an
+    all-intercept plan too (to hold the two forms against each other).
+    Returns dev ``(cells, k)``, with ``full`` also beta, the factor of
+    X'V^-1X and sigma^2.
+    """
+    p = xtx.shape[-1]
+    theta = theta.to(ztz.dtype)
+    ztz, ztx, zty = ztz[:, None], ztx[:, None], zty[:, None]
+    xtx, xty, yty, n = xtx[:, None], xty[:, None], yty[:, None], n[:, None]
+    rhs_raw = torch.cat([zty[..., None], ztx], dim=-1)  # (cells, 1, M, p + 1)
+    if all(q == 1 for _, q in plan_shape) and not dense:
+        m1 = plan_shape[0][0]
+        l1 = theta[..., 0]
+        grp = torch.cat([torch.full((m,), 1 + g, dtype=torch.long, device=theta.device)
+                         for g, (m, _) in enumerate(plan_shape[1:])])
+        dE = theta[..., grp]  # (cells, k, Me)
+        gpp = torch.diagonal(ztz[..., :m1, :m1], dim1=-2, dim2=-1)
+        a = 1.0 + (l1 * l1)[..., None] * gpp
+        Cpe = (l1[..., None, None] * ztz[..., :m1, m1:]) * dE[..., None, :]
+        Me = dE.shape[-1]
+        eye = torch.eye(Me, dtype=ztz.dtype, device=ztz.device)
+        Cee = eye + (dE[..., :, None] * dE[..., None, :]) * ztz[..., m1:, m1:]
+        Cpe_a = Cpe / a[..., None]
+        S = Cee - _contract_rows(Cpe, Cpe_a)
+        cholS = smallchol.chol_auto(S)
+        rp = l1[..., None, None] * rhs_raw[..., :m1, :]
+        re = dE[..., :, None] * rhs_raw[..., m1:, :]
+        rp_a = rp / a[..., None]
+        xe = smallchol.cho_solve_mat_auto(cholS, re - _contract_rows(Cpe, rp_a))
+        xp = rp_a - _contract_rows(Cpe.transpose(-1, -2), xe) / a[..., None]
+        sol = torch.cat([xp, xe], dim=-2)
+        rhs = torch.cat([rp, re], dim=-2)
+        la = torch.log(a)
+        logdet_v = _ordered_sum([la[..., j] for j in range(m1)]) + smallchol.logdet_ordered(cholS)
+    else:
+        lams = _joint_lams(theta, plan_shape)
+        W = _lam_rows(lams, plan_shape, ztz.expand(*theta.shape[:2], *ztz.shape[-2:]))
+        C = _lam_rows(lams, plan_shape, W.transpose(-1, -2)).transpose(-1, -2)
+        M = C.shape[-1]
+        C = torch.eye(M, dtype=C.dtype, device=C.device) + C
+        cholC = smallchol.chol_vec(C)
+        rhs = _lam_rows(lams, plan_shape, rhs_raw.expand(*theta.shape[:2], *rhs_raw.shape[-2:]))
+        sol = smallchol.cho_solve_mat_vec(cholC, rhs)
+        logdet_v = smallchol.logdet_ordered(cholC)
+    return _joint_tail(rhs, sol, logdet_v, xtx, xty, yty, n, p, full)
+
+
+def joint_reml_plain(ztz, ztx, zty, xtx, xty, yty, ns, plan_shape, theta0, lower,
+                     theta=None, dense: bool = False, with_theta: bool = False):
+    """The joint-Z REML fit per (sim, grid) cell from K2's joint statistics
+    (the reference's ``_joint_grid_stats.per_grid``, :719-817), the plain
+    version of kernel K11.
+
+    ``ztz (..., Gn, M, M)``, ``ztx (..., Gn, M, p)``, ``zty (..., Gn, M)``,
+    ``xtx``, ``xty``, ``yty`` f64, ``ns (Gn,)``, ``plan_shape`` ``[(levels,
+    q)]`` per grouping, ``theta0``, ``lower`` ``(d,)`` from
+    :func:`theta_layout`. Steps: the f32 twins of the statistics (a cast of
+    the f64 prefix sums), JOINT_NM_ITERS Nelder-Mead iterations on the f32
+    deviance (a non-finite one ranks as SENTINEL32), the f64 refit at the
+    optimum. ``theta (..., Gn, d)`` f64, where given, replaces the search's
+    optimum; ``dense=True`` takes the dense capacitance for an all-intercept
+    plan too.
+
+    Returns ``beta``, ``cov = sigma^2 (X'V^-1X)^-1``, ``converged``,
+    ``boundary`` (any component pinned), ``tau2_hat = (Lam1 Lam1')[0, 0]
+    sigma^2`` and ``pinned (..., Gn, sum q)``: diag(Lg) < JOINT_PIN, the
+    primary's components first, then each extra grouping's; with
+    ``with_theta`` also the optimum ``(..., Gn, d)``.
+    """
+    lead = yty.shape
+    p = xtx.shape[-1]
+    d = sum(q * (q + 1) // 2 for _, q in plan_shape)
+    dev_ = yty.device
+    flat = [v.reshape((-1,) + v.shape[len(lead):]) for v in (ztz, ztx, zty, xtx, xty, yty)]
+    n64 = ns.to(device=dev_, dtype=torch.float64).expand(lead).reshape(-1)
+    cells = n64.shape[0]
+    theta0 = torch.as_tensor(theta0, dtype=torch.float64, device=dev_)
+    lower = torch.as_tensor(lower, dtype=torch.float64, device=dev_)
+    if theta is None:
+        st32 = [v.to(torch.float32) for v in flat] + [n64.to(torch.float32)]
+
+        def dev32(th):
+            dv = joint_deviance(th.to(torch.float32), plan_shape, *st32, dense=dense)
+            return torch.where(torch.isfinite(dv), dv, torch.full_like(dv, SENTINEL32)).double()
+
+        theta_hat, _ = optim.nelder_mead(dev32, theta0.expand(cells, d), iters=SLOPE_NM_ITERS,
+                                         init_step=SLOPE_NM_STEP, lower=lower)
+    else:
+        theta_hat = theta.to(device=dev_, dtype=torch.float64).reshape(cells, d)
+
+    dev, beta, chol, sigma2 = (v[:, 0] for v in joint_deviance(theta_hat[:, None], plan_shape,
+                                                                *flat, n64, full=True,
+                                                                dense=dense))
+    cov = sigma2[:, None, None] * smallchol.cho_inverse_auto(chol)
+    l00 = theta_hat[:, 0]
+    tau2_hat = (l00 * l00) * sigma2
+    diag, off = [], 0
+    for _, q in plan_shape:
+        diag += [off + k for k in vech_diagonal(q)]
+        off += q * (q + 1) // 2
+    pinned = theta_hat[:, diag] < JOINT_PIN
+    converged = (
+        torch.isfinite(dev)
+        & torch.isfinite(beta).all(-1)
+        & (sigma2 > 0.0)
+        & smallchol.chol_rank_ok(chol)
+    )
+    shape = lambda v, *tail: v.reshape(lead + tail)  # noqa: E731
+    out = (shape(beta, p), shape(cov, p, p), shape(converged), shape(pinned.any(-1)),
+           shape(tau2_hat), shape(pinned, len(diag)))
+    return out + (shape(theta_hat, d),) if with_theta else out
+
+
+_JOINT_ARGS = [
+    ctypes.c_void_p,  # ztz (B, M, M) f64
+    ctypes.c_void_p,  # ztx (B, M, p)
+    ctypes.c_void_p,  # zty (B, M)
+    ctypes.c_void_p,  # xtx (B, p, p)
+    ctypes.c_void_p,  # xty (B, p)
+    ctypes.c_void_p,  # yty (B,)
+    ctypes.c_void_p,  # ns (Gn,) f64; cell c uses ns[c % Gn]
+    ctypes.c_int,  # B
+    ctypes.c_int,  # Gn
+    ctypes.c_int,  # M
+    ctypes.c_int,  # p
+    ctypes.c_int,  # groupings
+    ctypes.POINTER(ctypes.c_int),  # levels per grouping (host)
+    ctypes.POINTER(ctypes.c_int),  # components per grouping (host)
+    ctypes.POINTER(ctypes.c_double),  # theta0 (d,) host
+    ctypes.POINTER(ctypes.c_double),  # lower (d,) host
+    ctypes.c_int,  # Nelder-Mead iterations
+    ctypes.c_double,  # initial step
+    ctypes.c_double,  # eps_rank
+    ctypes.c_int,  # force the dense capacitance
+    ctypes.c_void_p,  # theta in (B, d) f64, or null: fit there, no search
+    ctypes.c_void_p,  # beta out (B, p)
+    ctypes.c_void_p,  # cov out (B, p, p)
+    ctypes.c_void_p,  # tau2_hat out (B,)
+    ctypes.c_void_p,  # flags out (B,) uint8: bit0 converged, bit1 boundary
+    ctypes.c_void_p,  # pinned out (B, sum q) uint8
+    ctypes.c_void_p,  # theta out (B, d) f64, or null
+    ctypes.c_void_p,  # cudaStream_t
+]
+
+
+def joint_reml_kernel(ztz, ztx, zty, xtx, xty, yty, ns, plan_shape, theta0, lower,
+                      theta=None, dense: bool = False, with_theta: bool = False):
+    """Kernel K11: :func:`joint_reml_plain` on the card (the same optional
+    arguments), one warp a (sim, grid) cell."""
+    M, p, Gn = ztz.shape[-1], xtx.shape[-1], xtx.shape[-3]
+    levels = [m for m, _ in plan_shape]
+    comps = [q for _, q in plan_shape]
+    d = sum(q * (q + 1) // 2 for q in comps)
+    if (sum(m * q for m, q in plan_shape) != M or not 1 <= p <= MAX_P or M > JOINT_MAX_M
+            or d > JOINT_MAX_D or len(plan_shape) > JOINT_MAX_GROUPINGS):
+        raise ValueError(f"joint_reml kernel takes M <= {JOINT_MAX_M} (the plan's), p <= "
+                         f"{MAX_P}, d <= {JOINT_MAX_D}; got M {M}, p {p}, d {d}")
+    lead = yty.shape
+    ztz, ztx, zty, xtx, xty, yty, ns = (
+        v.to(torch.float64).contiguous() for v in (ztz, ztx, zty, xtx, xty, yty, ns)
+    )
+    if (ztz.shape != lead + (M, M) or ztx.shape != lead + (M, p) or zty.shape != lead + (M,)
+            or xtx.shape != lead + (p, p) or xty.shape != lead + (p,) or ns.shape != (Gn,)):
+        raise ValueError("joint_reml: inconsistent shapes")
+    theta0 = np.asarray(theta0, dtype=np.float64).reshape(d)
+    lower = np.asarray(lower, dtype=np.float64).reshape(d)
+    B, ng, nq = yty.numel(), len(plan_shape), sum(comps)
+    kw = dict(dtype=torch.float64, device=xtx.device)
+    beta = torch.empty(lead + (p,), **kw)
+    cov = torch.empty(lead + (p, p), **kw)
+    tau2 = torch.empty(lead, **kw)
+    flags = torch.empty(lead, dtype=torch.uint8, device=xtx.device)
+    pinned = torch.empty(lead + (nq,), dtype=torch.uint8, device=xtx.device)
+    theta_out = torch.empty(lead + (d,), **kw)
+    if theta is not None:
+        theta = theta.to(**kw).reshape(lead + (d,)).contiguous()
+    kernels.require_cuda("joint_reml", ztz, ztx, zty, xtx, xty, yty, ns, beta, cov, tau2, flags,
+                         pinned, theta_out, *(() if theta is None else (theta,)))
+    if B:
+        k = kernels.KERNELS["joint_reml"]
+        fn = k.fn("mcp_joint_reml", _JOINT_ARGS)
+        k.check(
+            fn(
+                kernels.ptr(ztz), kernels.ptr(ztx), kernels.ptr(zty), kernels.ptr(xtx),
+                kernels.ptr(xty), kernels.ptr(yty), kernels.ptr(ns), B, Gn, M, p, ng,
+                (ctypes.c_int * ng)(*levels), (ctypes.c_int * ng)(*comps),
+                (ctypes.c_double * d)(*theta0), (ctypes.c_double * d)(*lower),
+                SLOPE_NM_ITERS, SLOPE_NM_STEP, smallchol.EPS_RANK, int(dense),
+                ctypes.c_void_p(0) if theta is None else kernels.ptr(theta),
+                kernels.ptr(beta), kernels.ptr(cov), kernels.ptr(tau2), kernels.ptr(flags),
+                kernels.ptr(pinned), kernels.ptr(theta_out), kernels.stream_of(xtx),
+            )
+        )
+    out = (beta, cov, (flags & 1).bool(), (flags & 2).bool(), tau2, pinned.bool())
+    return out + (theta_out,) if with_theta else out
+
+
+def joint_reml(ztz, ztx, zty, xtx, xty, yty, ns, plan_shape, theta0, lower):
+    """K11 for CUDA tensors, the plain version for CPU tensors."""
+    if xtx.is_cuda:
+        return joint_reml_kernel(ztz, ztx, zty, xtx, xty, yty, ns, plan_shape, theta0, lower)
+    if xtx.device.type != "cpu":
+        raise ValueError(f"joint_reml: no kernel for device {xtx.device}")
+    return joint_reml_plain(ztz, ztx, zty, xtx, xty, yty, ns, plan_shape, theta0, lower)
+
+
+# ---------------------------------------------------------------------------
 # The arm
 # ---------------------------------------------------------------------------
 
@@ -568,9 +931,17 @@ def mixed_grid_stats(spec: SimSpec, X: torch.Tensor, y: torch.Tensor, *,
     c = spec.cluster
     if c is None:
         raise ValueError("mle estimator requires a cluster spec")
-    if c.extra_groupings:
-        raise NotImplementedError("not ported yet: extra groupings (ROADMAP A12)")
     ns = torch.as_tensor(spec.grid, dtype=torch.float64, device=X.device)
+    if c.extra_groupings:  # the joint-Z capacitance, K2's joint mode and K11
+        plan = grouping_plan(spec)
+        suff = (olsfit.joint_suffstats_plain if plain else olsfit.joint_suffstats)(spec, X, y)
+        _, theta0, lower = theta_layout(plan)
+        shape = [(n_lv, q) for n_lv, q, _, _, _ in plan]
+        beta, cov, converged, boundary, tau2_hat, pinned = (
+            joint_reml_plain if plain else joint_reml
+        )(suff["ztz"], suff["ztx"], suff["zty"], suff["xtx"], suff["xty"], suff["yty"], ns,
+          shape, theta0, lower)
+        return _assemble_outputs(spec, beta, cov, converged, boundary, tau2_hat, pinned)
     if c.slopes:  # the q-dimensional theta search, kernel K9
         suff = (olsfit.grid_suffstats_plain if plain else olsfit.grid_suffstats)(
             spec, X, y, with_slopes=True

@@ -7,7 +7,8 @@ carry the arm on the card:
 * K2 ``grid_suffstats`` (``csrc/grid_suffstats.cu``): per-segment sums in
   f64 from the f32 design, the per-cluster n_j, s_j, t_j for the mixed arm
   (and, in its slope mode, the per-cluster Z moments G, A, b of the
-  random-slope fit), and the cumulative sum over the grid;
+  random-slope fit; in its joint mode, an entry of its own, the joint Z'Z,
+  Z'X, Z'y of extra groupings), and the cumulative sum over the grid;
 * K3 ``ols_solve`` (``csrc/ols_solve.cu``): per (sim, grid) cell the
   Cholesky solve, inverse, rss, sigma^2, Wald covariance, overall F and the
   pivot-ratio convergence flag.
@@ -205,6 +206,151 @@ def grid_suffstats(spec: SimSpec, X: torch.Tensor, y: torch.Tensor,
     if X.device.type != "cpu":
         raise ValueError(f"grid_suffstats: no kernel for device {X.device}")
     return grid_suffstats_plain(spec, X, y, with_clusters, with_slopes)
+
+
+# ---------------------------------------------------------------------------
+# K2's joint mode: the joint-Z statistics of extra groupings
+# ---------------------------------------------------------------------------
+
+
+def joint_layout(spec: SimSpec, device=None):
+    """The joint Z of a spec with extra groupings, as the reference's
+    ``_build_joint_z`` (:511) lays it out: per grouping (the primary first)
+    its level ids ``(max_n,)`` int32, levels m_g and the design columns of
+    its slopes; grouping g owns columns ``off_g + level * q_g + r`` with
+    value 1 (r = 0) or ``X[:, slope_cols[r - 1]]``. Returns ``[(ids, m_g,
+    slope_cols)]`` and M."""
+    from . import datagen
+
+    c = spec.cluster
+    groups = [(datagen.cluster_ids(spec, device), c.n_clusters_at(spec.max_n), slope_cols(spec))]
+    for g, eg in enumerate(c.extra_groupings):
+        ids, n_lv = datagen.extra_grouping_ids(spec, g, device)
+        groups.append((ids, n_lv, [s.design_col for s in eg.slopes]))
+    return groups, sum(m * (1 + len(cols)) for _, m, cols in groups)
+
+
+def _joint_z(spec: SimSpec, X: torch.Tensor):
+    """Per row the Z columns it touches ``(max_n, Q)`` int64 (Q = sum q_g)
+    and their values ``(sims, max_n, Q)`` f64."""
+    groups, M = joint_layout(spec, X.device)
+    cols, vals, off = [], [], 0
+    for ids, m, scols in groups:
+        q = 1 + len(scols)
+        for r in range(q):
+            cols.append(off + ids.long() * q + r)
+            vals.append(torch.ones_like(X[..., 0], dtype=torch.float64) if r == 0
+                        else X[..., scols[r - 1]].to(torch.float64))
+        off += m * q
+    return torch.stack(cols, dim=-1), torch.stack(vals, dim=-1), M
+
+
+def joint_suffstats_plain(spec: SimSpec, X: torch.Tensor, y: torch.Tensor
+                          ) -> Dict[str, torch.Tensor]:
+    """The reference's ``_joint_suffstats`` (:570) without a dense Z: per
+    grid prefix ``ztz (sims, G, M, M)``, ``ztx (sims, G, M, p)``, ``zty
+    (sims, G, M)`` f64 from each row's Z columns (:func:`_joint_z`), summed
+    by ``scatter_add``, with :func:`grid_suffstats_plain`'s ``xtx``,
+    ``xty``, ``yty`` and ``ysum``. Counts are exact; the X sums agree with
+    kernel K2's joint mode to rounding."""
+    out = grid_suffstats_plain(spec, X, y)
+    fit = list(spec.effective_fit_cols)
+    Xf = X[..., fit].to(torch.float64)
+    yf = y.to(torch.float64)
+    cols, vals, M = _joint_z(spec, X)
+    sims, Q, p = X.shape[0], cols.shape[-1], len(fit)
+    segs = {"ztz": [], "ztx": [], "zty": []}
+    prev = 0
+    for n in spec.grid:
+        c, v = cols[prev:n], vals[:, prev:n]
+        rows = n - prev
+        idx = (c[:, :, None] * M + c[:, None, :]).reshape(1, -1).expand(sims, -1)
+        segs["ztz"].append(torch.zeros((sims, M * M), dtype=torch.float64, device=X.device)
+                           .scatter_add_(1, idx, (v[..., :, None] * v[..., None, :])
+                                         .reshape(sims, -1)).reshape(sims, M, M))
+        kk = torch.arange(p, device=X.device)
+        idx = (c[:, :, None] * p + kk).reshape(1, -1).expand(sims, -1)
+        segs["ztx"].append(torch.zeros((sims, M * p), dtype=torch.float64, device=X.device)
+                           .scatter_add_(1, idx, (v[..., :, None] * Xf[:, prev:n, None, :])
+                                         .reshape(sims, -1)).reshape(sims, M, p))
+        idx = c.reshape(1, rows * Q).expand(sims, -1)
+        segs["zty"].append(torch.zeros((sims, M), dtype=torch.float64, device=X.device)
+                           .scatter_add_(1, idx, (v * yf[:, prev:n, None]).reshape(sims, -1)))
+        prev = n
+    out.update({k: torch.cumsum(torch.stack(v, dim=1), dim=1) for k, v in segs.items()})
+    return out
+
+
+_JOINT_ARGS = [
+    ctypes.c_void_p,  # X (sims, max_n, P) f32
+    ctypes.c_void_p,  # y (sims, max_n) f32
+    ctypes.c_int,  # sims
+    ctypes.c_int,  # max_n
+    ctypes.c_int,  # P
+    ctypes.POINTER(ctypes.c_int),  # fit columns (host)
+    ctypes.c_int,  # pf
+    ctypes.POINTER(ctypes.c_int),  # grid (host, for the checks)
+    ctypes.c_void_p,  # grid (G,) int32 (device, for the kernel)
+    ctypes.c_int,  # G
+    ctypes.c_void_p,  # level ids (n_groupings, max_n) int32 (device)
+    ctypes.c_int,  # n_groupings
+    ctypes.POINTER(ctypes.c_int),  # levels per grouping (host)
+    ctypes.POINTER(ctypes.c_int),  # components per grouping (host)
+    ctypes.POINTER(ctypes.c_int),  # slope columns of X, grouping by grouping (host)
+    ctypes.c_void_p,  # ztz out (sims, G, M, M) f64
+    ctypes.c_void_p,  # ztx out (sims, G, M, pf)
+    ctypes.c_void_p,  # zty out (sims, G, M)
+    ctypes.c_void_p,  # cudaStream_t
+]
+
+
+def joint_suffstats_kernel(spec: SimSpec, X: torch.Tensor, y: torch.Tensor
+                           ) -> Dict[str, torch.Tensor]:
+    """K2's joint mode: :func:`joint_suffstats_plain` on the card, a launch
+    of K2 for ``xtx``, ``xty``, ``yty``, ``ysum`` and one of its joint entry
+    (``mcp_grid_suffstats_joint``, counted under the tag ``joint``) for
+    ``ztz``, ``ztx``, ``zty``."""
+    out = grid_suffstats_kernel(spec, X, y)
+    fit = list(spec.effective_fit_cols)
+    pf, G = len(fit), spec.n_grid
+    sims, max_n, P = X.shape
+    groups, M = joint_layout(spec, X.device)
+    ids = torch.stack([g[0] for g in groups]).contiguous()
+    levels = [g[1] for g in groups]
+    comps = [1 + len(g[2]) for g in groups]
+    scols = [c for g in groups for c in g[2]]
+    kw = dict(dtype=torch.float64, device=X.device)
+    out["ztz"] = torch.empty((sims, G, M, M), **kw)
+    out["ztx"] = torch.empty((sims, G, M, pf), **kw)
+    out["zty"] = torch.empty((sims, G, M), **kw)
+    grid_t = torch.tensor(spec.grid, dtype=torch.int32, device=X.device)
+    kernels.require_cuda("grid_suffstats", X, y, ids, grid_t, out["ztz"], out["ztx"], out["zty"])
+    if sims == 0:
+        return out
+    k = kernels.KERNELS["grid_suffstats"]
+    fn = k.fn("mcp_grid_suffstats_joint", _JOINT_ARGS)
+    ng = len(groups)
+    k.check(
+        fn(
+            kernels.ptr(X), kernels.ptr(y), sims, max_n, P, (ctypes.c_int * pf)(*fit), pf,
+            (ctypes.c_int * G)(*spec.grid), kernels.ptr(grid_t), G, kernels.ptr(ids), ng,
+            (ctypes.c_int * ng)(*levels), (ctypes.c_int * ng)(*comps),
+            (ctypes.c_int * max(len(scols), 1))(*scols),
+            kernels.ptr(out["ztz"]), kernels.ptr(out["ztx"]), kernels.ptr(out["zty"]),
+            kernels.stream_of(X),
+        ),
+        tag="joint",
+    )
+    return out
+
+
+def joint_suffstats(spec: SimSpec, X: torch.Tensor, y: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """K2's joint mode for CUDA tensors, the plain version for CPU tensors."""
+    if X.is_cuda:
+        return joint_suffstats_kernel(spec, X.contiguous(), y.contiguous())
+    if X.device.type != "cpu":
+        raise ValueError(f"joint_suffstats: no kernel for device {X.device}")
+    return joint_suffstats_plain(spec, X, y)
 
 
 # ---------------------------------------------------------------------------

@@ -163,3 +163,141 @@ def wouter(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def wvec(c: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., m), (..., m, p), (..., m) -> (..., p): sum_m (c_m s_m) t_m."""
     return (c[..., :, None] * s * t[..., :, None]).sum(-2)
+
+
+# ---------------------------------------------------------------------------
+# The blocked-column family (the reference's ``*_vec`` forms, smallchol.py
+# :149-305), which the reference uses from p = VEC_FROM_P and for the joint-Z
+# capacitance of extra groupings at any width. Column panels of CHOL_BLOCK:
+# the factor subtracts each panel's contraction with the columns before it
+# once (the products added to a zero in ascending column order), then the
+# rank-1 tail inside the panel in ascending column order, dividing by the
+# pivot; the solves subtract one contraction a panel (ascending) and then the
+# scalar tail. Each step below is vectorized over rows (and right-hand
+# sides) where the reference's order allows it: every entry sees the same
+# operations in the same order as the reference's sequential form, and
+# kernel K11 (csrc/joint_reml.cu) repeats them entry by entry. Orders of a
+# contraction differ from XLA's einsum, so the two agree to rounding.
+# ---------------------------------------------------------------------------
+
+VEC_FROM_P = 13
+CHOL_BLOCK = 8
+
+
+def chol_vec(A: torch.Tensor, block: int = CHOL_BLOCK) -> torch.Tensor:
+    """Lower Cholesky of (..., p, p), blocked-column order."""
+    p = A.shape[-1]
+    L = torch.zeros_like(A)
+    acc = torch.zeros_like(A)  # the panel contractions of later columns
+    below = torch.arange(p, device=A.device)
+    for j0 in range(0, p, block):
+        j1 = min(j0 + block, p)
+        S = A[..., :, j0:j1] - acc[..., :, j0:j1]
+        for jj in range(j1 - j0):
+            g = j0 + jj
+            col = S[..., :, jj] / torch.sqrt(S[..., g, jj])[..., None]
+            col = torch.where(below >= g, col, torch.zeros_like(col))
+            L[..., :, g] = col
+            if g + 1 < j1:  # the rank-1 tail on the panel's later columns
+                S = torch.cat([S[..., :, :jj + 1], S[..., :, jj + 1:]
+                               - col[..., :, None] * col[..., None, g + 1:j1]], dim=-1)
+        for k in range(j0, j1):
+            if j1 < p:
+                acc[..., :, j1:] = acc[..., :, j1:] + L[..., :, k, None] * L[..., None, j1:, k]
+    return L
+
+
+def _forward_vec(L: torch.Tensor, B: torch.Tensor, block: int) -> torch.Tensor:
+    """Solve L Y = B, B (..., p, r), blocked."""
+    p = L.shape[-1]
+    Y = torch.zeros_like(B)
+    acc = torch.zeros_like(B)
+    for j0 in range(0, p, block):
+        j1 = min(j0 + block, p)
+        R = B[..., j0:j1, :] - acc[..., j0:j1, :]
+        for ii in range(j1 - j0):
+            g = j0 + ii
+            y = R[..., ii, :] / L[..., g, g, None]
+            Y[..., g, :] = y
+            if g + 1 < j1:
+                R = torch.cat([R[..., :ii + 1, :], R[..., ii + 1:, :]
+                               - L[..., g + 1:j1, g, None] * y[..., None, :]], dim=-2)
+        for k in range(j0, j1):
+            if j1 < p:
+                acc[..., j1:, :] = acc[..., j1:, :] + L[..., j1:, k, None] * Y[..., k, None, :]
+    return Y
+
+
+def _backward_vec(L: torch.Tensor, Y: torch.Tensor, block: int) -> torch.Tensor:
+    """Solve L^T X = Y, Y (..., p, r), blocked."""
+    p = L.shape[-1]
+    X = torch.zeros_like(Y)
+    for j0 in reversed(range(0, p, block)):
+        j1 = min(j0 + block, p)
+        acc = torch.zeros_like(Y[..., j0:j1, :])
+        for k in range(j1, p):
+            acc = acc + L[..., k, j0:j1, None] * X[..., k, None, :]
+        R = Y[..., j0:j1, :] - acc
+        for ii in reversed(range(j1 - j0)):
+            g = j0 + ii
+            s = R[..., ii, :]
+            for k in range(g + 1, j1):
+                s = s - L[..., k, g, None] * X[..., k, :]
+            X[..., g, :] = s / L[..., g, g, None]
+    return X
+
+
+def solve_lower_vec(L: torch.Tensor, b: torch.Tensor, block: int = CHOL_BLOCK) -> torch.Tensor:
+    """Forward substitution, blocked: b (..., p)."""
+    return _forward_vec(L, b[..., None], block)[..., 0]
+
+
+def solve_upper_t_vec(L: torch.Tensor, y: torch.Tensor, block: int = CHOL_BLOCK) -> torch.Tensor:
+    """Back substitution with the lower factor, blocked: y (..., p)."""
+    return _backward_vec(L, y[..., None], block)[..., 0]
+
+
+def cho_solve_vec(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b given A = L L^T (blocked forms)."""
+    return solve_upper_t_vec(L, solve_lower_vec(L, b))
+
+
+def cho_solve_mat_vec(L: torch.Tensor, B: torch.Tensor, block: int = CHOL_BLOCK) -> torch.Tensor:
+    """Solve A X = B for (..., p, r) right-hand sides (blocked forms)."""
+    return _backward_vec(L, _forward_vec(L, B, block), block)
+
+
+def chol_auto(A: torch.Tensor) -> torch.Tensor:
+    """The reference's ``chol`` rule: the scalar order below VEC_FROM_P,
+    the blocked order from it (the reference hands p > 128 to the library
+    Cholesky; the port keeps the blocked order there)."""
+    return chol_vec(A) if A.shape[-1] >= VEC_FROM_P else chol(A)
+
+
+def cho_solve_mat_auto(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve A X = B, B (..., p, r), by the width rule of :func:`chol_auto`:
+    r scalar solves below VEC_FROM_P, the blocked solves from it."""
+    if L.shape[-1] >= VEC_FROM_P:
+        return cho_solve_mat_vec(L, B)
+    return cho_solve(L[..., None, :, :], B.transpose(-1, -2)).transpose(-1, -2)
+
+
+def cho_solve_auto(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b, b (..., p), by the width rule of :func:`chol_auto`."""
+    return cho_solve_vec(L, b) if L.shape[-1] >= VEC_FROM_P else cho_solve(L, b)
+
+
+def cho_inverse_auto(L: torch.Tensor) -> torch.Tensor:
+    """(L L^T)^-1 by the width rule: p solves against the identity."""
+    p = L.shape[-1]
+    eye = torch.eye(p, dtype=L.dtype, device=L.device).expand(*L.shape[:-2], p, p)
+    return cho_solve_mat_auto(L, eye.contiguous())
+
+
+def logdet_ordered(L: torch.Tensor) -> torch.Tensor:
+    """2 sum log diag(L), the logs added in ascending order."""
+    d = torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
+    acc = d[..., 0]
+    for i in range(1, d.shape[-1]):
+        acc = acc + d[..., i]
+    return 2.0 * acc

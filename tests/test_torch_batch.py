@@ -117,7 +117,8 @@ def _lmm(**cluster):
 # Scenario knobs, skewed residuals and marginals run too
 # (tests/test_torch_scenarios.py); here each sits on a design that still
 # raises: a GLMM with extra groupings, more random slopes than kernels K9
-# and K10 take (q = 5), extra groupings, uploaded data, p = 19.
+# and K10 take (q = 5), extra groupings past K11's joint Z of M <= 128 (20 +
+# 110 columns), uploaded data, p = 19.
 # Random-intercept GLMMs run (tests/test_torch_glmm.py) within kernel K7's
 # limits on nodes and clusters; LMMs and GLMMs with up to three random
 # slopes run (tests/test_torch_slopes_fit.py, tests/test_torch_glmm_slopes.py).
@@ -130,7 +131,7 @@ UNSUPPORTED = {
     "glmm_clusters": dict(_GLMM, grid=[2050],
                           cluster=ClusterStatic("fixed_clusters", 1025, 0.25)),
     "slopes": _lmm(slopes=_SLOPES_Q5),
-    "extra_groupings": _lmm(extra_groupings=(ExtraGroupingStatic("crossed", 10, 0.15),)),
+    "extra_groupings": _lmm(extra_groupings=(ExtraGroupingStatic("crossed", 110, 0.15),)),
     "factors": dict(factor_levels=[16], effects=np.zeros(18)),
     "posthoc": dict(factor_levels=[16], effects=np.zeros(18),
                     posthoc=(PosthocStatic(0, 16, ((3, 4),)),)),
@@ -139,7 +140,7 @@ UNSUPPORTED = {
         scenario=ScenarioStatic(heterogeneity=0.2)),
     "heteroskedasticity": dict(_lmm(slopes=_SLOPES_Q5),
                                scenario=ScenarioStatic(heteroskedasticity_ratio=2.0)),
-    "scenario_swaps": dict(_lmm(extra_groupings=(ExtraGroupingStatic("crossed", 10, 0.15),)),
+    "scenario_swaps": dict(_lmm(extra_groupings=(ExtraGroupingStatic("crossed", 110, 0.15),)),
                            scenario=ScenarioStatic(distribution_change_prob=0.5)),
     "residual": dict(residual="right_skewed", upload_frame=np.zeros((10, 2))),
     "marginal": dict(var_types=["normal", "right_skewed"], factor_levels=[16],
