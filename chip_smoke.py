@@ -11,12 +11,13 @@ Run from the repository root with no arguments:
 Phases, each fatal on failure (exit code != 0, no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build kernels K1-K4 and K6-K11 from ``mcpower_tpu_torch/csrc`` (one nvcc
+2. build kernels K1-K4 and K6-K12 from ``mcpower_tpu_torch/csrc`` (one nvcc
    per source, all started together) and print their register and spill
    use, per instantiation (of p for K2-K4 and K6, K2's slope mode on a line
    of its own, of p = 1..4 and the p <= 8 and p <= 16 buckets for K7, of q =
    2..4 and p = 2, 3, 4 and the p <= 8 and p <= 16 buckets for K9 and K10
-   (K10's pass function, not inlined, by q, p and type beside it), of mode
+   (K10's pass function, not inlined, by q, p and type beside it; K12's
+   pass function by type), of mode
    and store width for K1), the static
    SASS instruction count of K1 and K3
    (``cuobjdump``), K6's launch geometry and resident blocks per SM at
@@ -70,7 +71,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    bit-identical (flags, pins, beta, cov, tau^2, theta), and the
    structured arm forced through the dense capacitance: at the structured
    fit's theta within ``EXTRAS_AB_FIT_REL`` with every pin equal, its own
-   search within ``EXTRAS_AB_THETA``;
+   search within ``EXTRAS_AB_THETA``; K12 at every case of ``K12_CHECKS``
+   (the two GLMM extras arms, a launch of the crossed, nested and dense GLMM
+   flows: structured Me 10, nested Me 48 with the blocked Schur factor,
+   dense M 58; and off the path two extra groupings, an extra grouping's own
+   slope, probit, Poisson, the FD Hessian and p = 16), every output
+   bit-identical (flags, pins, beta, cov, tau^2, ybar, theta), and the
+   structured arm forced through the dense capacitance at the structured
+   fit's theta within ``GLMM_EXTRAS_AB_FIT_REL``, every flag equal;
 4. drive the main path through ``lower`` and ``run_batch(device="cuda")``:
    the 10,000-replicate random-intercept LMM headline (base seed 2137), the
    OLS arm, the 8-point power curve and the GLM arm (logit, Bonferroni),
@@ -95,7 +103,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    2,000 sims each in one chunk through K1, K2 and its joint mode and K11,
    each once), their 1,024-sim counts against the reference's (pins within
    ``EXTRAS_PIN_FLIPS``, tau^2 within ``EXTRAS_TAU2_REL``) and against the
-   plain path's on the card;
+   plain path's on the card; then the GLMM extras arms
+   (``GLMM_EXTRAS_DESIGNS``: bench.py's glmm_extras and its dense twin,
+   2,000 sims each in one chunk through K1 twice and K12 once) and their
+   1,024-sim counts against the reference's (within ``GLMM_EXTRAS_*``);
 5. time each kernel (K1 and K2 at the LMM, OLS and curve arms' shapes, K1
    also at the realistic LMM's long and short normal fills, K3
    at the OLS and curve shapes and at a launch of the README model's
@@ -107,7 +118,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    K2's slope mode at the lmm_slopes rows and a README flow 2 launch's, K10
    at a launch of the slope-GLMM flow and at the glmm_slopes cells, K11 at
    the lmm_extras arm's cells and at a launch of the crossed and the dense
-   extras flows, K2's joint mode at the arm's rows and a crossed flow
+   extras flows (K10's and K11's plain versions at one shape each), K12 at
+   the glmm_extras arm's cells and at a launch of the crossed and the dense
+   GLMM flows (its plain version's time the one call of phase 3), K2's joint
+   mode at the arm's rows and a crossed flow
    launch's, beside one ``torch.bmm`` of a dense one-hot Z) on
    the device, from
    torch.profiler's kernel events, and per call through its wrapper (CUDA
@@ -122,9 +136,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and timed beside them in turns (other, this, this, other); K1 at the realistic LMM's long
    normals with its cluster streams padded in one launch against them in a
    launch of their own; then each arm's wall (the GLMM and slope arms' too),
-   and a profile of each arm (wall median of 7 calls, busy share, largest
+   and a profile of each arm (wall median of PROFILE_REPS (3) calls, busy share, largest
    device items);
-6. drive the thirty user flows of ``MODEL_FLOWS`` through
+6. drive the thirty-five user flows of ``MODEL_FLOWS`` through
    ``mcpower_tpu_torch.MCPower`` on the card (the random-intercept LMM's
    and the OLS model's ``find_power`` and ``find_sample_size``, the logit
    model's ``find_power`` and ``find_sample_size``, the Poisson model's
@@ -145,24 +159,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
    to_size=3000)`` and ``scenarios=True``, example 15's nested
    ``find_power(720)`` and README flow 2 with a crossed rater
    ``find_power(600)``, each launching K2 twice (its joint mode once) and
-   K11 once a chunk; 10,000 sims, base seed
+   K11 once a chunk; README flow 3 with a crossed rater: ``find_power(480)``,
+   ``find_sample_size(from_size=240, to_size=720)`` and ``scenarios=True``,
+   with wards nested in its clinics and with a slope on dose beside the
+   rater: ``find_power(480)``, each launching K12 once a chunk; 10,000
+   sims, base seed
    2137), each with every launch count set to 0 before it and read after
    (the logit factor flow must launch K6 twice a chunk, the second the
    fallback's; K1 as often a chunk as each scenario's fill plan says); check
    1,024-sim results against
    golden values of the JAX reference's ``MCPower`` (at most one flip per
-   count) and their result trees at TREE_SIMS (256) sims against the plain
+   count) and their result trees at TREE_SIMS (256; TREE_SIMS_ON_CARD, 128,
+   where the plain path runs on the card) sims against the plain
    path's on the CPU (the slope-GLMM flows' against the plain path's on
    the card, K10's plain version in K10's place, and the extras flows' with
-   K2's joint mode and K11's plain versions: on the CPU they would take
-   minutes);
-   print each flow's wall median (range) of 7 calls, the split into
+   K2's joint mode and K11's plain versions, and the GLMM extras flows'
+   with K12's: on the CPU they would take minutes);
+   print each flow's wall median (range) of PROFILE_REPS (3) calls (one
+   for the extras flows), the split into
    projection, lowering, runner (run_batch inside it) and packaging, the
    chunk count, the busy share and the same design's one-chunk
    ``run_batch`` wall (per scenario);
 7. print the ``kernels`` JSON line (launches on each kernel's path: the
    arms' for K1-K4 and K6, the GLMM arms' for K7, the slope arm's for K9,
-   the slope-GLMM arm's for K10, the extras arms' for K11 and K2's joint
+   the slope-GLMM arm's for K10, the GLMM extras arms' for K12, the extras
+   arms' for K11 and K2's joint
    mode (its own entry, ``grid_suffstats_joint``),
    the Poisson flow's for K8; and by arm and by
    flow, with K6's fallback launches by flow and K1's launches a chunk of
@@ -193,6 +214,11 @@ GOLDEN_SIMS = 1_024
 # (phase 6): at GOLDEN_SIMS the CPU's plain runs of the GLMM and slope flows
 # took ~3 minutes of the script's 1,200 s.
 TREE_SIMS = 256
+# The flows whose plain path runs on the card (the slope GLMM's, the LMM
+# extras' and the GLMM extras': K10's, K11's and K12's plain versions take
+# minutes on the CPU) hold their trees at TREE_SIMS_ON_CARD sims, to keep the
+# script in its time.
+TREE_SIMS_ON_CARD = 128
 SEED = 2137
 
 _CORR5 = (np.full((5, 5), 0.2) + 0.8 * np.eye(5)).tolist()
@@ -752,6 +778,65 @@ K11_CHECKS = {
 # K2's joint mode against its plain version: structured, dense and p = 16.
 K2_JOINT_CHECKS = ("lmm_extras", "lmm_extras_dense", "extras_exslope", "extras_p16")
 
+# The GLMM with extra groupings (kernel K12). The arms: bench.py's cliff arm
+# glmm_extras (:146-166; benchmarks/throughput.py:161-165): glmm_laplace's
+# logit design with a crossed grouping of 10 levels (tau^2 0.15; M = 30, d =
+# 2, the structured capacitance, Me = 10), and the same with throughput.py's
+# cl_slopes slope on x1 (:133-138: variance 0.2, corr 0.3; M = 40 + 10 = 50,
+# d = 4, the dense capacitance), each driven as one chunk of
+# GLMM_EXTRAS_SIMS sims in phase 4. K12's cases (phase 3), each held against
+# glmmfit.glmm_extras_plain bit for bit on the same generated rows (theta
+# too): the two arms, a launch of the crossed, nested and dense GLMM flows
+# (N_SIMS / 8 sims, lowered by the flow: Me 10, nested Me 48 with the blocked
+# Schur factor, dense M 58), and off the path two extra groupings (crossed 4,
+# then nested 2 a parent), a dense plan whose crossed grouping carries a
+# slope of its own, probit, Poisson (its counts through K8), the FD Hessian
+# and p = 16 (the blocked p x p factor); and the structured arm forced
+# through the dense capacitance at the structured fit's theta
+# (GLMM_EXTRAS_AB_FIT_REL).
+GLMM_EXTRAS_SIMS = 2_000
+_GLMM_EXTRAS = dict(_GLMM_BASE, cluster=dict(
+    _GLMM_BASE["cluster"],
+    extra_groupings=[dict(relation="crossed", n_levels=10, tau_squared=0.15)]))
+GLMM_EXTRAS_DESIGNS = {
+    "glmm_extras": _GLMM_EXTRAS,
+    "glmm_extras_dense": dict(_GLMM_EXTRAS, cluster=dict(_GLMM_EXTRAS["cluster"],
+                                                         slopes=[_SLOPE])),
+}
+K12_DESIGNS = {
+    "glmm_extras_two": dict(_GLMM_EXTRAS, grid=[192], cluster=dict(
+        sizing_mode="fixed_clusters", sizing_value=12, tau_squared=0.25,
+        extra_groupings=[dict(relation="crossed", n_levels=4, tau_squared=0.15),
+                         dict(relation="nested", n_levels=2, tau_squared=0.1)])),
+    "glmm_extras_exslope": dict(_GLMM_EXTRAS, grid=[160], cluster=dict(
+        sizing_mode="fixed_clusters", sizing_value=10, tau_squared=0.25,
+        extra_groupings=[dict(relation="crossed", n_levels=8, tau_squared=0.15,
+                              slopes=[dict(design_col=1, variance=0.1, intercept_corr=0.2)])])),
+    "glmm_extras_probit": dict(_GLMM_EXTRAS, link="probit", effects=[-0.2, 0.3, 0.2]),
+    "glmm_extras_poisson": dict(_GLMM_EXTRAS, outcome="count", effects=[0.5, 0.2, 0.1]),
+    "glmm_extras_hessian": dict(_GLMM_EXTRAS, wald_se="hessian"),
+    "glmm_extras_p16": dict(grid=[288], var_types=["normal"] * 15, effects=[-0.3] + [0.05] * 15,
+                            target_cols=list(range(1, 16)), outcome="binary", estimator="glm",
+                            cluster=dict(sizing_mode="fixed_clusters", sizing_value=12,
+                                         tau_squared=0.25, extra_groupings=[
+                                             dict(relation="crossed", n_levels=6,
+                                                  tau_squared=0.15)])),
+}
+# Cases lowered by a flow of the GLMM with extra groupings: (flow, sims).
+K12_FLOW_CASES = {"glmm_crossed_flow_launch": ("model_glmm_crossed_power", N_SIMS // 8),
+                  "glmm_nested_flow_launch": ("model_glmm_nested_power", N_SIMS // 8),
+                  "glmm_dense_flow_launch": ("model_glmm_dense_extras_power", N_SIMS // 8)}
+# Sims of each case: the main path's at the arm and the crossed and dense
+# flow launches (phase 5 times K12 there); the plain version runs many small
+# operations a pass, so the other windows stay small.
+K12_CHECKS = {
+    "glmm_extras": GLMM_EXTRAS_SIMS, "glmm_extras_dense": 256,
+    "glmm_crossed_flow_launch": N_SIMS // 8, "glmm_nested_flow_launch": 256,
+    "glmm_dense_flow_launch": N_SIMS // 8, "glmm_extras_two": 128,
+    "glmm_extras_exslope": 128, "glmm_extras_probit": 128, "glmm_extras_poisson": 128,
+    "glmm_extras_hessian": 64, "glmm_extras_p16": 32,
+}
+
 
 def k7_args(spec, arr, X, y):
     """K7's arguments for a lowered GLMM design and its generated rows (the
@@ -838,6 +923,37 @@ def k11_args(spec, suff):
     return (suff["ztz"], suff["ztx"], suff["zty"], suff["xtx"], suff["xty"], suff["yty"],
             torch.as_tensor(spec.grid, dtype=torch.float64, device=suff["xtx"].device),
             [(m, q) for m, q, _, _, _ in plan], theta0, lower_)
+
+
+def k12_args(spec, arr, X, y):
+    """K12's arguments for a lowered GLMM design with extra groupings and its
+    generated rows (the order glmmfit.glmm_grid_stats passes them)."""
+    import torch
+
+    from mcpower_tpu_torch.engine import glmfit, mixedfit, olsfit
+
+    fit = list(spec.effective_fit_cols)
+    beta0 = (arr["effects"].to(device=X.device, dtype=torch.float64)[fit]
+             if spec.scenario.truth_start
+             else torch.zeros(len(fit), dtype=torch.float64, device=X.device))
+    _, theta0, lower_ = mixedfit.theta_layout(mixedfit.grouping_plan(spec))
+    return (glmfit.link_code(spec.outcome, spec.link), X, y, fit, list(spec.grid),
+            olsfit.joint_layout(spec, X.device)[0], beta0, theta0, lower_,
+            spec.wald_se == "hessian")
+
+
+@contextmanager
+def k12_plain():
+    """Inside the block, K12's wrapper runs its plain version (on the card):
+    the plain path of a GLMM extras flow, its other kernels kept."""
+    from mcpower_tpu_torch.engine import glmmfit
+
+    real = glmmfit.glmm_extras_kernel
+    glmmfit.glmm_extras_kernel = glmmfit.glmm_extras_plain
+    try:
+        yield
+    finally:
+        glmmfit.glmm_extras_kernel = real
 
 
 def k7_is_pr10(k) -> bool:
@@ -1055,6 +1171,38 @@ GOLDEN = {
         "tau2_hat": [254.53568191755173],
         "n_done": 1024,
     },
+    # the JAX reference on the CPU, glmm_extras at GOLDEN_SIMS (golden_values.py)
+    "glmm_extras": {
+        "boundary_hit": [379],
+        "converged": [1024],
+        "glm_baseline": [446.0950000000001],
+        "joint_corr": [57],
+        "joint_unc": [57],
+        "nsig_hist_corr": [[411, 556, 57]],
+        "nsig_hist_unc": [[411, 556, 57]],
+        "pinned_comp": [[149, 286]],
+        "sig_corr": [[437, 233]],
+        "sig_unc": [[437, 233]],
+        "singular": [379],
+        "tau2_hat": [250.20601392337284],
+        "n_done": 1024,
+    },
+    # the JAX reference on the CPU, glmm_extras_dense at GOLDEN_SIMS (golden_values.py)
+    "glmm_extras_dense": {
+        "boundary_hit": [174],
+        "converged": [1024],
+        "glm_baseline": [446.4600000000001],
+        "joint_corr": [35],
+        "joint_unc": [35],
+        "nsig_hist_corr": [[541, 448, 35]],
+        "nsig_hist_unc": [[541, 448, 35]],
+        "pinned_comp": [[27, 96, 80]],
+        "sig_corr": [[300, 218]],
+        "sig_unc": [[300, 218]],
+        "singular": [174],
+        "tau2_hat": [273.6153214722745],
+        "n_done": 1024,
+    },
 }
 # The user flows of phase 6: ``MCPower`` built as a user writes it, then one
 # call. The OLS model is the README's first flow with the factor replaced by
@@ -1120,6 +1268,27 @@ MODELS = {
                    clusters=[("school", dict(ICC=0.08, n_clusters=12)),
                              ("school:classroom", dict(ICC=0.1, n_clusters=48, n_per_parent=4))],
                    cluster=None, types="method=binary", corr=None, effects="method=0.35"),
+    # the GLMM with extra groupings (kernel K12): README flow 3 with a
+    # crossed rater (docs/api.md:63's form), with wards nested in clinics
+    # (docs/api.md:63-64's (1|clinic/ward)), and with the slope GLMM flow's
+    # (1+dose|clinic) beside the rater (the dense capacitance)
+    "glmm_crossed": dict(formula="y ~ dose + (1|clinic) + (1|rater)", family="logit",
+                         clusters=[("clinic", dict(ICC=0.15, n_clusters=24)),
+                                   ("rater", dict(ICC=0.1, n_clusters=10))],
+                         cluster=None, types=None, corr=None, effects="dose=0.35",
+                         baseline_probability=0.3),
+    "glmm_nested": dict(formula="y ~ dose + (1|clinic/ward)", family="logit",
+                        clusters=[("clinic", dict(ICC=0.15, n_clusters=24)),
+                                  ("clinic:ward", dict(ICC=0.1, n_clusters=48, n_per_parent=2))],
+                        cluster=None, types=None, corr=None, effects="dose=0.35",
+                        baseline_probability=0.3),
+    "glmm_dense_extras": dict(formula="y ~ dose + (1+dose|clinic) + (1|rater)", family="logit",
+                              clusters=[("clinic", dict(ICC=0.15, n_clusters=24,
+                                                        random_slopes=["dose"],
+                                                        slope_variance=0.1)),
+                                        ("rater", dict(ICC=0.1, n_clusters=10))],
+                              cluster=None, types=None, corr=None, effects="dose=0.35",
+                              baseline_probability=0.3),
     "dense_extras": dict(formula="y ~ treatment + (1+treatment|site) + (1|rater)", family="lme",
                          clusters=[("site", dict(ICC=0.2, n_clusters=30,
                                                  random_slopes=["treatment"],
@@ -1217,6 +1386,22 @@ MODEL_FLOWS = {
                            ("philox_fill", "grid_suffstats", "joint_reml")),
     "model_dense_extras_power": ("dense_extras", "find_power", dict(sample_size=600),
                                  ("philox_fill", "grid_suffstats", "joint_reml")),
+    # the GLMM with extra groupings (kernel K12): README flow 3's calls on the
+    # crossed model (find_power, a sample-size search on its 240-row atom:
+    # 24 clinics x 10 raters, and its three scenarios), and find_power on the
+    # nested and the dense models
+    "model_glmm_crossed_power": ("glmm_crossed", "find_power", dict(sample_size=480),
+                                 ("philox_fill", "glmm_extras")),
+    "model_glmm_crossed_sample_size": ("glmm_crossed", "find_sample_size",
+                                       dict(from_size=240, to_size=720),
+                                       ("philox_fill", "glmm_extras")),
+    "model_glmm_crossed_scenarios": ("glmm_crossed", "find_power",
+                                     dict(sample_size=480, scenarios=True),
+                                     ("philox_fill", "glmm_extras")),
+    "model_glmm_nested_power": ("glmm_nested", "find_power", dict(sample_size=480),
+                                ("philox_fill", "glmm_extras")),
+    "model_glmm_dense_extras_power": ("glmm_dense_extras", "find_power", dict(sample_size=480),
+                                      ("philox_fill", "glmm_extras")),
 }
 
 
@@ -1227,6 +1412,11 @@ SLOPE_GLMM_FLOWS = tuple(name for name, flow in MODEL_FLOWS.items() if flow[0] =
 # The flows of the LMM with extra groupings (EXTRAS_PIN_FLIPS, EXTRAS_TAU2_REL).
 EXTRAS_FLOWS = tuple(name for name, flow in MODEL_FLOWS.items()
                      if flow[0] in ("crossed", "nested", "dense_extras"))
+# The flows of the GLMM with extra groupings (GLMM_EXTRAS_PIN_FLIPS,
+# GLMM_EXTRAS_COUNT_FLIPS, GLMM_EXTRAS_TAU2_REL).
+GLMM_EXTRAS_FLOWS = tuple(name for name, flow in MODEL_FLOWS.items()
+                          if flow[0] in ("glmm_crossed", "glmm_nested", "glmm_dense_extras"))
+PLAIN_ON_CARD_FLOWS = SLOPE_GLMM_FLOWS + EXTRAS_FLOWS + GLMM_EXTRAS_FLOWS
 
 
 def build_model(mcpower_cls, model: str):
@@ -1937,6 +2127,68 @@ MODEL_GOLDEN = {
         "tau_squared_hat_mean": [0.2523622606826891],
         "boundary_component_counts": [[0, 0, 2]],
     },
+    # the GLMM extras flows: the JAX reference's MCPower on the CPU at GOLDEN_SIMS
+    # (golden_values.py)
+    "model_glmm_crossed_power": {
+        "success_counts_uncorrected": [[908]],
+        "success_counts_corrected": [[908]],
+        "joint_counts_uncorrected": [908],
+        "joint_counts_corrected": [908],
+        "tau_squared_hat_mean": [0.5601237306309677],
+        "boundary_component_counts": [[1, 23]],
+    },
+    "model_glmm_crossed_sample_size": {
+        "success_counts_uncorrected": [[587], [908], [1005]],
+        "success_counts_corrected": [[587], [908], [1005]],
+        "joint_counts_uncorrected": [587, 908, 1005],
+        "joint_counts_corrected": [587, 908, 1005],
+        "tau_squared_hat_mean": [0.5518167006634372, 0.5601095570517607, 0.5646604294342578],
+        "boundary_component_counts": [[17, 66], [1, 21], [0, 9]],
+        "first_achieved": {"dose": 480},
+        "fitted": {"dose": 413.6074766355141},
+    },
+    "model_glmm_crossed_scenarios": {
+        "optimistic": {
+            "success_counts_uncorrected": [[908]],
+            "success_counts_corrected": [[908]],
+            "joint_counts_uncorrected": [908],
+            "joint_counts_corrected": [908],
+            "tau_squared_hat_mean": [0.5601237306309677],
+            "boundary_component_counts": [[1, 23]],
+        },
+        "realistic": {
+            "success_counts_uncorrected": [[866]],
+            "success_counts_corrected": [[866]],
+            "joint_counts_uncorrected": [866],
+            "joint_counts_corrected": [866],
+            "tau_squared_hat_mean": [0.5445691578565689],
+            "boundary_component_counts": [[2, 49]],
+        },
+        "doomer": {
+            "success_counts_uncorrected": [[777]],
+            "success_counts_corrected": [[777]],
+            "joint_counts_uncorrected": [777],
+            "joint_counts_corrected": [777],
+            "tau_squared_hat_mean": [0.5200522800749091],
+            "boundary_component_counts": [[38, 128]],
+        },
+    },
+    "model_glmm_nested_power": {
+        "success_counts_uncorrected": [[897]],
+        "success_counts_corrected": [[897]],
+        "joint_counts_uncorrected": [897],
+        "joint_counts_corrected": [897],
+        "tau_squared_hat_mean": [0.5413829850798161],
+        "boundary_component_counts": [[28, 46]],
+    },
+    "model_glmm_dense_extras_power": {
+        "success_counts_uncorrected": [[745]],
+        "success_counts_corrected": [[745]],
+        "joint_counts_uncorrected": [745],
+        "joint_counts_corrected": [745],
+        "tau_squared_hat_mean": [0.5679644442173022],
+        "boundary_component_counts": [[0, 74, 3]],
+    },
 }
 
 # The f32 generation path's log may differ by an ULP between XLA:CPU and
@@ -2011,6 +2263,31 @@ EXTRAS_TAU2_REL = 2e-3
 # theta within EXTRAS_AB_THETA, every pin equal.
 EXTRAS_AB_FIT_REL = 1e-10
 EXTRAS_AB_THETA = 1e-2
+# The GLMM with extra groupings (K12): its Nelder-Mead ranks on f32 Laplace
+# deviances from f32 PIRLS modes, as the slope GLMM's does, and a component
+# pins where its Cholesky diagonal ends below 1e-3, so where a variance is
+# near 0 (many of the arms' crossed and nested components) two searches
+# whose sums round differently stop on either side of the pin on a flat
+# deviance. Measured on the CPU before any card run of the goldens, the
+# port's plain path against the JAX reference at 1,024 sims (the two GLMM
+# extras arms and the five flows, golden_values.py): pin counts at most 7
+# apart (the glmm_extras arm's crossed-grouping pins, 293 against 286, and
+# its boundary hits, 385 against 379; at most 4 in a flow, the sample-size
+# flow's), significance counts at most 2 (the dense arm's histogram, 446
+# against 448; its joint counts 1; 0 in every flow), the tau^2 sums at most
+# 1.75e-4 relative (the sample-size flow). The bands: twice the measured for
+# pins and counts, as the LMM extras' (GLMM_EXTRAS_PIN_FLIPS 14,
+# GLMM_EXTRAS_COUNT_FLIPS 4), and TAU2_REL's 2e-3 for tau^2 (11x the
+# measured). A standing record in ROADMAP C; frozen before the first card
+# run of the goldens.
+GLMM_EXTRAS_PIN_FLIPS = 14
+GLMM_EXTRAS_COUNT_FLIPS = 4
+GLMM_EXTRAS_TAU2_REL = 2e-3
+# The structured arm forced through the dense capacitance (phase 3), at the
+# structured fit's theta: the two forms agree to rounding (measured on the
+# CPU: beta 1.5e-15 and cov 1.0e-15 relative, tau^2 equal, every flag equal,
+# at 256 sims of glmm_extras).
+GLMM_EXTRAS_AB_FIT_REL = 1e-10
 
 # Kernel tolerances on the card, against the plain versions on the same
 # inputs. Relative errors are max |kernel - plain| / max |plain| per output.
@@ -2061,6 +2338,7 @@ KERNEL_META = {
     "slope_reml": ("mcpower_tpu_torch/csrc/slope_reml.cu", "mcpower_tpu/engine/mixedfit.py:385"),
     "glmm_slope": ("mcpower_tpu_torch/csrc/glmm_slope.cu", "mcpower_tpu/engine/glmmfit.py:556"),
     "joint_reml": ("mcpower_tpu_torch/csrc/joint_reml.cu", "mcpower_tpu/engine/mixedfit.py:719"),
+    "glmm_extras": ("mcpower_tpu_torch/csrc/glmm_extras.cu", "mcpower_tpu/engine/glmmfit.py:155"),
     # K2's joint mode, an entry of grid_suffstats.cu counted under its tag
     "grid_suffstats_joint": ("mcpower_tpu_torch/csrc/grid_suffstats.cu",
                              "mcpower_tpu/engine/mixedfit.py:570"),
@@ -2090,7 +2368,7 @@ def lower_design(lower_mod, cluster_cls, name: str):
     kw = dict({**DESIGNS, **SCENARIO_ARMS, **SCENARIO_DESIGNS, **LAYOUT_CHECKS, **K2_CHECKS,
                **FACTOR_DESIGNS, **K6_DESIGNS, **GLMM_DESIGNS, **K7_DESIGNS, **SLOPE_DESIGNS,
                **K9_DESIGNS, **SLOPE_GLMM_DESIGNS, **K10_DESIGNS, **EXTRAS_DESIGNS,
-               **K11_DESIGNS}[name])
+               **K11_DESIGNS, **GLMM_EXTRAS_DESIGNS, **K12_DESIGNS}[name])
     for key in ("corr", "effects"):
         if key in kw:
             kw[key] = np.asarray(kw[key], dtype=np.float64)
@@ -2523,6 +2801,98 @@ def k11_bound(args, outs) -> Tuple[float, str]:
     return bound(nbytes(*args[:6], *(o for o in outs if hasattr(o, "numel"))), ops)
 
 
+def k12_bound(args, outs) -> Tuple[float, str]:
+    """Every cell's fit as K12 runs it: (d + 1) 8 + 12 x 4 x 8 + (iters - 12)
+    x 4 x 3 f32 PIRLS steps and d + 1 + 4 iters f32 deviance tails (30
+    iterations for d <= 3, 45 beyond), then 12 f64 steps and the f64 mode
+    pass, under the Hessian 1 + 2p + 2p(p - 1) stencil points of 20 v-only
+    dense passes and a dense tail each. A pass, per row (a multiply-add two
+    operations: K12 is built without contraction): X beta and z u, the
+    link's transcendental, two divisions, Z'WZ's terms (the level's block and
+    the blocks with later groupings, over each grouping), the right-hand
+    sides wz_k zw and wz_k x_a, and X'WX, X'Wz and the deviance's log (a
+    tail: the Z'WZ terms and the log alone); per cell the capacitance as
+    k11_bound counts it (structured: a, Cpe, S over the primary levels, its
+    factor, the p + 1 column solves; dense: C entry by entry, its blocked
+    factor and solves), M logs, the p x p factor and solve and the v update.
+    Passes are counted in full (a cell keeps its state on a step that is not
+    finite). Bytes: each sim's fit and slope columns and y up to the last
+    grid point, the row lists, beta0 and every output."""
+    from mcpower_tpu_torch.engine import glmmfit
+
+    code, X, y, fit, grid, groups, beta0, theta0, lower_, hessian = args
+    p, sims = len(fit), X.shape[0]
+    shape = [(int(m), 1 + len(c)) for _, m, c in groups]
+    M = sum(m * q for m, q in shape)
+    d = sum(q * (q + 1) // 2 for _, q in shape)
+    nz = sum(q for _, q in shape)
+    rows = float(sims * sum(grid))
+    cells = float(sims * len(grid))
+    r = p + 1
+    nt = p * (p + 1) // 2
+    # Z'WZ terms a row adds: each grouping's block (k >= l) and its blocks
+    # with the later groupings
+    zterms = sum(q * (q + 1) // 2 + q * sum(qh for _, qh in shape[g + 1:])
+                 for g, (_, q) in enumerate(shape))
+    row_step = 2 * p + 2 * nz + 6 + 2 * zterms + 2 * nz * r + 3 * nt + 3 * p
+    row_tail = 2 * p + 2 * nz + 4 + 2 * zterms
+
+    def cap(dense: bool, rr: int, solve: bool):
+        if not dense:
+            m1 = shape[0][0]
+            n = M - m1
+            mac = (m1 + m1 * n + n * (n + 1) // 2 * (m1 + 1))
+            divs = m1 * n
+            if solve:
+                mac += m1 * rr + n * rr + n * rr * m1 + m1 * rr * n + rr * rr * M
+                divs += m1 * rr + 2 * m1 * rr
+            logs = m1 + n
+        else:
+            k = [q - c for m, q in shape for _ in range(m) for c in range(q)]
+            mac = sum(ka * kb + kb for i, ka in enumerate(k) for kb in k[:i + 1])
+            if solve:
+                mac += rr * sum(k) + rr * rr * M
+            n, divs, logs = M, 0, M
+        mac += n ** 3 // 6 + (rr * n * n if solve else 0)
+        divs += n * (n + 1) // 2 + (2 * n * rr if solve else 0)
+        return mac, divs, logs, n
+
+    structured = all(q == 1 for _, q in shape)
+    pmac = p ** 3 // 6 + p * p + M * p
+
+    def per_cell(kind, dense):
+        mac, divs, logs, n = cap(dense, 1 if kind == "vstep" else r, kind != "tail")
+        out = {}
+        for t, div, trans in (("f32", F32_DIV_OPS, F32_EXP_OPS), ("f64", F64_DIV_INSTR,
+                                                                  F64_LOG_INSTR)):
+            o = 2 * mac + divs * div + logs * trans + 2 * M
+            if kind in ("step", "mode"):
+                o += 2 * pmac + 3 * p * div
+            out[t] = o
+        return out
+
+    per_row = {"f32": (row_step + F32_EXP_OPS + 2 * F32_DIV_OPS,
+                       row_tail + 2 * F32_EXP_OPS + F32_DIV_OPS),
+               "f64": (row_step + F64_EXP_INSTR + 2 * F64_DIV_INSTR,
+                       row_tail + F64_EXP_INSTR + F64_LOG_INSTR + F64_DIV_INSTR)}
+    phases = glmmfit.extras_phases(d)
+    steps32 = (d + 1) * glmmfit.N_PIRLS_SLOPE + sum(4 * n * b for n, b in phases)
+    tails32 = d + 1 + 4 * glmmfit.extras_nm_iters(d)
+    dense = not structured
+    ops = {"f32": steps32 * (rows * per_row["f32"][0] + cells * per_cell("step", dense)["f32"])
+           + tails32 * (rows * per_row["f32"][1] + cells * per_cell("tail", dense)["f32"]),
+           "f64": (glmmfit.N_PIRLS + 1) * (rows * per_row["f64"][0]
+                                           + cells * per_cell("step", dense)["f64"])}
+    if hessian:
+        v = 1 + 2 * p + 2 * p * (p - 1)
+        ops["f64"] += v * (glmmfit.N_V_PIRLS * (rows * per_row["f64"][0]
+                                                + cells * per_cell("vstep", True)["f64"])
+                           + rows * per_row["f64"][1] + cells * per_cell("tail", True)["f64"])
+    ops["f64"] += cells * (p ** 3 + 2 * p ** 3 // 3)
+    read = float(sims * max(grid) * (p + nz - len(shape) + 1) * 4 + len(shape) * X.shape[1] * 12)
+    return bound(read + nbytes(beta0, *(o for o in outs if hasattr(o, "numel"))), ops)
+
+
 def k2_joint_bound(spec, X, y, out) -> Tuple[float, str]:
     """K2's joint mode: X and y read once, ztz, ztx and zty written once per
     grid point; Q^2 + Q p + Q f64 multiply-adds a row (Q components)."""
@@ -2653,16 +3023,23 @@ class ClockSampler:
                 f"({len(clk)} samples, 100 ms apart)")
 
 
-PROFILE_REPS = 7
-# The extras flows and arms: K11 takes tenths of a second a launch (a first
-# version), so their walls are medians of 3 calls, to keep the script within
-# its time.
-EXTRAS_PROFILE_REPS = 3
+PROFILE_REPS = 3
+# The extras flows and arms: K11 and K12 take tenths of a second a launch (a
+# first version), so their walls are one call each, to keep the script
+# within its time.
+EXTRAS_PROFILE_REPS = 1
+GLMM_EXTRAS_PROFILE_REPS = 1
+# The rows of phase 5 where a heavy kernel's plain version is timed (its
+# kernel's main row, the one the kernels line reports); its other rows'
+# plain times are not measured, to keep the script in its time.
+PLAIN_AT_MAIN_ROW = ("glm_irls", "glmm_intercept agq7", "slope_reml readme2",
+                     "glmm_slope flow", "joint_reml crossed")
 
 
-def profile_arm(run, after_each=None, reps: int = None) -> Dict:
+def profile_arm(run, after_each=None, reps: int = None, profiled: int = 2) -> Dict:
     """Wall of ``reps`` (PROFILE_REPS) calls of ``run`` (host clock; each call ends
-    with the counts on the host), then one call under torch.profiler: the
+    with the counts on the host), then ``profiled`` calls under
+    torch.profiler, the one whose window holds the most kernels kept: the
     summed device time of its kernels, their count and the largest by
     name (ms). ``after_each()`` is called after each timed call, outside
     its wall."""
@@ -2677,10 +3054,11 @@ def profile_arm(run, after_each=None, reps: int = None) -> Dict:
         if after_each is not None:
             after_each()
     # two profiled calls, keeping the one whose window holds more kernels:
-    # a window has been seen to drop part of a call's events
+    # a window has been seen to drop part of a call's events (one for the
+    # extras' flows and arms, whose calls take seconds)
     host: list = []
     events = []
-    for _ in range(2):
+    for _ in range(profiled):
         got_host: list = []
         got = device_events(run, "an arm", cpu=True, host=got_host)
         if len(got) > len(events):
@@ -2783,6 +3161,21 @@ def _ptxas_lines(name: str, log: str) -> list:
     if name == "joint_reml":
         return [f"  ptxas {name}: {v['regs']} registers, {v.get('spill', 0)} B spill stores"
                 for v in _ptxas_by_kernel(log).values()]
+    if name == "glmm_extras":  # one kernel; its pass function, not inlined, by type
+        out = [f"  ptxas {name}: {v['regs']} registers, {v.get('spill', 0)} B spill stores"
+               for v in _ptxas_by_kernel(log).values()]
+        cur = None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for \S*extras_passI(\w)E", line)
+            if m:
+                cur = "f32" if m.group(1) == "f" else "f64"
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+            if cur is not None and m:
+                out.append(f"  ptxas {name} pass function {cur}: {m.group(1)} B stack, "
+                           f"{m.group(2)} B spill stores")
+                cur = None
+        return out
     if name == "philox_fill":
         rows = []
         for mangled, v in sorted(_ptxas_by_kernel(log).items()):
@@ -2952,7 +3345,8 @@ def lowered_differences(got, want) -> list:
 def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
     """Phase 6: each of MODEL_FLOWS through ``MCPower`` on the card. Per
     flow: a first call (the first lowering's scipy tables and the like; the
-    kernels are built by then), the counted call at N_SIMS with every launch
+    kernels are built by then; one chunk's sims for the extras flows, whose
+    calls take seconds), the counted call at N_SIMS with every launch
     count set to 0 before it (each kernel of the flow's path must launch),
     GOLDEN_SIMS sims against MODEL_GOLDEN, the whole result tree of
     TREE_SIMS sims against the plain path's on the CPU (``compare_trees``; a
@@ -2974,8 +3368,9 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
             return run_flow(MCPower, name, n, device=device)
 
         t_flow = time.perf_counter()
+        heavy = name in EXTRAS_FLOWS + GLMM_EXTRAS_FLOWS  # seconds a call: lighter profiles
         t0 = time.perf_counter()
-        run()
+        run(N_SIMS // 8 if heavy else N_SIMS)
         first_ms = (time.perf_counter() - t0) * 1e3
         kernels.reset_counts()
         with stage_clock(model_mod, runner, batch) as clock:
@@ -3015,39 +3410,51 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
         card = run(GOLDEN_SIMS)
         pins = (SLOPE_PIN_FLIPS if name in SLOPE_FLOWS else
                 SLOPE_GLMM_PIN_FLIPS if name in SLOPE_GLMM_FLOWS else
-                EXTRAS_PIN_FLIPS if name in EXTRAS_FLOWS else None)
+                EXTRAS_PIN_FLIPS if name in EXTRAS_FLOWS else
+                GLMM_EXTRAS_PIN_FLIPS if name in GLMM_EXTRAS_FLOWS else None)
         tau_rel = (SLOPE_GLMM_TAU2_REL if name in SLOPE_GLMM_FLOWS else
+                   GLMM_EXTRAS_TAU2_REL if name in GLMM_EXTRAS_FLOWS else
                    GLMM_TAU2_REL if name.startswith("model_glmm") else
                    EXTRAS_TAU2_REL if name in EXTRAS_FLOWS else None)
+        if name in GLMM_EXTRAS_FLOWS:  # K12 once a chunk
+            check(launched["glmm_extras"] == got["chunks"],
+                  f"flow {name}: K12 {launched['glmm_extras']} launches in {got['chunks']} chunks")
         if name in EXTRAS_FLOWS:  # K2's joint mode once a chunk beside its main entry
             check(launched["grid_suffstats_joint"] == got["chunks"]
                   and launched["joint_reml"] == got["chunks"],
                   f"flow {name}: K2's joint mode {launched['grid_suffstats_joint']} and K11 "
                   f"{launched['joint_reml']} launches in {got['chunks']} chunks")
-        counts_band = EXTRAS_COUNT_FLIPS if name in EXTRAS_FLOWS else None
+        counts_band = (EXTRAS_COUNT_FLIPS if name in EXTRAS_FLOWS else
+                       GLMM_EXTRAS_COUNT_FLIPS if name in GLMM_EXTRAS_FLOWS else None)
         flips = compare_trees(name, flow_summary(card), MODEL_GOLDEN[name], tau_rel=tau_rel,
                               pin_flips=pins, max_flips=counts_band)
-        card = run(TREE_SIMS)
+        tree_sims = TREE_SIMS_ON_CARD if name in PLAIN_ON_CARD_FLOWS else TREE_SIMS
+        card = run(tree_sims)
         if name in SLOPE_GLMM_FLOWS:  # K10's plain version on the card: the CPU's takes minutes
             with k10_plain():
-                plain_tree, where = run(TREE_SIMS), "on the card (K10's plain version)"
+                plain_tree, where = run(tree_sims), "on the card (K10's plain version)"
         elif name in EXTRAS_FLOWS:  # likewise K11's and K2's joint mode's
             with k11_plain():
-                plain_tree, where = run(TREE_SIMS), ("on the card (K2's joint mode's and K11's "
+                plain_tree, where = run(tree_sims), ("on the card (K2's joint mode's and K11's "
                                                      "plain versions)")
+        elif name in GLMM_EXTRAS_FLOWS:  # likewise K12's
+            with k12_plain():
+                plain_tree, where = run(tree_sims), "on the card (K12's plain version)"
         else:
             plain_tree, where = run(TREE_SIMS, "cpu"), "on the CPU"
         tree_flips = compare_trees(name, card, plain_tree, pin_flips=pins, max_flips=counts_band)
         print(f"golden {name} at {GOLDEN_SIMS} sims against the JAX MCPower: "
               f"{'identical' if not flips else 'flips ' + '; '.join(flips)}; whole result tree "
-              f"at {TREE_SIMS} sims ({len(tree_keys(card))} keys) against the plain path's "
+              f"at {tree_sims} sims ({len(tree_keys(card))} keys) against the plain path's "
               f"{where}: {'identical' if not tree_flips else 'flips ' + '; '.join(tree_flips)}",
               flush=True)
 
         splits = []
-        reps = EXTRAS_PROFILE_REPS if name in EXTRAS_FLOWS else PROFILE_REPS
+        reps = (EXTRAS_PROFILE_REPS if name in EXTRAS_FLOWS else
+                GLMM_EXTRAS_PROFILE_REPS if name in GLMM_EXTRAS_FLOWS else PROFILE_REPS)
         with stage_clock(model_mod, runner, batch) as clock:
-            prof = profile_arm(run, after_each=lambda: splits.append(clock.take()), reps=reps)
+            prof = profile_arm(run, after_each=lambda: splits.append(clock.take()), reps=reps,
+                               profiled=1 if heavy else 2)
         split = {st: statistics.median(s["ms"].get(st, 0.0) for s in splits)
                  for st in ("projection", "lowering", "runner", "run_batch", "packaging")}
         split["other"] = statistics.median(
@@ -3056,7 +3463,8 @@ def run_user_flows(smi: str, specs) -> Dict[str, Dict]:
             for w, s in zip(prof["walls"], splits))
         chunks = splits[0]["chunks"]
         one = profile_arm(lambda: [batch.run_batch(sp, ar, N_SIMS, SEED, chunk_size=N_SIMS,
-                                                   device=dev) for sp, ar in lowered], reps=reps)
+                                                   device=dev) for sp, ar in lowered], reps=reps,
+                          profiled=1 if heavy else 2)
         busy = prof["device_ms"] / prof["median_ms"]
         flows[name] = dict(
             wall_median_ms=prof["median_ms"], wall_min_ms=prof["min_ms"],
@@ -3620,6 +4028,71 @@ def main(argv=None) -> int:
           f"{pin_diff}")
     records["joint_reml"] = {"max_abs_err": k11_err, "forced_dense_ab": dict(
         fit_rel=fit_rel, theta_gap=theta_gap, pins_differ=pin_diff)}
+    # K12 on generated rows of GLMM designs with extra groupings, bit for bit
+    # (theta too); the Poisson design draws its counts through K8. The plain
+    # version's one call is timed by CUDA events (phase 5 reports it beside
+    # the kernel at the main path's shapes)
+    k12_args_by, k12_out, k12_plain_ms = {}, {}, {}
+    flow_cases12 = {name: flow_lowered(flow)[0] for name, (flow, _) in K12_FLOW_CASES.items()}
+    k12_err = 0.0
+    for name, n in K12_CHECKS.items():
+        t_case = time.perf_counter()
+        spec_, arr_ = flow_cases12[name] if name in flow_cases12 else \
+            lower_design(lower, ClusterStatic, name)
+        arr_d = datagen.to_device(arr_, dev)
+        X_, y_, _ = datagen.generate_batch(spec_, arr_d, SEED, 0, sim_ids[:n],
+                                           plain=spec_.outcome != "count")
+        args = k12_args(spec_, arr_d, X_, y_)
+        k12_args_by[name] = args
+        got = glmmfit.glmm_extras_kernel(*args)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        want = glmmfit.glmm_extras_plain(*args)
+        ev1.record()
+        torch.cuda.synchronize()
+        k12_plain_ms[name] = ev0.elapsed_time(ev1)
+        k12_out[name] = got
+        cells, nq = want[2].numel(), want[6].shape[-1]
+        n_conv, n_bnd = int(want[2].sum()), int(want[3].sum())
+        pins = want[6].reshape(-1, nq).sum(0).tolist()
+        plan_ = mixedfit.grouping_plan(spec_)
+        form = "structured" if mixedfit.plan_all_q1(plan_) else "dense"
+        check(n_conv > 0.9 * cells, f"K12 {name}: only {n_conv} of {cells} converged")
+        diffs = {k: int((~((g == w) | (g.isnan() & w.isnan()))).sum())
+                 for k, g, w in zip(("beta", "cov", "converged", "boundary", "tau2", "ybar",
+                                     "pinned", "theta"), got, want)}
+        k12_err = max(k12_err, max(float((g - w)[torch.isfinite(w)].abs().max())
+                                   for g, w in zip(got[:2] + got[4:6] + got[7:],
+                                                   want[:2] + want[4:6] + want[7:])))
+        print(f"K12 glmm_extras {name} cells {tuple(got[2].shape)} p {len(args[3])} M "
+              f"{mixedfit.joint_width(plan_)} ({form}, groupings "
+              f"{[(int(m), 1 + len(c)) for _, m, c in args[5]]}) link {args[0]}"
+              f"{' hessian' if args[9] else ''}: {n_conv} converged, {n_bnd} with a pin (per "
+              f"component {pins}); entries that differ from the plain version: "
+              + ", ".join(f"{k} {v}" for k, v in diffs.items())
+              + f"; plain {k12_plain_ms[name]:.0f} ms; {time.perf_counter() - t_case:.1f} s",
+              flush=True)
+        check(not any(diffs.values()), f"K12 {name}: outputs differ from the plain version's {diffs}")
+    # the structured arm forced through the dense capacitance at the
+    # structured fit's theta
+    args, st = k12_args_by["glmm_extras"], k12_out["glmm_extras"]
+    at = glmmfit.glmm_extras_kernel(*args, theta=st[7], dense=True)
+    at_plain = glmmfit.glmm_extras_plain(*args, theta=st[7], dense=True)
+    diffs = [int((~((a == b) | (a.isnan() & b.isnan()))).sum()) for a, b in zip(at, at_plain)]
+    fit_rel = max(rel_err(a, b) for a, b in ((at[0], st[0]), (at[1], st[1]), (at[4], st[4])))
+    flag_diff = sum(int((a != b).sum()) for a, b in ((at[2], st[2]), (at[3], st[3]),
+                                                      (at[6], st[6])))
+    M_ = sum(int(m) * (1 + len(c)) for _, m, c in args[5])
+    print(f"K12 forced-dense A/B of glmm_extras ({st[2].numel()} cells, M {M_}): "
+          f"the dense form at the structured theta, beta, cov and tau^2 within {fit_rel:.2e} "
+          f"relative; flags and pins that differ {flag_diff}; entries that differ from the plain "
+          f"version {sum(diffs)}", flush=True)
+    check(not any(diffs), f"K12 forced dense: outputs differ from the plain version's {diffs}")
+    check(fit_rel <= GLMM_EXTRAS_AB_FIT_REL and flag_diff == 0,
+          f"K12 forced dense against structured: fit {fit_rel:.2e}, flags {flag_diff}")
+    records["glmm_extras"] = {"max_abs_err": k12_err, "forced_dense_ab": dict(
+        fit_rel=fit_rel, flags_differing=flag_diff)}
+
     torch.cuda.synchronize()
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     if opts.checks_only:
@@ -3664,6 +4137,7 @@ def main(argv=None) -> int:
             check(got.shape == want.shape, f"{name} {key}: shape {got.shape} != {want.shape}")
             if key in ("tau2_hat", "glm_baseline"):
                 band = (GLM_BASELINE_REL if key == "glm_baseline" else
+                        GLMM_EXTRAS_TAU2_REL if name in GLMM_EXTRAS_DESIGNS else
                         GLMM_TAU2_REL if name in GLMM_DESIGNS else
                         SLOPE_GLMM_TAU2_REL if name in SLOPE_GLMM_DESIGNS else
                         EXTRAS_TAU2_REL if name in EXTRAS_DESIGNS else TAU2_REL)
@@ -3680,6 +4154,9 @@ def main(argv=None) -> int:
                     else EXTRAS_PIN_FLIPS if name in EXTRAS_DESIGNS and key in (
                         "pinned_comp", "boundary_hit")
                     else EXTRAS_COUNT_FLIPS if name in EXTRAS_DESIGNS
+                    else GLMM_EXTRAS_PIN_FLIPS if name in GLMM_EXTRAS_DESIGNS and key in (
+                        "pinned_comp", "boundary_hit", "singular")
+                    else GLMM_EXTRAS_COUNT_FLIPS if name in GLMM_EXTRAS_DESIGNS
                     else MAX_FLIPS)
             check(int(diff.max()) <= band, f"{name} {key}: {got.tolist()} vs golden {want.tolist()}")
         extra = set(counts) - set(GOLDEN[name])
@@ -3814,15 +4291,16 @@ def main(argv=None) -> int:
               f"{np.round(power, 4).tolist()}, pins per component "
               f"{np.asarray(counts['pinned_comp'])[-1].tolist()}", flush=True)
         check_golden(name, spec_, arr_)
-        card = batch.run_batch(spec_, arr_, GOLDEN_SIMS, SEED, chunk_size=GOLDEN_SIMS, device=dev)
-        plain_c = batch.run_batch(spec_, arr_, GOLDEN_SIMS, SEED, chunk_size=GOLDEN_SIMS,
-                                  device=dev, plain=True)
+        card = batch.run_batch(spec_, arr_, TREE_SIMS_ON_CARD, SEED, chunk_size=TREE_SIMS_ON_CARD,
+                               device=dev)
+        plain_c = batch.run_batch(spec_, arr_, TREE_SIMS_ON_CARD, SEED,
+                                  chunk_size=TREE_SIMS_ON_CARD, device=dev, plain=True)
         differ = [k for k in plain_c if not np.array_equal(np.asarray(card[k]),
                                                            np.asarray(plain_c[k]))]
         check(sorted(card) == sorted(plain_c) and not differ,
               f"{name}: the card's counts differ from the plain path's in {differ}")
-        print(f"arm {name} at {GOLDEN_SIMS} sims: every count the plain path's on the card",
-              flush=True)
+        print(f"arm {name} at {TREE_SIMS_ON_CARD} sims: every count the plain path's on the "
+              f"card", flush=True)
         for k in launches:
             launches[k] += got_l[k]
 
@@ -3861,9 +4339,10 @@ def main(argv=None) -> int:
               f"{np.round(power, 4).tolist()}, pins per component "
               f"{np.asarray(counts['pinned_comp'])[-1].tolist()}", flush=True)
         check_golden(name, spec_, arr_)
-        card = batch.run_batch(spec_, arr_, GOLDEN_SIMS, SEED, chunk_size=GOLDEN_SIMS, device=dev)
-        plain_c = batch.run_batch(spec_, arr_, GOLDEN_SIMS, SEED, chunk_size=GOLDEN_SIMS,
-                                  device=dev, plain=True)
+        card = batch.run_batch(spec_, arr_, TREE_SIMS_ON_CARD, SEED, chunk_size=TREE_SIMS_ON_CARD,
+                               device=dev)
+        plain_c = batch.run_batch(spec_, arr_, TREE_SIMS_ON_CARD, SEED,
+                                  chunk_size=TREE_SIMS_ON_CARD, device=dev, plain=True)
         check(sorted(card) == sorted(plain_c), f"{name}: count sets differ")
         differ = {}
         for k in plain_c:
@@ -3876,10 +4355,44 @@ def main(argv=None) -> int:
                 band = EXTRAS_PIN_FLIPS if k in ("pinned_comp", "boundary_hit") else \
                     EXTRAS_COUNT_FLIPS
                 check(differ[k] <= band, f"{name}: {k} {g.tolist()} vs the plain path's {w.tolist()}")
-        print(f"arm {name} at {GOLDEN_SIMS} sims against the plain path's on the card: "
+        print(f"arm {name} at {TREE_SIMS_ON_CARD} sims against the plain path's on the card: "
               + (f"flips {differ}" if differ else "every count equal"), flush=True)
         for k in launches:
             launches[k] += got_l[k]
+
+    # The GLMM extras arms: one chunk of GLMM_EXTRAS_SIMS sims each through
+    # K1 (twice: the normals, then the outcome's words) and K12; at
+    # GOLDEN_SIMS the reference's counts (phase 3 held K12 to its plain
+    # version at the arm's own cells, phase 6 holds the flows' trees to the
+    # plain path's)
+    glmm_extras_specs = {name: lower_design(lower, ClusterStatic, name)
+                         for name in GLMM_EXTRAS_DESIGNS}
+    glmm_extras_arm_s = {}
+    for name, (spec_, arr_) in glmm_extras_specs.items():
+        batch.run_batch(spec_, arr_, GLMM_EXTRAS_SIMS, 1, chunk_size=GLMM_EXTRAS_SIMS,
+                        device=dev)  # warm-up
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        counts = batch.run_batch(spec_, arr_, GLMM_EXTRAS_SIMS, SEED,
+                                 chunk_size=GLMM_EXTRAS_SIMS, device=dev)
+        glmm_extras_arm_s[name] = time.perf_counter() - t0
+        launches_by_arm[name] = got_l = kernels.counts()
+        check(got_l["glmm_extras"] == 1 and got_l["philox_fill"] == 2,
+              f"{name}: K12 launched {got_l['glmm_extras']} times (1 expected), K1 "
+              f"{got_l['philox_fill']} (2 expected)")
+        check(int(counts["n_done"]) == GLMM_EXTRAS_SIMS, f"{name}: n_done {counts['n_done']}")
+        conv = np.asarray(counts["converged"])
+        check(bool((conv > 0.9 * GLMM_EXTRAS_SIMS).all()), f"{name}: converged {conv.tolist()}")
+        for key, v in counts.items():
+            check(bool(np.isfinite(np.asarray(v, dtype=np.float64)).all()), f"{name}: {key} not finite")
+        power = np.asarray(counts["sig_unc"])[-1] / GLMM_EXTRAS_SIMS
+        print(f"arm {name}: {glmm_extras_arm_s[name] * 1e3:.1f} ms for {GLMM_EXTRAS_SIMS} sims "
+              f"through the kernels (one chunk; launches {got_l}); power at N={spec_.max_n}: "
+              f"{np.round(power, 4).tolist()}, pins per component "
+              f"{np.asarray(counts['pinned_comp'])[-1].tolist()}", flush=True)
+        check_golden(name, spec_, arr_)
+        for k in launches:
+            launches[k] += got_l.get(k, 0)
 
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -4066,6 +4579,23 @@ def main(argv=None) -> int:
         timing.append((key, shape.format(tuple(out_[2].shape)), mixedfit.joint_reml_kernel,
                        mixedfit.joint_reml_plain, args_, k11_bound(args_, out_), None))
 
+    # K12 at the glmm_extras arm's cells (structured, Me 10), at a launch of
+    # the crossed GLMM flow (structured, Me 10) and of the dense GLMM flow (M
+    # 58, d 4); the plain version's time is its one call of phase 3 (CUDA
+    # events around it)
+    known_plain = {}
+    for key, case, shape in (
+            ("glmm_extras arm", "glmm_extras",
+             "glmm_extras arm cells {}, N 200, M 30 (m 20 + 10), p 3, structured"),
+            ("glmm_extras crossed", "glmm_crossed_flow_launch",
+             "crossed GLMM flow launch, cells {}, N 480, M 34 (m 24 + 10), p 2, structured"),
+            ("glmm_extras dense", "glmm_dense_flow_launch",
+             "dense GLMM flow launch, cells {}, N 480, M 58 (24 x 2 + 10), p 2, dense")):
+        args_, out_ = k12_args_by[case], k12_out[case]
+        known_plain[key] = k12_plain_ms[case]
+        timing.append((key, shape.format(tuple(out_[2].shape)), glmmfit.glmm_extras_kernel,
+                       glmmfit.glmm_extras_plain, args_, k12_bound(args_, out_), None))
+
     def k2j(spec_):  # K2's joint mode and its plain version, taking (X, y)
         return (lambda X_, y_: olsfit.joint_suffstats_kernel(spec_, X_, y_),
                 lambda X_, y_: olsfit.joint_suffstats_plain(spec_, X_, y_))
@@ -4103,11 +4633,19 @@ def main(argv=None) -> int:
             # K11's makes hundreds of thousands: CUDA events around one call
             # (the device's gaps between its launches included)
             heavy = kname in ("glm_irls_kernel", "glmm_intercept_kernel", "slope_reml_kernel",
-                              "glmm_slope_kernel", "joint_reml_kernel")
-            plain_ms = (cuda_ms(fp, copies, 1) if kname == "joint_reml_kernel"
-                        else device_ms(fp, copies, 1 if heavy else 3))
-            # K11 takes tenths of a second a launch: 5 timed launches
-            k_reps = 5 if kname == "joint_reml_kernel" else reps
+                              "glmm_slope_kernel", "joint_reml_kernel", "glmm_extras_kernel")
+            # the heavy kernels' plain versions are timed at one shape each
+            # (their kernels' main rows; PLAIN_AT_MAIN_ROW), K12's come from
+            # phase 3
+            if key in known_plain:
+                plain_ms = known_plain[key]
+            elif heavy and key not in PLAIN_AT_MAIN_ROW:
+                plain_ms = None
+            else:
+                plain_ms = (cuda_ms(fp, copies, 1) if kname == "joint_reml_kernel"
+                            else device_ms(fp, copies, 1 if heavy else 3))
+            # K11 and K12 take tenths of a second a launch: 5 timed launches
+            k_reps = 5 if kname in ("joint_reml_kernel", "glmm_extras_kernel") else reps
             ms = device_ms(fk, copies, k_reps, kname, launches=1)
             if not heavy:
                 plain_ms = (plain_ms + device_ms(fp, copies, 3)) / 2.0
@@ -4115,8 +4653,9 @@ def main(argv=None) -> int:
             library_ms = device_ms(lib[0], input_copies(lib[1]), reps) if lib is not None else None
             timed[key] = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=library_ms, call_ms=call_ms)
+            plain_txt = "not measured" if plain_ms is None else f"{plain_ms:.4f} ms"
             print(f"time {key} ({shape}): kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per "
-                  f"call with the wrapper), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"call with the wrapper), plain {plain_txt}, bound {bound_ms:.4f} ms "
                   f"({bound_by}), {bound_ms / ms:.1%} of bound"
                   + (f", library {library_ms:.4f} ms" if library_ms is not None else
                      ", library none (no one PyTorch call computes it)")
@@ -4209,6 +4748,8 @@ def main(argv=None) -> int:
         shape: timed[f"glmm_slope {shape}"] for shape in ("flow", "arm")})
     records["joint_reml"].update(timed["joint_reml crossed"], by_shape={
         shape: timed[f"joint_reml {shape}"] for shape in ("arm", "crossed", "dense")})
+    records["glmm_extras"].update(timed["glmm_extras crossed"], by_shape={
+        shape: timed[f"glmm_extras {shape}"] for shape in ("arm", "crossed", "dense")})
     records["grid_suffstats_joint"].update(timed["grid_suffstats_joint crossed"], by_arm={
         arm: timed[f"grid_suffstats_joint {arm}"] for arm in ("arm", "crossed")})
     records["glm_irls"]["by_shape"] = {"arm": timed["glm_irls"], "flow": timed["glm_irls flow"],
@@ -4291,7 +4832,7 @@ def main(argv=None) -> int:
         again_s = time.perf_counter() - t0
         print(f"arm {name} ({SLOPE_GLMM_SIMS} sims, wall): kernels "
               f"{slope_glmm_arm_s[name] * 1e3:.1f} ms and {again_s * 1e3:.1f} ms (the plain "
-              f"path's wall at {GOLDEN_SIMS} sims is phase 4's check)", flush=True)
+              f"path's at {TREE_SIMS_ON_CARD} sims is phase 4's check)", flush=True)
         prof = profile_arm(lambda: batch.run_batch(spec_, arr_, SLOPE_GLMM_SIMS, SEED,
                                                    chunk_size=SLOPE_GLMM_SIMS, device=dev))
         items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
@@ -4306,15 +4847,32 @@ def main(argv=None) -> int:
         batch.run_batch(spec_, arr_, EXTRAS_SIMS, SEED, chunk_size=EXTRAS_SIMS, device=dev)
         again_s = time.perf_counter() - t0
         print(f"arm {name} ({EXTRAS_SIMS} sims, wall): kernels {extras_arm_s[name] * 1e3:.1f} ms "
-              f"and {again_s * 1e3:.1f} ms (the plain path's at {GOLDEN_SIMS} sims is phase 4's "
+              f"and {again_s * 1e3:.1f} ms (the plain path's at {TREE_SIMS_ON_CARD} sims is phase 4's "
               f"check)", flush=True)
         prof = profile_arm(lambda: batch.run_batch(spec_, arr_, EXTRAS_SIMS, SEED,
                                                    chunk_size=EXTRAS_SIMS, device=dev),
-                           reps=EXTRAS_PROFILE_REPS)
+                           reps=EXTRAS_PROFILE_REPS, profiled=1)
         items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
         print(f"profile {name} ({EXTRAS_SIMS} sims): wall median {prof['median_ms']:.3f} ms "
               f"(range {prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {EXTRAS_PROFILE_REPS} calls), device "
               f"kernel time {prof['device_ms']:.3f} ms, busy "
+              f"{prof['device_ms'] / prof['median_ms']:.1%} of the median wall, "
+              f"{prof['launches']} kernels; largest device items (ms): {items}", flush=True)
+
+    for name, (spec_, arr_) in glmm_extras_specs.items():  # the GLMM extras arms' walls
+        t0 = time.perf_counter()
+        batch.run_batch(spec_, arr_, GLMM_EXTRAS_SIMS, SEED, chunk_size=GLMM_EXTRAS_SIMS,
+                        device=dev)
+        again_s = time.perf_counter() - t0
+        print(f"arm {name} ({GLMM_EXTRAS_SIMS} sims, wall): kernels "
+              f"{glmm_extras_arm_s[name] * 1e3:.1f} ms and {again_s * 1e3:.1f} ms", flush=True)
+        prof = profile_arm(lambda: batch.run_batch(spec_, arr_, GLMM_EXTRAS_SIMS, SEED,
+                                                   chunk_size=GLMM_EXTRAS_SIMS, device=dev),
+                           reps=GLMM_EXTRAS_PROFILE_REPS, profiled=1)
+        items = ", ".join(f"{k} {v:.3f}" for k, v in prof["items"])
+        print(f"profile {name} ({GLMM_EXTRAS_SIMS} sims): wall median {prof['median_ms']:.3f} ms "
+              f"(range {prof['min_ms']:.3f}-{prof['max_ms']:.3f}, {GLMM_EXTRAS_PROFILE_REPS} "
+              f"calls), device kernel time {prof['device_ms']:.3f} ms, busy "
               f"{prof['device_ms'] / prof['median_ms']:.1%} of the median wall, "
               f"{prof['launches']} kernels; largest device items (ms): {items}", flush=True)
 

@@ -30,7 +30,9 @@
 // Then X'V^-1X = X'X - At' sol (and X'V^-1y, y'V^-1y), its p x p factor,
 // beta, rss and dev = (log|C| + log|X'V^-1X|) + (n - p) log(rss).
 //
-// Bit identity with the plain version (mixedfit.joint_reml_plain, with
+// The capacitance (both forms, its factor and solves) is joint_cap.cuh's,
+// which K12 shares. Bit identity with the plain version
+// (mixedfit.joint_reml_plain, with mixedfit.joint_capacitance,
 // optim.nelder_mead and smallchol): every operation is the plain version's,
 // in its order. Sums over primary levels, extras levels and capacitance rows
 // run in ascending order from a zero; the factors follow smallchol's width
@@ -61,18 +63,26 @@
 // between evaluations.
 
 #include "common.cuh"
+#include "joint_cap.cuh"
 #include "nelder_mead.cuh"
 
 namespace {
 
-constexpr int WARP = 32;
-constexpr int MAX_D = 10;
-constexpr int MAX_G = 4;
-constexpr int MAX_P = 16;
+using mcp::jcap::capacitance;
+using mcp::jcap::cho_solve_auto;
+using mcp::jcap::chol_auto;
+using mcp::jcap::Layout;
+using mcp::jcap::layout_of;
+using mcp::jcap::logdet_ordered;
+using mcp::jcap::MAX_D;
+using mcp::jcap::MAX_G;
+using mcp::jcap::MAX_M;
+using mcp::jcap::MAX_P;
+using mcp::jcap::vech;
+using mcp::jcap::VEC_FROM;
+using mcp::jcap::WARP;
+
 constexpr int MAX_Q = 16;  // components over all groupings
-constexpr int MAX_M = 128;
-constexpr int BLOCK = 8;      // smallchol.CHOL_BLOCK
-constexpr int VEC_FROM = 13;  // smallchol.VEC_FROM_P
 constexpr float SENTINEL32 = 1e30f;
 constexpr double JOINT_PIN = 1e-4;
 constexpr int MAX_SMEM_BYTES = 227 * 1024;
@@ -102,180 +112,10 @@ struct Simplex {
     unsigned char cgrp[MAX_M], crr[MAX_M];
 };
 
-// Layout of a cell's work area, in elements of T: in shared memory as f32
-// for the search, in the device scratch as f64 for the refit. Structured cells also hold the terms of an evaluation that the
-// factor and the solves read many times: a, Cpe, Cpe / a, dE, rp, rp / a
-// and re (m1 = rows of the primary block, e = extras levels). Every cell
-// ends with the logs of log|C|, taken in parallel and added in order.
-struct Layout {
-    int n, r, keep, m1, e;  // factor size, right-hand sides (p + 1), rows kept
-    __host__ __device__ size_t mat() const { return 0; }
-    __host__ __device__ size_t rhs() const { return (size_t)n * n; }
-    __host__ __device__ size_t kept() const { return rhs() + (size_t)n * r; }
-    __host__ __device__ size_t acc() const { return kept() + (size_t)keep * r; }
-    __host__ __device__ size_t pmat() const { return acc() + (size_t)r * r; }
-    __host__ __device__ size_t pinv() const { return pmat() + (size_t)MAX_P * MAX_P; }
-    __host__ __device__ size_t vecs() const { return pinv() + (size_t)MAX_P * MAX_P; }
-    __host__ __device__ size_t av() const { return vecs() + 2 * MAX_P + MAX_D; }
-    __host__ __device__ size_t de() const { return av() + m1; }
-    __host__ __device__ size_t cpe() const { return de() + e; }
-    __host__ __device__ size_t cpa() const { return cpe() + (size_t)m1 * e; }
-    __host__ __device__ size_t rp() const { return cpa() + (size_t)m1 * e; }
-    __host__ __device__ size_t rpa() const { return rp() + (size_t)m1 * r; }
-    __host__ __device__ size_t re() const { return rpa() + (size_t)m1 * r; }
-    __host__ __device__ size_t logs() const { return re() + (size_t)e * r; }
-    __host__ __device__ size_t total() const { return logs() + (size_t)keep + n; }
-};
-
-__host__ __device__ inline Layout layout_of(int structured, int M, int m1, int Me, int p) {
-    Layout l;
-    l.n = structured ? Me : M;
-    l.r = p + 1;
-    l.keep = structured ? m1 : M;
-    l.m1 = structured ? m1 : 0;
-    l.e = structured ? Me : 0;
-    return l;
-}
-
 // The f32 twin of a cell's statistics, staged once before the search when
 // it fits beside the work area: ztz (M, M), then [zty | ztx] (M, p + 1).
 __host__ __device__ inline size_t twin_floats(int M, int p) {
     return (size_t)M * M + (size_t)M * (p + 1);
-}
-
-__device__ __forceinline__ int vech(int i, int j, int q) { return j * q - j * (j - 1) / 2 + (i - j); }
-
-
-// ---------------------------------------------------------------------------
-// Warp-wide factor and solves on an n x n row-major matrix in shared memory
-// (smallchol's chol / solve_lower / solve_upper_t below VEC_FROM, chol_vec /
-// _forward_vec / _backward_vec from it), in place.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ void chol_scalar(T* A, int n, int lane) {
-    for (int j = 0; j < n; ++j) {
-        const T piv = sqrt(A[j * n + j]);
-        const T inv = T(1) / piv;
-        __syncwarp();
-        if (lane == 0) A[j * n + j] = piv;
-        for (int i = j + 1 + lane; i < n; i += WARP) A[i * n + j] = A[i * n + j] * inv;
-        __syncwarp();
-        for (int i = j + 1 + lane; i < n; i += WARP) {  // the trailing lower triangle
-            const T lij = A[i * n + j];
-            for (int c = j + 1; c <= i; ++c) A[i * n + c] = A[i * n + c] - lij * A[c * n + j];
-        }
-        __syncwarp();
-    }
-}
-
-template <typename T>
-__device__ void chol_blocked(T* A, int n, int lane) {
-    for (int j0 = 0; j0 < n; j0 += BLOCK) {
-        const int j1 = min(j0 + BLOCK, n), bw = j1 - j0;
-        // the panel: S = A - (its contraction with the columns before it);
-        // lanes take its 8 columns by 4 rows a pass
-        const int j = j0 + (lane & (BLOCK - 1));
-        if (j0 > 0 && j < j1) {
-            for (int i = j0 + lane / BLOCK; i < n; i += WARP / BLOCK) {
-                if (j <= i) {
-                    T acc = T(0);
-                    for (int k = 0; k < j0; ++k) acc = acc + A[i * n + k] * A[j * n + k];
-                    A[i * n + j] = A[i * n + j] - acc;
-                }
-            }
-        }
-        __syncwarp();
-        for (int g = j0; g < j1; ++g) {
-            const T piv = sqrt(A[g * n + g]);
-            __syncwarp();
-            for (int i = g + lane; i < n; i += WARP) A[i * n + g] = A[i * n + g] / piv;
-            __syncwarp();
-            for (int i = g + 1 + lane; i < n; i += WARP) {  // the rank-1 tail in the panel
-                const T lig = A[i * n + g];
-                for (int c = g + 1; c < j1 && c <= i; ++c)
-                    A[i * n + c] = A[i * n + c] - lig * A[c * n + g];
-            }
-            __syncwarp();
-        }
-    }
-}
-
-template <typename T>
-__device__ void chol_auto(T* A, int n, bool blocked, int lane) {
-    if (blocked) chol_blocked(A, n, lane);
-    else chol_scalar(A, n, lane);
-}
-
-// Solve (L L') X = B in place, B (n, r) row-major.
-template <typename T>
-__device__ void cho_solve_auto(const T* L, T* B, int n, int r, bool blocked, int lane) {
-    if (!blocked) {
-        for (int i = 0; i < n; ++i) {  // forward, right-looking
-            for (int c = lane; c < r; c += WARP) B[i * r + c] = B[i * r + c] / L[i * n + i];
-            __syncwarp();
-            for (int k = i + 1 + lane; k < n; k += WARP) {
-                const T lki = L[k * n + i];
-                for (int c = 0; c < r; ++c) B[k * r + c] = B[k * r + c] - lki * B[i * r + c];
-            }
-            __syncwarp();
-        }
-        for (int i = n - 1; i >= 0; --i) {  // backward, the later rows ascending
-            for (int c = lane; c < r; c += WARP) {
-                T s = B[i * r + c];
-                for (int k = i + 1; k < n; ++k) s = s - L[k * n + i] * B[k * r + c];
-                B[i * r + c] = s / L[i * n + i];
-            }
-            __syncwarp();
-        }
-        return;
-    }
-    for (int j0 = 0; j0 < n; j0 += BLOCK) {  // forward
-        const int j1 = min(j0 + BLOCK, n);
-        for (int e = lane; e < (j1 - j0) * r; e += WARP) {
-            const int i = j0 + e / r, c = e % r;
-            T acc = T(0);
-            for (int k = 0; k < j0; ++k) acc = acc + L[i * n + k] * B[k * r + c];
-            B[i * r + c] = B[i * r + c] - acc;
-        }
-        __syncwarp();
-        for (int g = j0; g < j1; ++g) {
-            for (int c = lane; c < r; c += WARP) B[g * r + c] = B[g * r + c] / L[g * n + g];
-            __syncwarp();
-            for (int k = g + 1 + lane; k < j1; k += WARP) {
-                const T lkg = L[k * n + g];
-                for (int c = 0; c < r; ++c) B[k * r + c] = B[k * r + c] - lkg * B[g * r + c];
-            }
-            __syncwarp();
-        }
-    }
-    const int last = ((n - 1) / BLOCK) * BLOCK;
-    for (int j0 = last; j0 >= 0; j0 -= BLOCK) {  // backward
-        const int j1 = min(j0 + BLOCK, n);
-        for (int e = lane; e < (j1 - j0) * r; e += WARP) {
-            const int i = j0 + e / r, c = e % r;
-            T acc = T(0);
-            for (int k = j1; k < n; ++k) acc = acc + L[k * n + i] * B[k * r + c];
-            B[i * r + c] = B[i * r + c] - acc;
-        }
-        __syncwarp();
-        for (int g = j1 - 1; g >= j0; --g) {
-            for (int c = lane; c < r; c += WARP) {
-                T s = B[g * r + c];
-                for (int k = g + 1; k < j1; ++k) s = s - L[k * n + g] * B[k * r + c];
-                B[g * r + c] = s / L[g * n + g];
-            }
-            __syncwarp();
-        }
-    }
-}
-
-// 2 sum log diag(L), the logs added in ascending order.
-template <typename T>
-__device__ __forceinline__ T logdet_ordered(const T* L, int n) {
-    T acc = log(L[0]);
-    for (int i = 1; i < n; ++i) acc = acc + log(L[i * n + i]);
-    return T(2) * acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -300,10 +140,8 @@ template <typename T>
 struct Cell {
     const Args& a;
     long long cell;
-    const T* th;  // theta as T
     const double *Z, *ZX, *ZY;
     const float* twin;  // the f32 twin, or null
-    const Simplex& S;   // the column table
 
     __device__ T z(int i, int j) const {
         const long long k = (long long)i * a.M + j;
@@ -314,144 +152,21 @@ struct Cell {
         return c == 0 ? ld<T>(twin, k, ZY, row)
                       : ld<T>(twin, k, ZX, (long long)row * a.p + (c - 1));
     }
-    // structured: the primary's l1 and an extras level's scale
-    __device__ T l1() const { return th[0]; }
-    __device__ T dE(int e) const {
-        int g = 1;
-        while (g + 1 < a.ng && a.m1 + e >= a.coff[g + 1]) ++g;
-        return th[a.toff[g]];
-    }
-    // dense: Lg, and (Lam' v)[row] for v(row') = v of column row' (the
-    // columns of the row's level), summed over r' >= r from r' = r
-    __device__ T lam(int g, int i, int j) const { return th[a.toff[g] + vech(i, j, a.comps[g])]; }
-    template <class F>
-    __device__ T lam_rows(int row, F v) const {
-        const int g = S.cgrp[row], r = S.crr[row], base = S.cbase[row];
-        T acc = lam(g, r, r) * v(base + r);
-        for (int rr = r + 1; rr < a.comps[g]; ++rr) acc = acc + lam(g, rr, r) * v(base + rr);
-        return acc;
-    }
 };
 
 template <typename T>
 __device__ T evaluate(const Args& a, long long cell, const double* thd, T* sm, const Layout& lay,
                       const float* twin, const Simplex& S, int lane, T& sigma2) {
-    const int M = a.M, p = a.p, r = lay.r, n = lay.n;
-    T* mat = sm + lay.mat();
-    T* rhs = sm + lay.rhs();
-    T* kept = sm + lay.kept();
+    const int M = a.M, p = a.p, r = lay.r;
     T* acc = sm + lay.acc();
     T* P = sm + lay.pmat();
     T* vec = sm + lay.vecs();  // a_xy (p), then beta (p), then theta (d)
     T* th = vec + 2 * MAX_P;
     for (int k = lane; k < a.d; k += WARP) th[k] = (T)thd[k];
     __syncwarp();
-    const Cell<T> c{a, cell, th, a.ztz + cell * (long long)M * M, a.ztx + cell * (long long)M * p,
-                    a.zty + cell * (long long)M, twin, S};
-    T logdet_v;
-    if (a.structured) {
-        const int m1 = a.m1, Me = a.Me;
-        T* av = sm + lay.av();
-        T* dE = sm + lay.de();
-        T* cpe = sm + lay.cpe();
-        T* cpa = sm + lay.cpa();
-        T* rp = sm + lay.rp();
-        T* rpa = sm + lay.rpa();
-        T* re = sm + lay.re();
-        const T l1 = c.l1();
-        for (int j = lane; j < m1; j += WARP) av[j] = T(1) + (l1 * l1) * c.z(j, j);
-        for (int e = lane; e < Me; e += WARP) dE[e] = c.dE(e);
-        __syncwarp();
-        for (int j = lane; j < m1; j += WARP) {  // Cpe = (l1 G_PE) dE, Cpe / a; rp, rp / a
-            for (int ee = 0; ee < Me; ++ee) {
-                const T v = (l1 * c.z(j, m1 + ee)) * dE[ee];
-                cpe[j * Me + ee] = v;
-                cpa[j * Me + ee] = v / av[j];
-            }
-            for (int cc = 0; cc < r; ++cc) {
-                const T v = l1 * c.raw(j, cc);
-                rp[j * r + cc] = v;
-                rpa[j * r + cc] = v / av[j];
-            }
-        }
-        for (int ee = lane; ee < Me; ee += WARP)
-            for (int cc = 0; cc < r; ++cc) re[ee * r + cc] = dE[ee] * c.raw(m1 + ee, cc);
-        __syncwarp();
-        for (int e1 = lane; e1 < Me; e1 += WARP) {  // S, lower triangle, a row a lane
-            for (int e2 = 0; e2 <= e1; ++e2) {
-                T s = T(0);
-                for (int j = 0; j < m1; ++j) s = s + cpe[j * Me + e1] * cpa[j * Me + e2];
-                const T cee = T(e1 == e2 ? 1 : 0) + (dE[e1] * dE[e2]) * c.z(m1 + e1, m1 + e2);
-                mat[e1 * n + e2] = cee - s;
-            }
-        }
-        for (int e = lane; e < Me * r; e += WARP) {  // t = re - Cpe' (rp / a)
-            const int ee = e / r, cc = e % r;
-            T s = T(0);
-            for (int j = 0; j < m1; ++j) s = s + cpe[j * Me + ee] * rpa[j * r + cc];
-            rhs[e] = re[e] - s;
-        }
-        __syncwarp();
-        chol_auto(mat, n, n >= VEC_FROM, lane);
-        cho_solve_auto(mat, rhs, n, r, n >= VEC_FROM, lane);
-        for (int e = lane; e < m1 * r; e += WARP) {  // xp = rp / a - (Cpe xe) / a
-            const int j = e / r, cc = e % r;
-            T s = T(0);
-            for (int ee = 0; ee < Me; ++ee) s = s + cpe[j * Me + ee] * rhs[ee * r + cc];
-            kept[e] = rpa[e] - s / av[j];
-        }
-        __syncwarp();
-        for (int e = lane; e < r * r; e += WARP) {  // [rp; re]' [xp; xe]
-            const int i = e / r, jj = e % r;
-            T s = T(0);
-            for (int row = 0; row < m1; ++row) s = s + rp[row * r + i] * kept[row * r + jj];
-            for (int ee = 0; ee < Me; ++ee) s = s + re[ee * r + i] * rhs[ee * r + jj];
-            acc[e] = s;
-        }
-        T* logs = sm + lay.logs();  // log a, then the factor's log pivots
-        for (int j = lane; j < m1 + n; j += WARP)
-            logs[j] = log(j < m1 ? av[j] : mat[(j - m1) * n + (j - m1)]);
-        __syncwarp();
-        T la = logs[0];
-        for (int j = 1; j < m1; ++j) la = la + logs[j];
-        T ld = logs[m1];
-        for (int i = 1; i < n; ++i) ld = ld + logs[m1 + i];
-        logdet_v = la + T(2) * ld;
-    } else {
-        for (int ia = lane; ia < M; ia += WARP) {  // C = I + Lam' ztz Lam, lower, a row a lane
-            for (int ib = 0; ib <= ia; ++ib) {
-                const int h = S.cgrp[ib], s2 = S.crr[ib], base = S.cbase[ib];
-                T cv = T(0);
-                for (int ss = s2; ss < a.comps[h]; ++ss) {
-                    const T w = c.lam_rows(ia, [&](int row) { return c.z(row, base + ss); });
-                    const T u = c.lam(h, ss, s2) * w;
-                    cv = (ss == s2) ? u : cv + u;
-                }
-                mat[ia * n + ib] = T(ia == ib ? 1 : 0) + cv;
-            }
-            for (int cc = 0; cc < r; ++cc) {  // [Lam' zty | Lam' ztx]
-                const T v = c.lam_rows(ia, [&](int rr) { return c.raw(rr, cc); });
-                kept[ia * r + cc] = v;
-                rhs[ia * r + cc] = v;
-            }
-        }
-        __syncwarp();
-        chol_blocked(mat, n, lane);
-        cho_solve_auto(mat, rhs, n, r, true, lane);
-        for (int e = lane; e < r * r; e += WARP) {
-            const int i = e / r, jj = e % r;
-            T s = T(0);
-            for (int row = 0; row < M; ++row) s = s + kept[row * r + i] * rhs[row * r + jj];
-            acc[e] = s;
-        }
-        T* logs = sm + lay.logs();  // the factor's log pivots
-        for (int i = lane; i < n; i += WARP) logs[i] = log(mat[i * n + i]);
-        __syncwarp();
-        T ld = logs[0];
-        for (int i = 1; i < n; ++i) ld = ld + logs[i];
-        logdet_v = T(2) * ld;
-    }
-    __syncwarp();
+    const Cell<T> c{a, cell, a.ztz + cell * (long long)M * M, a.ztx + cell * (long long)M * p,
+                    a.zty + cell * (long long)M, twin};
+    const T logdet_v = capacitance(a, S, th, c, sm, lay, a.structured != 0, true, lane);
     // X'V^-1X, X'V^-1y, y'V^-1y, the p x p factor, beta, rss, the deviance
     const double* xtx = a.xtx + cell * p * p;
     for (int e = lane; e < p * p; e += WARP)

@@ -10,7 +10,9 @@ scenario's per-sim design, the design and outcome, the fit (K2 + K3 for
 OLS, K2 + K4 for the random-intercept LMM, K2's joint mode + K11 for the
 LMM with extra groupings, K6
 for an unclustered GLM, with a second K6 launch for the separation fallback
-of a design with factors, K7 for the random-intercept GLMM), t^2 thresholds and corrections (with the
+of a design with factors, K7 for the random-intercept GLMM, K10 for the GLMM
+with random slopes, K12 for the GLMM with extra groupings), t^2 thresholds
+and corrections (with the
 reduced-df crit rows of cells whose sparse factor levels were excluded),
 posthoc contrasts, and the reduction of per-sim flags to int32 counts before
 they leave the device.
@@ -154,6 +156,13 @@ def _reduce_counts(per_sim: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 # reference caps such a chunk at 1,024 or 4,096 sims, a TPU runtime limit
 # (batch.py:304-335); the port sizes it by memory instead: ztz may take at
 # most JOINT_MEMORY_SHARE of the card's memory (JOINT_CPU_BYTES on the CPU).
+# A GLMM with extra groupings builds no ztz: its largest allocation is kernel
+# K12's device scratch, a cell's four warps' areas (Z'WZ, the right-hand
+# sides, the kept row quantities, the capacitance's work area; 347 KB a cell
+# at M = 58, p = 2, N = 480), sized by K12's C entry point, so the same share
+# bounds chunk x G cells of it; on the CPU the plain version's Z'WZ of the
+# four candidates a cell (of the Hessian's stencil points, where more), in
+# f64, within JOINT_CPU_BYTES.
 JOINT_MEMORY_SHARE = 1 / 8
 JOINT_CPU_BYTES = 1 << 30
 
@@ -162,14 +171,26 @@ def joint_chunk_cap(spec: SimSpec, device) -> Optional[int]:
     """The most sims a chunk of an extra-grouping spec holds, or None."""
     if spec.cluster is None or not spec.cluster.extra_groupings:
         return None
-    M = mixedfit.joint_width(mixedfit.grouping_plan(spec))
-    per_sim = spec.n_grid * M * M * 8
+    plan = mixedfit.grouping_plan(spec)
+    M = mixedfit.joint_width(plan)
     device = torch.device(device)
     if device.type == "cuda":
         budget = torch.cuda.get_device_properties(device).total_memory * JOINT_MEMORY_SHARE
     else:
         budget = JOINT_CPU_BYTES
-    return max(int(budget // per_sim), 1)
+    if spec.outcome == "continuous":
+        per_cell = M * M * 8
+    else:  # the GLMM: K12's scratch, or the plain version's Z'WZ
+        pf = len(spec.effective_fit_cols)
+        hessian = spec.wald_se == "hessian"
+        if device.type == "cuda":
+            per_cell = glmmfit.glmm_extras_scratch_bytes(
+                1, M, plan[0][0] * plan[0][1], pf, spec.max_n, mixedfit.plan_all_q1(plan),
+                hessian)
+        else:
+            lanes = max(4, len(glmmfit.hessian_offsets(pf))) if hessian else 4
+            per_cell = lanes * M * M * 8
+    return max(int(budget // (spec.n_grid * per_cell)), 1)
 
 
 def run_batch(

@@ -116,10 +116,10 @@ def unsupported(spec: SimSpec) -> str:
     if c is not None:
         if c.extra_groupings:
             if spec.outcome != "continuous":
-                return "a GLMM with extra groupings (ROADMAP A12.2)"
-            from .mixedfit import joint_unsupported
-
-            why = joint_unsupported(spec)
+                from .glmmfit import extras_unsupported as why_not
+            else:
+                from .mixedfit import joint_unsupported as why_not
+            why = why_not(spec)
             if why:
                 return why
         if c.q > MAX_RE_Q:
@@ -130,7 +130,8 @@ def unsupported(spec: SimSpec) -> str:
         return "the mle estimator without a cluster"
     if len(spec.effective_fit_cols) > kernels.MAX_FIT_P:
         return f"wide fits, p > {kernels.MAX_FIT_P} (ROADMAP B10)"
-    if c is not None and spec.outcome != "continuous" and not c.slopes:  # kernel K7's limits
+    if (c is not None and spec.outcome != "continuous" and not c.slopes
+            and not c.extra_groupings):  # kernel K7's limits
         from .glmmfit import MAX_AGQ, MAX_CLUSTERS
 
         if not 1 <= int(spec.nagq) <= MAX_AGQ:

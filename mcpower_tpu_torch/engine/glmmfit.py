@@ -30,8 +30,17 @@ q-dimensional theta on f32 PIRLS modes and their Laplace deviance, then the
 f64 fit, the pin probes and the FD Hessian; on the card kernel K10
 (``csrc/glmm_slope.cu``, a cell a block, the four candidates of an
 iteration on its four warps), :func:`glmm_slope_plain` its plain version.
-Extra groupings (the reference's joint-Z path) are not ported yet (ROADMAP
-A12).
+
+Extra groupings (crossed or nested) take :func:`glmm_extras`: the
+reference's ``_extras_glmm_grid_stats`` (:155-553), a warm-carried
+Nelder-Mead over every grouping's vech-Cholesky on f32 joint-Z PIRLS modes
+and their Laplace deviance, each pass through the joint capacitance (the
+structured Schur complement of the extras block when every grouping is
+intercept-only, the dense M x M factor otherwise: ``mixedfit.
+joint_capacitance``), then the f64 fit and the Schur or FD Hessian
+covariance; on the card kernel K12 (``csrc/glmm_extras.cu``, a cell a
+block, the four candidates on its four warps), :func:`glmm_extras_plain` its
+plain version. Their row sums follow one fixed order (:class:`_JointCells`).
 """
 
 from __future__ import annotations
@@ -43,10 +52,12 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import kernels, smallchol, waldstats
+from . import kernels, optim, smallchol, waldstats
 from .glmfit import LINK_POISSON, MU_EPS, _deviance_terms, _mu_var_dmu, link_code
 from .mixedfit import (BOUNDARY_LOG_GAMMA, LOG_GAMMA_HI, LOG_GAMMA_LO, _CGOLD, _brent_minimize,
-                       _ordered_sum)
+                       _contract_rows, _ordered_sum, grouping_plan, joint_capacitance, joint_width,
+                       theta_layout, vech_diagonal, vech_to_lower)
+from .olsfit import joint_layout
 from .spec import SimSpec
 
 # The reference's budgets and their reasoning (glmmfit.py:45-60): PIRLS
@@ -963,6 +974,512 @@ def glmm_slope(code, X, y, fit, zcols, grid, layout, beta0, theta0, lower, hessi
 
 
 # ---------------------------------------------------------------------------
+# The plain version of K12: the GLMM with extra groupings
+# ---------------------------------------------------------------------------
+
+# The reference's joint-Z search (glmmfit.py:458-478): the slope path's
+# phased budgets, 30 Nelder-Mead iterations for a theta of d <= 3 and 45
+# beyond; its pin (:521-528): a Cholesky diagonal below 1e-3 at the optimum.
+EXTRAS_PIN = 1e-3
+# Kernel K12's limits (datagen.unsupported names them before any run): a
+# joint Z of M <= 128 columns (so at most 128 extras levels; its capacitance
+# and Z'WZ in a device scratch), theta of d <= 10 (optim.py's range), at
+# most 4 groupings, p <= 16, and the Laplace deviance alone (the reference's
+# contract error 25 refuses nagq != 1 with extra groupings).
+EXTRAS_MAX_M = 128
+EXTRAS_MAX_D = 10
+EXTRAS_MAX_GROUPINGS = 4
+
+
+def extras_unsupported(spec: SimSpec) -> str:
+    """Why kernel K12 cannot fit ``spec``'s GLMM with extra groupings; ''
+    when it can."""
+    plan = grouping_plan(spec)
+    d = sum(theta_layout(plan)[0])
+    M = joint_width(plan)
+    Me = sum(m for m, _, _, _, _ in plan[1:])
+    if int(spec.nagq) != 1:
+        return (f"a GLMM with extra groupings at nagq {spec.nagq}; kernel K12 takes the "
+                "Laplace deviance alone (nagq 1, the reference's contract error 25)")
+    if len(plan) > EXTRAS_MAX_GROUPINGS:
+        return f"{len(plan)} groupings; kernel K12 takes at most {EXTRAS_MAX_GROUPINGS}"
+    if d > EXTRAS_MAX_D:
+        return (f"a joint theta of {d} entries; kernel K12 takes d <= {EXTRAS_MAX_D} "
+                "(optim.py's range)")
+    if M > EXTRAS_MAX_M:
+        return (f"a joint Z of {M} columns ({Me} extras levels); kernel K12 takes M <= "
+                f"{EXTRAS_MAX_M}")
+    return ""
+
+
+def extras_nm_iters(d: int) -> int:
+    return 30 if d <= 3 else NM_ITERS_GLMM
+
+
+def extras_phases(d: int):
+    return ((NM_FULL_SLOPE, N_PIRLS_SLOPE),
+            (extras_nm_iters(d) - NM_FULL_SLOPE, N_PIRLS_SLOPE_WARM))
+
+
+class _JointCells:
+    """The (sim, grid) cells of one launch of the GLMM with extra groupings,
+    their leading axes ``(S, G, K)`` (K candidates): ``X (S, 1, 1, n, p)``,
+    ``y``, the row mask ``(G, 1, n)``, each grouping's Z columns (slopes)
+    and the row lists of its levels.
+
+    ``groups`` is ``[(ids (max_n,), m_g, slope_cols)]``, the primary first
+    (``olsfit.joint_layout``). Every sum over rows follows one order, the
+    one kernel K12 repeats: an entry owned by a level (its rows of Z'WZ,
+    wZ'X, wZ'z) adds that level's rows in ascending row order to a zero;
+    Z'WZ's entries between groupings g < h are owned by g's level; a sum
+    over all rows (X'WX, X'Wz, the deviance, the outcome's) adds each primary
+    level's rows in row order, then the primary levels in K7's lane order
+    (``smallchol.lane_sum``). Rows at or past a cell's grid point, and the
+    padding of a level's row list, add exact zeros.
+    """
+
+    def __init__(self, code: int, X, y, fit, grid, groups):
+        self.code = code
+        dev_ = X.device
+        max_n = X.shape[1]
+        Xf = X[..., list(fit)]
+        self.p = Xf.shape[-1]
+        self.X = {torch.float64: Xf.to(torch.float64)[:, None, None],
+                  torch.float32: Xf.to(torch.float32)[:, None, None]}
+        self.y = {torch.float64: y.to(torch.float64)[:, None, None],
+                  torch.float32: y.to(torch.float32)[:, None, None]}
+        rows = torch.arange(max_n, device=dev_)
+        ns = torch.as_tensor(list(grid), device=dev_)
+        mask = (rows < ns[:, None]).to(torch.float64)[:, None]  # (G, 1, n)
+        self.mask = {torch.float64: mask, torch.float32: mask.to(torch.float32)}
+        self.ns = ns.to(torch.float64)
+        self.ng = len(groups)
+        self.levels = [int(m) for _, m, _ in groups]
+        self.comps = [1 + len(cols) for _, _, cols in groups]
+        self.shape = list(zip(self.levels, self.comps))
+        self.coff = np.concatenate([[0], np.cumsum([m * q for m, q in self.shape])]).tolist()
+        self.M = int(self.coff[-1])
+        self.ids, self.Z, self.idx, self.hot = [], [], [], {}
+        for ids, m, cols in groups:
+            ids = torch.as_tensor(ids, device=dev_).long()
+            self.ids.append(ids)
+            self.Z.append({dt: [X[..., c].to(dt)[:, None, None] for c in cols]
+                           for dt in (torch.float64, torch.float32)})
+            # level j's rows ascending, padded with max_n (a zero row)
+            counts = torch.bincount(ids, minlength=m)
+            K = max(int(counts.max()) if len(ids) else 0, 1)
+            order = torch.argsort(ids * max_n + rows)
+            start = torch.cumsum(counts, 0) - counts
+            pos = torch.arange(K, device=dev_)
+            take = start[:, None] + pos
+            ok = pos < counts[:, None]
+            self.idx.append(torch.where(ok, order[take.clamp(max=max_n - 1)],
+                                        torch.full_like(take, max_n)))
+        for g in range(self.ng):  # where each row of g's levels meets h's levels
+            for h in range(g + 1, self.ng):
+                lv = torch.cat([self.ids[h], self.ids[h].new_full((1,), -1)])[self.idx[g]]
+                self.hot[g, h] = lv[..., None] == torch.arange(self.levels[h], device=dev_)
+
+    def _gather(self, g: int, v: torch.Tensor) -> torch.Tensor:
+        """(..., n) -> (..., m_g, K_g): each level's rows, zero-padded."""
+        v = torch.nn.functional.pad(v, (0, 1))
+        idx = self.idx[g]
+        return v.index_select(-1, idx.reshape(-1)).reshape(*v.shape[:-1], *idx.shape)
+
+    def lvl_sum(self, g: int, v: torch.Tensor) -> torch.Tensor:
+        """(..., n) -> (..., m_g): each level of grouping g, its rows in order."""
+        b = self._gather(g, v)
+        acc = torch.zeros_like(b[..., 0])
+        for k in range(b.shape[-1]):
+            acc = acc + b[..., k]
+        return acc
+
+    def cross_sum(self, g: int, h: int, v: torch.Tensor) -> torch.Tensor:
+        """(..., n) -> (..., m_g, m_h): entry (j, l) sums the rows of g's
+        level j that lie in h's level l, in row order."""
+        b = self._gather(g, v)
+        hot = self.hot[g, h]
+        acc = b.new_zeros(b.shape[:-1] + (self.levels[h],))
+        zero = torch.zeros((), dtype=b.dtype, device=b.device)
+        for k in range(b.shape[-1]):
+            acc = acc + torch.where(hot[:, k], b[..., k, None], zero)
+        return acc
+
+    def total(self, v: torch.Tensor) -> torch.Tensor:
+        """(..., n) -> (...): the primary levels' sums in K7's lane order."""
+        s = self.lvl_sum(0, v)
+        return smallchol.lane_sum(torch.nn.functional.pad(s, (0, -s.shape[-1] % smallchol.LANES)))
+
+    def per_row(self, g: int, u: torch.Tensor) -> torch.Tensor:
+        """(..., m_g) -> (..., n): each row's level value."""
+        return u.index_select(-1, self.ids[g])
+
+
+def _extras_pass(cells: _JointCells, dtype, th, beta, v, kind: str, dense: bool):
+    """One pass of the joint-Z PIRLS over every cell's rows at ``th (...,
+    d)``, ``beta (..., p)`` and the modes ``v (..., M)`` in ``dtype``, the
+    leading axes ``(S, G, K)``; kernel K12's pass, in its order.
+
+    Per row: u = Lam v of each grouping's level (u_i = sum over k <= i of
+    v_k Lg[i, k], from k = 0), eta = X beta + sum over groupings and
+    components of z u (the primary's intercept first), the link's mu, var
+    and dmu, w = dmu^2 / max(var, MU_EPS) (masked), zw = eta + (y - mu) /
+    dmu and wz_k = w (k = 0) or z_k w. Sums (:class:`_JointCells`' order):
+    Z'WZ's entries wz_k z_l (a level's block, k >= l, mirrored; between
+    groupings g < h), and by ``kind``
+
+    - ``"step"``: wZ'zw, wZ'X (x_a), X'WX ((x_a w) x_b) and X'Wz (x_a (w zw));
+      the capacitance solve of [wZ'zw | wZ'X] (``mixedfit.joint_capacitance``,
+      structured unless ``dense``), the Schur system (X'WX - acc) + ridge
+      (1e-6 f32, 1e-10 f64) by the width rule (``smallchol.chol_auto``),
+      beta, and v = sol_b - sum_a sol_A[:, a] beta_a. Returns ``(beta, v)``,
+      each cell kept where the step is not finite;
+    - ``"vstep"``, v alone at fixed beta: wZ'(zw - X beta), v = C^-1 Lam' r.
+      Returns ``v``, kept where not finite;
+    - ``"tail"``: the Laplace deviance (2 sum dev + sum v^2) + log|C|;
+    - ``"mode"``: the Laplace deviance and the Schur matrix (X'WX - acc) +
+      1e-10 I. Returns ``(lap, a_xx)``.
+    """
+    p, M, ng = cells.p, cells.M, cells.ng
+    X, y, mask = cells.X[dtype], cells.y[dtype], cells.mask[dtype]
+    lead = beta.shape[:-1]
+    xb = smallchol.rowmv(X, beta)
+    # u = Lam v per grouping and level, then each row's z u
+    zu, toff = None, 0
+    us = []
+    for g, (m, q) in enumerate(cells.shape):
+        Lg = vech_to_lower(th[..., toff:toff + q * (q + 1) // 2], q)
+        toff += q * (q + 1) // 2
+        vg = v[..., cells.coff[g]:cells.coff[g + 1]].reshape(*lead, m, q)
+        ug = [_ordered_sum([vg[..., k] * Lg[..., i, k, None] for k in range(i + 1)])
+              for i in range(q)]
+        us.append(ug)
+        for i in range(q):
+            t = cells.per_row(g, ug[i])
+            if i:
+                t = cells.Z[g][dtype][i - 1] * t
+            zu = t if zu is None else zu + t
+    eta = xb + zu
+    mu, var, dmu = _mu_var_dmu(cells.code, eta)
+    w = dmu * dmu / torch.clamp(var, min=MU_EPS) * mask
+    zs = [[None] + cells.Z[g][dtype] for g in range(ng)]  # component k's value (k >= 1)
+    wz = [[w] + [zs[g][k] * w for k in range(1, q)] for g, (_, q) in enumerate(cells.shape)]
+    xs = [X[..., a].expand_as(w) for a in range(p)]
+    want_r, want_a = kind in ("step", "vstep"), kind in ("step", "mode")
+    if want_r:  # the working response, less X beta for a v-only step
+        zw = eta + (y - mu) / dmu
+        rz = zw if kind == "step" else zw - xb
+    # Each grouping's level sums in one stack: its block's terms (k >= l),
+    # then the right-hand sides wz_k r and wz_k x_a; then its blocks with the
+    # later groupings. Z'WZ mirrored, the right-hand sides (..., M, r).
+    r = 1 if kind == "vstep" else p + 1
+    ztz = w.new_zeros(lead + (M, M))
+    raw = w.new_zeros(lead + (M, r))
+    for g, (m, q) in enumerate(cells.shape):
+        base = cells.coff[g] + q * torch.arange(m, device=w.device)
+        block = [(k, l) for k in range(q) for l in range(k + 1)]
+        terms = [wz[g][k] if l == 0 else wz[g][k] * zs[g][l] for k, l in block]
+        if want_r:
+            terms += [wz[g][k] * rz for k in range(q)]
+        if want_a:
+            terms += [wz[g][k] * xs[a] for k in range(q) for a in range(p)]
+        sums = cells.lvl_sum(g, torch.stack(terms, dim=-2))  # (..., T, m)
+        for i, (k, l) in enumerate(block):
+            ztz[..., base + k, base + l] = ztz[..., base + l, base + k] = sums[..., i, :]
+        i = len(block)
+        if want_r:
+            for k in range(q):
+                raw[..., base + k, 0] = sums[..., i, :]
+                i += 1
+        if want_a:
+            for k in range(q):
+                for a in range(p):
+                    raw[..., base + k, 1 + a] = sums[..., i, :]
+                    i += 1
+        for h in range(g + 1, ng):
+            mh, qh = cells.shape[h]
+            bh = cells.coff[h] + qh * torch.arange(mh, device=w.device)
+            pairs = [(k, l) for k in range(q) for l in range(qh)]
+            cs = cells.cross_sum(g, h, torch.stack(
+                [wz[g][k] if l == 0 else wz[g][k] * zs[h][l] for k, l in pairs], dim=-2))
+            for i, (k, l) in enumerate(pairs):
+                r_idx, c_idx = (base + k)[:, None], (bh + l)[None, :]
+                ztz[..., r_idx, c_idx] = cs[..., i, :, :]
+                ztz[..., c_idx.T, r_idx.T] = cs[..., i, :, :].transpose(-1, -2)
+    # the sums over all rows: X'WX, X'Wz, the deviance
+    tri = _tri(p) if want_a else []
+    terms = [(xs[a] * w) * xs[b] for a, b in tri]
+    if kind == "step":
+        wzw = w * zw
+        terms += [xa * wzw for xa in xs]
+    if kind in ("tail", "mode"):
+        terms.append(_deviance_terms(cells.code, y.expand_as(mu), mu) * mask)
+    tot = cells.total(torch.stack(terms, dim=-2)) if terms else None  # (..., T)
+    if kind in ("tail", "mode"):
+        vv = _ordered_sum([v[..., i] * v[..., i] for i in range(M)])
+        dev = tot[..., -1]
+    if kind == "vstep":
+        _, sol, _ = joint_capacitance(th, cells.shape, ztz, raw, dense=True)
+        v_new = sol[..., 0]
+        ok = torch.isfinite(v_new).all(-1)
+        return torch.where(ok[..., None], v_new, v)
+    if kind == "tail":
+        _, _, logdet = joint_capacitance(th, cells.shape, ztz, None, dense=dense, solve=False)
+        return (2.0 * dev + vv) + logdet
+    rhs, sol, logdet = joint_capacitance(th, cells.shape, ztz, raw, dense=dense)
+    acc = _contract_rows(rhs, sol)
+    xwx = w.new_zeros(lead + (p, p))
+    for i, (a, b) in enumerate(tri):
+        xwx[..., a, b] = xwx[..., b, a] = tot[..., i]
+    eye = torch.eye(p, dtype=dtype, device=w.device)
+    if kind == "mode":
+        ridge = torch.tensor(1e-10, dtype=dtype, device=w.device)
+        return (2.0 * dev + vv) + logdet, (xwx - acc[..., 1:, 1:]) + ridge * eye
+    ridge = torch.tensor(1e-10 if dtype == torch.float64 else 1e-6, dtype=dtype, device=w.device)
+    xwz = tot[..., len(tri):len(tri) + p]
+    chol = smallchol.chol_auto((xwx - acc[..., 1:, 1:]) + ridge * eye)
+    beta_new = smallchol.cho_solve_auto(chol, xwz - acc[..., 1:, 0])
+    v_new = sol[..., 0] - _ordered_sum([sol[..., 1 + a] * beta_new[..., a, None]
+                                        for a in range(p)])
+    ok = torch.isfinite(beta_new).all(-1) & torch.isfinite(v_new).all(-1)
+    return torch.where(ok[..., None], beta_new, beta), torch.where(ok[..., None], v_new, v)
+
+
+def glmm_extras_plain(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequence[int],
+                      grid: Sequence[int], groups, beta0: torch.Tensor, theta0, lower,
+                      hessian: bool = False, theta: torch.Tensor = None, dense: bool = False):
+    """Every (sim, grid) cell's GLMM fit with extra groupings (the
+    reference's ``_extras_glmm_grid_stats.per_grid``, :155-553), the plain
+    version of kernel K12.
+
+    ``X (sims, max_n, P)`` and ``y (sims, max_n)`` f32; ``fit`` the pf fit
+    columns; ``grid`` G ascending row counts; ``groups`` ``[(ids, m_g,
+    slope_cols)]`` per grouping, the primary first (``olsfit.joint_layout``);
+    ``beta0 (pf,)`` f64; ``theta0``, ``lower`` ``(d,)`` from
+    ``mixedfit.theta_layout``. Steps: the warm-carried Nelder-Mead
+    (``optim.nelder_mead_carry``, init step 0.2, :func:`extras_phases`) over
+    theta on the f32 Laplace deviance of f32 PIRLS modes (a non-finite one
+    ranks as 1e30), the carry (beta, v) from (beta0, 0); the cold f64 fit at
+    the optimum (N_PIRLS steps from (beta0, 0)), its Laplace deviance and
+    cov = (X'WX - acc + 1e-10 I)^-1 by the width rule, or under ``hessian``
+    2 H^-1 of central differences of the v-profiled deviance (N_V_PIRLS
+    v-only f64 passes a stencil point, always through the dense capacitance,
+    as the reference's). Every pass is :func:`_extras_pass`: the structured
+    capacitance when every grouping is intercept-only, unless ``dense``.
+    ``theta (sims, G, d)`` f64, where given, replaces the search's optimum.
+
+    Returns f64 ``beta (sims, G, pf)``, ``cov``, bool ``converged`` and
+    ``boundary`` (any pin), f64 ``tau2_hat = Lam1[0, 0]^2`` (no sigma^2) and
+    ``ybar``, bool ``pinned (sims, G, sum q)`` (diag Lg < EXTRAS_PIN, the
+    primary's components first) and the optimum ``theta (sims, G, d)``.
+    """
+    cells = _JointCells(code, X, y, fit, grid, groups)
+    sims, G, pf, M = X.shape[0], len(grid), len(fit), cells.M
+    d = sum(q * (q + 1) // 2 for q in cells.comps)
+    dense = dense or any(q > 1 for q in cells.comps)
+    dev_ = X.device
+    f64, f32 = torch.float64, torch.float32
+    theta0 = torch.as_tensor(np.asarray(theta0), dtype=f64, device=dev_)
+    lower = torch.as_tensor(np.asarray(lower), dtype=f64, device=dev_)
+    beta0 = beta0.to(device=dev_, dtype=f64)
+    cl = sims * G
+
+    if theta is None:
+        def search_eval(points, aux, budget):
+            k = points.shape[1]
+            th = points.reshape(sims, G, k, d).to(f32)
+            beta = aux[0].reshape(sims, G, 1, pf).expand(sims, G, k, pf)
+            v = aux[1].reshape(sims, G, 1, M).expand(sims, G, k, M)
+            for _ in range(budget):
+                beta, v = _extras_pass(cells, f32, th, beta, v, "step", dense)
+            lap = _extras_pass(cells, f32, th, beta, v, "tail", dense).to(f64)
+            lap = torch.where(torch.isfinite(lap), lap, torch.full_like(lap, SLOPE_SENTINEL))
+            return lap.reshape(cl, k), (beta.reshape(cl, k, pf), v.reshape(cl, k, M))
+
+        aux0 = (beta0.to(f32).expand(cl, pf), torch.zeros((cl, M), dtype=f32, device=dev_))
+        theta_hat, _, _ = optim.nelder_mead_carry(
+            search_eval, theta0.expand(cl, d), aux0, phases=extras_phases(d),
+            init_step=NM_STEP_SLOPE, lower=lower)
+        theta_hat = theta_hat.reshape(sims, G, d)
+    else:
+        theta_hat = theta.to(device=dev_, dtype=f64).reshape(sims, G, d)
+
+    # the cold f64 fit at the optimum, its Laplace deviance and Schur matrix
+    th = theta_hat[:, :, None]
+    beta = beta0.expand(sims, G, 1, pf)
+    v = torch.zeros((sims, G, 1, M), dtype=f64, device=dev_)
+    for _ in range(N_PIRLS):
+        beta, v = _extras_pass(cells, f64, th, beta, v, "step", dense)
+    lap, a_xx = _extras_pass(cells, f64, th, beta, v, "mode", dense)
+    chol = smallchol.chol_auto(a_xx)
+    cov = smallchol.cho_inverse_auto(chol)
+    if hessian:  # the v-profiled Laplace deviance at the stencil (:486-517)
+        offs = torch.as_tensor(hessian_offsets(pf) * HESSIAN_STEP, dtype=f64, device=dev_)
+        beta_q = beta + offs  # (S, G, V, pf)
+        v_q = v.expand(sims, G, offs.shape[0], M)
+        th_q = th.expand(sims, G, offs.shape[0], d)
+        for _ in range(N_V_PIRLS):
+            v_q = _extras_pass(cells, f64, th_q, beta_q, v_q, "vstep", True)
+        vals = _extras_pass(cells, f64, th_q, beta_q, v_q, "tail", True)
+        cov = _stencil_cov(vals, beta[:, :, 0], cov[:, :, 0])[:, :, None]
+    ridge = torch.diag_embed(torch.full_like(beta, 1e-10))
+    converged = (torch.isfinite(beta).all(-1) & smallchol.chol_ok(chol)
+                 & smallchol.chol_rank_ok(smallchol.chol_auto(a_xx - ridge))
+                 & torch.isfinite(lap))[:, :, 0]
+    diag, off = [], 0
+    for q in cells.comps:
+        diag += [off + k for k in vech_diagonal(q)]
+        off += q * (q + 1) // 2
+    pinned = theta_hat[..., diag] < EXTRAS_PIN
+    l00 = theta_hat[..., 0]
+    ysum = cells.total(cells.y[f64][:, :, 0] * cells.mask[f64][:, 0])
+    return (beta[:, :, 0], cov[:, :, 0], converged, pinned.any(-1), l00 * l00,
+            ysum / cells.ns, pinned, theta_hat)
+
+
+# ---------------------------------------------------------------------------
+# K12 on the card
+# ---------------------------------------------------------------------------
+
+_GLMM_EXTRAS_ARGS = [
+    ctypes.c_void_p,  # X (sims, max_n, P) f32
+    ctypes.c_void_p,  # y (sims, max_n) f32
+    ctypes.c_int,  # sims
+    ctypes.c_int,  # max_n
+    ctypes.c_int,  # P
+    ctypes.POINTER(ctypes.c_int),  # fit columns (host)
+    ctypes.c_int,  # pf
+    ctypes.c_int,  # groupings
+    ctypes.POINTER(ctypes.c_int),  # levels per grouping (host)
+    ctypes.POINTER(ctypes.c_int),  # components per grouping (host)
+    ctypes.POINTER(ctypes.c_int),  # slope columns, comps - 1 a grouping, concatenated (host)
+    ctypes.c_void_p,  # ids (ng, max_n) int32
+    ctypes.c_void_p,  # level offsets, m_g + 1 a grouping, int32
+    ctypes.c_void_p,  # rows by level (ng, max_n) int32
+    ctypes.c_void_p,  # grid (G,) int32, device
+    ctypes.c_int,  # G
+    ctypes.c_int,  # link code
+    ctypes.c_void_p,  # beta0 (pf,) f64, device
+    ctypes.POINTER(ctypes.c_double),  # theta0 (d,) host
+    ctypes.POINTER(ctypes.c_double),  # lower (d,) host
+    ctypes.c_int,  # hessian
+    ctypes.c_int,  # force the dense capacitance
+    ctypes.c_void_p,  # theta in (sims, G, d) f64, or null: fit there, no search
+    ctypes.c_void_p,  # scratch: mcp_glmm_extras_scratch_bytes
+    ctypes.c_void_p,  # beta out (sims, G, pf) f64
+    ctypes.c_void_p,  # cov out (sims, G, pf, pf) f64
+    ctypes.c_void_p,  # tau2_hat out (sims, G) f64
+    ctypes.c_void_p,  # ybar out (sims, G) f64
+    ctypes.c_void_p,  # flags out (sims, G) uint8: bit0 converged, bit1 boundary
+    ctypes.c_void_p,  # pinned out (sims, G, sum q) uint8
+    ctypes.c_void_p,  # theta out (sims, G, d) f64
+    ctypes.c_void_p,  # cudaStream_t
+]
+
+
+def extras_row_lists(groups, max_n: int):
+    """K12's row lists, built on the host once a launch (the level ids
+    depend on the spec and the row alone): ``ids (ng, max_n)``, each
+    grouping's level offsets (m_g + 1 each, concatenated) and its rows by
+    level, ascending ``(ng, max_n)``, all int32 numpy."""
+    ids = np.stack([np.asarray(g.cpu() if torch.is_tensor(g) else g, dtype=np.int64)
+                    for g, _, _ in groups])
+    offs, rows = [], []
+    for (_, m, _), lv in zip(groups, ids):
+        rows.append(np.argsort(lv * max_n + np.arange(max_n), kind="stable"))
+        offs.append(np.concatenate([[0], np.cumsum(np.bincount(lv, minlength=int(m)))]))
+    return (ids.astype(np.int32), np.concatenate(offs).astype(np.int32),
+            np.stack(rows).astype(np.int32))
+
+
+def glmm_extras_scratch_bytes(cells: int, M: int, m1: int, p: int, max_n: int,
+                              structured: bool, hessian: bool) -> int:
+    """Bytes of device scratch K12 takes for ``cells`` cells (its C entry
+    point's count; ``m1`` the primary's columns). Builds and loads K12;
+    needs a CUDA device."""
+    fn = kernels.KERNELS["glmm_extras"].fn("mcp_glmm_extras_scratch_bytes",
+                                           [ctypes.c_longlong] + [ctypes.c_int] * 7)
+    fn.restype = ctypes.c_longlong
+    return int(fn(cells, M, m1, M - m1, p, max_n, int(structured), int(hessian)))
+
+
+def glmm_extras_kernel(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequence[int],
+                       grid: Sequence[int], groups, beta0: torch.Tensor, theta0, lower,
+                       hessian: bool = False, theta: torch.Tensor = None, dense: bool = False):
+    """Kernel K12: :func:`glmm_extras_plain` on the card (the same optional
+    arguments), a (sim, grid) cell a block, its four warps the search's four
+    candidates, with the device scratch its C entry point sizes."""
+    fit, grid = [int(c) for c in fit], [int(n) for n in grid]
+    levels = [int(m) for _, m, _ in groups]
+    comps = [1 + len(cols) for _, _, cols in groups]
+    zcols = [int(c) for _, _, cols in groups for c in cols]
+    pf, G, ng = len(fit), len(grid), len(groups)
+    M = sum(m * q for m, q in zip(levels, comps))
+    d = sum(q * (q + 1) // 2 for q in comps)
+    if not 1 <= pf <= MAX_P:
+        raise ValueError(f"glmm_extras kernel takes 1 <= p <= {MAX_P}, got {pf}")
+    if not 2 <= ng <= EXTRAS_MAX_GROUPINGS or M > EXTRAS_MAX_M or d > EXTRAS_MAX_D \
+            or max(comps) > MAX_SLOPE_Q:
+        raise ValueError(f"glmm_extras kernel takes 2..{EXTRAS_MAX_GROUPINGS} groupings, M <= "
+                         f"{EXTRAS_MAX_M}, d <= {EXTRAS_MAX_D}; got {ng}, M {M}, d {d}")
+    if X.dtype != torch.float32 or y.dtype != torch.float32:
+        raise ValueError("glmm_extras kernel takes f32 X and y")
+    sims, max_n, P = X.shape
+    theta0, lower = np.asarray(theta0, np.float64), np.asarray(lower, np.float64)
+    if y.shape != (sims, max_n) or beta0.shape != (pf,) or theta0.shape != (d,) \
+            or lower.shape != (d,):
+        raise ValueError(f"glmm_extras: X {tuple(X.shape)}, y {tuple(y.shape)}, beta0 "
+                         f"{tuple(beta0.shape)}, theta0 {theta0.shape} for p {pf}, d {d}")
+    if G == 0 or any(not 0 < n <= max_n for n in grid) or any(not 0 <= c < P for c in fit + zcols):
+        raise ValueError(f"glmm_extras: grid {grid}, fit {fit} or slope columns {zcols} out of "
+                         "range")
+    dev_ = X.device
+    X, y = X.contiguous(), y.contiguous()
+    beta0 = beta0.to(device=dev_, dtype=torch.float64).contiguous()
+    ids, offs, rows = (torch.as_tensor(a, device=dev_) for a in extras_row_lists(groups, max_n))
+    grid_t = torch.tensor(grid, dtype=torch.int32, device=dev_)
+    kw = dict(dtype=torch.float64, device=dev_)
+    beta = torch.empty((sims, G, pf), **kw)
+    cov = torch.empty((sims, G, pf, pf), **kw)
+    tau2, ybar = torch.empty((sims, G), **kw), torch.empty((sims, G), **kw)
+    theta_out = torch.empty((sims, G, d), **kw)
+    flags = torch.empty((sims, G), dtype=torch.uint8, device=dev_)
+    pinned = torch.empty((sims, G, sum(comps)), dtype=torch.uint8, device=dev_)
+    if theta is not None:
+        theta = theta.to(**kw).reshape(sims, G, d).contiguous()
+    kernels.require_cuda("glmm_extras", X, y, ids, offs, rows, grid_t, beta0, beta, cov, tau2,
+                         ybar, theta_out, flags, pinned, *(() if theta is None else (theta,)))
+    if sims:
+        structured = all(q == 1 for q in comps) and not dense
+        scratch = torch.empty(glmm_extras_scratch_bytes(sims * G, M, levels[0] * comps[0], pf,
+                                                        max_n, structured, hessian),
+                              dtype=torch.uint8, device=dev_)
+        k = kernels.KERNELS["glmm_extras"]
+        fn = k.fn("mcp_glmm_extras", _GLMM_EXTRAS_ARGS)
+        k.check(fn(
+            kernels.ptr(X), kernels.ptr(y), sims, max_n, P, (ctypes.c_int * pf)(*fit), pf, ng,
+            (ctypes.c_int * ng)(*levels), (ctypes.c_int * ng)(*comps),
+            (ctypes.c_int * max(len(zcols), 1))(*zcols), kernels.ptr(ids), kernels.ptr(offs),
+            kernels.ptr(rows), kernels.ptr(grid_t), G, code, kernels.ptr(beta0),
+            (ctypes.c_double * d)(*theta0.tolist()), (ctypes.c_double * d)(*lower.tolist()),
+            int(hessian), int(dense), ctypes.c_void_p(0) if theta is None else kernels.ptr(theta),
+            kernels.ptr(scratch), kernels.ptr(beta), kernels.ptr(cov), kernels.ptr(tau2),
+            kernels.ptr(ybar), kernels.ptr(flags), kernels.ptr(pinned), kernels.ptr(theta_out),
+            kernels.stream_of(X)))
+    return (beta, cov, (flags & 1).bool(), (flags & 2).bool(), tau2, ybar, pinned.bool(),
+            theta_out)
+
+
+def glmm_extras(code, X, y, fit, grid, groups, beta0, theta0, lower, hessian: bool = False):
+    """K12 for CUDA tensors, the plain version for CPU tensors."""
+    if X.is_cuda:
+        return glmm_extras_kernel(code, X, y, fit, grid, groups, beta0, theta0, lower, hessian)
+    if X.device.type != "cpu":
+        raise ValueError(f"glmm_extras: no kernel for device {X.device}")
+    return glmm_extras_plain(code, X, y, fit, grid, groups, beta0, theta0, lower, hessian)
+
+
+# ---------------------------------------------------------------------------
 # The arm
 # ---------------------------------------------------------------------------
 
@@ -982,21 +1499,26 @@ def glmm_grid_stats(spec: SimSpec, arr: Dict[str, torch.Tensor], X: torch.Tensor
     = 0 pin, or with slopes any component's pin), ``tau2_hat``,
     ``glm_baseline`` (the realized outcome mean) and ``pinned_comp`` (per
     component); ``posthoc_t2`` for a posthoc spec. A random intercept goes
-    to K7, random slopes to K10; ``plain=True`` runs their plain versions on
-    any device.
+    to K7, random slopes to K10, extra groupings to K12 (``pinned_comp`` then
+    one column a component of every grouping, the primary's first);
+    ``plain=True`` runs their plain versions on any device.
     """
     c = spec.cluster
     if c is None:
         raise ValueError("a GLMM needs a cluster spec")
-    if c.extra_groupings:
-        raise NotImplementedError("not ported yet: GLMM extra groupings (ROADMAP A12)")
     fit = list(spec.effective_fit_cols)
     if spec.scenario.truth_start:
         beta0 = arr["effects"].to(device=X.device, dtype=torch.float64)[fit]
     else:
         beta0 = torch.zeros(len(fit), dtype=torch.float64, device=X.device)
     code, hessian = link_code(spec.outcome, spec.link), spec.wald_se == "hessian"
-    if c.slopes:  # the q-dimensional Nelder-Mead path; nagq does not apply (:572)
+    if c.extra_groupings:  # the joint-Z Laplace path; nagq is 1 (contract error 25)
+        _, theta0, lower = theta_layout(grouping_plan(spec))
+        beta, cov, converged, boundary, tau2_hat, ybar, pinned, _ = (
+            glmm_extras_plain if plain else glmm_extras
+        )(code, X, y, fit, spec.grid, joint_layout(spec, X.device)[0], beta0, theta0, lower,
+          hessian)
+    elif c.slopes:  # the q-dimensional Nelder-Mead path; nagq does not apply (:572)
         from .mixedfit import slope_start
 
         theta0, lower = slope_start(spec)

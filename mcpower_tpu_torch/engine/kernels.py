@@ -36,7 +36,7 @@ BUILD_DIR = Path(
     )
 )
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# Widest fit the fit kernels (K2, K3, K4, K6, K7, K9, K10, K11) take
+# Widest fit the fit kernels (K2, K3, K4, K6, K7, K9, K10, K11, K12) take
 # (MCP_DISPATCH_P in csrc/common.cuh); datagen.unsupported stops wider ones.
 MAX_FIT_P = 16
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -161,6 +161,7 @@ KERNELS: Dict[str, Kernel] = {
     "slope_reml": Kernel("slope_reml", "slope_reml.cu", ["--fmad=false"]),
     "glmm_slope": Kernel("glmm_slope", "glmm_slope.cu", ["--fmad=false"]),
     "joint_reml": Kernel("joint_reml", "joint_reml.cu", ["--fmad=false"]),
+    "glmm_extras": Kernel("glmm_extras", "glmm_extras.cu", ["--fmad=false"]),
 }
 
 

@@ -690,14 +690,13 @@ def _joint_tail(rhs, sol, logdet_v, xtx, xty, yty, n, p: int, full: bool):
     return dev, beta, chol, rss / df
 
 
-def joint_deviance(theta, plan_shape, ztz, ztx, zty, xtx, xty, yty, n, full: bool = False,
-                   dense: bool = False):
-    """The profiled REML deviance with the joint capacitance at ``theta
-    (cells, k, d)``, k candidates a cell, in the statistics' dtype (the
-    reference's ``_reml_quantities_joint`` and ``_reml_quantities_joint_q1``,
-    :588-717, in kernel K11's order). ``plan_shape`` is ``[(levels, q)]`` per
-    grouping; statistics ``ztz (cells, M, M)``, ``ztx (cells, M, p)``,
-    ``zty (cells, M)``, ``xtx``, ``xty``, ``yty``, ``n (cells,)``.
+def joint_capacitance(theta, plan_shape, ztz, rhs_raw, dense: bool = False,
+                      solve: bool = True):
+    """The joint capacitance C = I + Lam' ztz Lam at ``theta (..., d)`` in
+    kernel K11's order, shared by the REML fit (:func:`joint_deviance`) and
+    the GLMM with extra groupings (``glmmfit.glmm_extras_plain``, whose
+    ``ztz`` is a PIRLS pass's Z'WZ). ``ztz (..., M, M)`` and ``rhs_raw (...,
+    M, r)`` broadcast against ``theta``'s leading axes.
 
     All groupings intercept-only (structured): Lam = diag(d), a = 1 + l1^2
     diag(G_PP), Cpe = (l1 G_PE) dE, S = (I + (dE dE') G_EE) - Cpe' (Cpe /
@@ -706,23 +705,19 @@ def joint_deviance(theta, plan_shape, ztz, ztx, zty, xtx, xty, yty, n, full: boo
     xp = rp / a - (Cpe xe) / a (the sums over levels in order), log|C| =
     sum log a + log|S|. Otherwise (dense): C = I + Lam' ztz Lam with Lam =
     blockdiag(I_m (x) Lg) applied block by block (:func:`_lam_rows`), its
-    blocked factor and the blocked solve of [Lam' zty | Lam' ztx]. Then
-    :func:`_joint_tail`. ``dense=True`` takes the dense form for an
-    all-intercept plan too (to hold the two forms against each other).
-    Returns dev ``(cells, k)``, with ``full`` also beta, the factor of
-    X'V^-1X and sigma^2.
+    blocked factor and the blocked solve of Lam' rhs_raw. ``dense=True``
+    takes the dense form for an all-intercept plan too.
+
+    Returns ``(rhs, sol, logdet_v)``: rhs = Lam' rhs_raw, sol = C^-1 rhs and
+    log|C|; with ``solve=False`` only log|C| (rhs and sol None).
     """
-    p = xtx.shape[-1]
-    theta = theta.to(ztz.dtype)
-    ztz, ztx, zty = ztz[:, None], ztx[:, None], zty[:, None]
-    xtx, xty, yty, n = xtx[:, None], xty[:, None], yty[:, None], n[:, None]
-    rhs_raw = torch.cat([zty[..., None], ztx], dim=-1)  # (cells, 1, M, p + 1)
+    lead = theta.shape[:-1]
     if all(q == 1 for _, q in plan_shape) and not dense:
         m1 = plan_shape[0][0]
         l1 = theta[..., 0]
         grp = torch.cat([torch.full((m,), 1 + g, dtype=torch.long, device=theta.device)
                          for g, (m, _) in enumerate(plan_shape[1:])])
-        dE = theta[..., grp]  # (cells, k, Me)
+        dE = theta[..., grp]  # (..., Me)
         gpp = torch.diagonal(ztz[..., :m1, :m1], dim1=-2, dim2=-1)
         a = 1.0 + (l1 * l1)[..., None] * gpp
         Cpe = (l1[..., None, None] * ztz[..., :m1, m1:]) * dE[..., None, :]
@@ -732,25 +727,48 @@ def joint_deviance(theta, plan_shape, ztz, ztx, zty, xtx, xty, yty, n, full: boo
         Cpe_a = Cpe / a[..., None]
         S = Cee - _contract_rows(Cpe, Cpe_a)
         cholS = smallchol.chol_auto(S)
+        la = torch.log(a)
+        logdet_v = _ordered_sum([la[..., j] for j in range(m1)]) + smallchol.logdet_ordered(cholS)
+        if not solve:
+            return None, None, logdet_v
         rp = l1[..., None, None] * rhs_raw[..., :m1, :]
         re = dE[..., :, None] * rhs_raw[..., m1:, :]
         rp_a = rp / a[..., None]
         xe = smallchol.cho_solve_mat_auto(cholS, re - _contract_rows(Cpe, rp_a))
         xp = rp_a - _contract_rows(Cpe.transpose(-1, -2), xe) / a[..., None]
-        sol = torch.cat([xp, xe], dim=-2)
-        rhs = torch.cat([rp, re], dim=-2)
-        la = torch.log(a)
-        logdet_v = _ordered_sum([la[..., j] for j in range(m1)]) + smallchol.logdet_ordered(cholS)
-    else:
-        lams = _joint_lams(theta, plan_shape)
-        W = _lam_rows(lams, plan_shape, ztz.expand(*theta.shape[:2], *ztz.shape[-2:]))
-        C = _lam_rows(lams, plan_shape, W.transpose(-1, -2)).transpose(-1, -2)
-        M = C.shape[-1]
-        C = torch.eye(M, dtype=C.dtype, device=C.device) + C
-        cholC = smallchol.chol_vec(C)
-        rhs = _lam_rows(lams, plan_shape, rhs_raw.expand(*theta.shape[:2], *rhs_raw.shape[-2:]))
-        sol = smallchol.cho_solve_mat_vec(cholC, rhs)
-        logdet_v = smallchol.logdet_ordered(cholC)
+        return torch.cat([rp, re], dim=-2), torch.cat([xp, xe], dim=-2), logdet_v
+    lams = _joint_lams(theta, plan_shape)
+    W = _lam_rows(lams, plan_shape, ztz.expand(*lead, *ztz.shape[-2:]))
+    C = _lam_rows(lams, plan_shape, W.transpose(-1, -2)).transpose(-1, -2)
+    M = C.shape[-1]
+    C = torch.eye(M, dtype=C.dtype, device=C.device) + C
+    cholC = smallchol.chol_vec(C)
+    logdet_v = smallchol.logdet_ordered(cholC)
+    if not solve:
+        return None, None, logdet_v
+    rhs = _lam_rows(lams, plan_shape, rhs_raw.expand(*lead, *rhs_raw.shape[-2:]))
+    return rhs, smallchol.cho_solve_mat_vec(cholC, rhs), logdet_v
+
+
+def joint_deviance(theta, plan_shape, ztz, ztx, zty, xtx, xty, yty, n, full: bool = False,
+                   dense: bool = False):
+    """The profiled REML deviance with the joint capacitance at ``theta
+    (cells, k, d)``, k candidates a cell, in the statistics' dtype (the
+    reference's ``_reml_quantities_joint`` and ``_reml_quantities_joint_q1``,
+    :588-717, in kernel K11's order). ``plan_shape`` is ``[(levels, q)]`` per
+    grouping; statistics ``ztz (cells, M, M)``, ``ztx (cells, M, p)``,
+    ``zty (cells, M)``, ``xtx``, ``xty``, ``yty``, ``n (cells,)``. The
+    capacitance solve of [zty | ztx] is :func:`joint_capacitance`'s (its
+    structured form when every grouping is intercept-only, unless
+    ``dense``), then :func:`_joint_tail`. Returns dev ``(cells, k)``, with
+    ``full`` also beta, the factor of X'V^-1X and sigma^2.
+    """
+    p = xtx.shape[-1]
+    theta = theta.to(ztz.dtype)
+    ztz, ztx, zty = ztz[:, None], ztx[:, None], zty[:, None]
+    xtx, xty, yty, n = xtx[:, None], xty[:, None], yty[:, None], n[:, None]
+    rhs_raw = torch.cat([zty[..., None], ztx], dim=-1)  # (cells, 1, M, p + 1)
+    rhs, sol, logdet_v = joint_capacitance(theta, plan_shape, ztz, rhs_raw, dense=dense)
     return _joint_tail(rhs, sol, logdet_v, xtx, xty, yty, n, p, full)
 
 

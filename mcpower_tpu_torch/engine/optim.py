@@ -22,8 +22,8 @@ multiplied by the f64 reciprocal of d (as XLA computes the reference's
 threaded through it (the reference's ``nelder_mead_carry``, :113): every
 candidate of an iteration starts its solver from the carried state, and the
 accepted candidate's end state becomes the next carry. It is the plain
-version of the search inside kernel K10 (``csrc/glmm_slope.cu``), with the
-same rules.
+version of the searches inside kernels K10 (``csrc/glmm_slope.cu``) and K12
+(``csrc/glmm_extras.cu``), with the same rules.
 """
 
 from __future__ import annotations
@@ -121,9 +121,11 @@ def nelder_mead_carry(f, x0: torch.Tensor, aux0, *, phases, init_step: float = 0
     budget); the first minimum among them seeds the carry. ``phases`` is a
     sequence of ``(iterations, budget)``; in each iteration the four
     candidates start from the carry and the accepted one's state becomes the
-    next carry. There is no ``dynamic_budget``: it serves only the
-    reference's extra-groupings path (ROADMAP A12). Returns ``(x_best, f_best,
-    aux)``, ``aux`` the final carry.
+    next carry. The reference's extra-groupings search passes
+    ``dynamic_budget=True``, which only keeps one traced body: its budget at
+    iteration i is that of the phase holding i, the schedule of this phased
+    loop (tests/test_torch_optim.py holds the two equal). Returns ``(x_best,
+    f_best, aux)``, ``aux`` the final carry.
     """
     rows = torch.arange(x0.shape[0], device=x0.device)
     verts = _initial(x0, init_step, lower)

@@ -116,12 +116,13 @@ def _lmm(**cluster):
 # here they are 16-level factors, too wide for the fit kernels (p = 18).
 # Scenario knobs, skewed residuals and marginals run too
 # (tests/test_torch_scenarios.py); here each sits on a design that still
-# raises: a GLMM with extra groupings, more random slopes than kernels K9
-# and K10 take (q = 5), extra groupings past K11's joint Z of M <= 128 (20 +
-# 110 columns), uploaded data, p = 19.
+# raises: a GLMM with extra groupings past K12's joint Z of M <= 128 (20 +
+# 110 columns), more random slopes than kernels K9 and K10 take (q = 5),
+# extra groupings past K11's joint Z of M <= 128, uploaded data, p = 19.
 # Random-intercept GLMMs run (tests/test_torch_glmm.py) within kernel K7's
 # limits on nodes and clusters; LMMs and GLMMs with up to three random
-# slopes run (tests/test_torch_slopes_fit.py, tests/test_torch_glmm_slopes.py).
+# slopes run (tests/test_torch_slopes_fit.py, tests/test_torch_glmm_slopes.py),
+# and GLMMs with extra groupings within K12's (tests/test_torch_glmm_extras*.py).
 _SLOPES_Q5 = tuple(SlopeStatic(1 + k % 2, 0.1, 0.0) for k in range(4))
 _GLMM = dict(outcome="binary", estimator="glm")
 UNSUPPORTED = {
@@ -136,7 +137,7 @@ UNSUPPORTED = {
     "posthoc": dict(factor_levels=[16], effects=np.zeros(18),
                     posthoc=(PosthocStatic(0, 16, ((3, 4),)),)),
     "heterogeneity": dict(_GLMM, cluster=ClusterStatic(
-        "fixed_clusters", 20, 0.25, extra_groupings=(ExtraGroupingStatic("crossed", 10, 0.15),)),
+        "fixed_clusters", 20, 0.25, extra_groupings=(ExtraGroupingStatic("crossed", 110, 0.15),)),
         scenario=ScenarioStatic(heterogeneity=0.2)),
     "heteroskedasticity": dict(_lmm(slopes=_SLOPES_Q5),
                                scenario=ScenarioStatic(heteroskedasticity_ratio=2.0)),

@@ -11,9 +11,11 @@ reference's ``run_batch``, and the gates of the path.
 * chunking is invisible: the same counts at two chunk sizes, and where the
   memory rule caps the chunk (``batch.joint_chunk_cap``); the tau^2 sum,
   added chunk by chunk, to rounding;
-* a GLMM with extra groupings raises ``NotImplementedError`` naming ROADMAP
-  A12.2, and plans past kernel K11's limits (a joint Z of more than 128
-  columns, a joint theta of more than 10 entries) name K11, before any run.
+* a GLMM with extra groupings at nagq 7 raises ``NotImplementedError``
+  naming kernel K12 (it takes the Laplace deviance alone; the GLMM itself
+  runs, tests/test_torch_glmm_extras*.py), and plans past kernel K11's
+  limits (a joint Z of more than 128 columns, a joint theta of more than 10
+  entries) name K11, before any run.
 """
 
 import numpy as np
@@ -102,14 +104,14 @@ def test_chunking_is_invisible(counts, monkeypatch):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("glmm", "a GLMM with extra groupings \\(ROADMAP A12.2\\)"),
+    ("glmm", "a GLMM with extra groupings at nagq 7; kernel K12 takes the Laplace deviance"),
     ("wide", "a joint Z of 136 columns; kernels K2 \\(joint mode\\) and K11 take M <= 128"),
     ("theta", "a joint theta of 11 entries; kernel K11 takes d <= 10"),
 ])
 def test_outside_k11_raises_before_any_run(case, match, monkeypatch):
     kw = {}
-    if case == "glmm":
-        kw = dict(outcome="binary", estimator="glm", effects=np.array([-0.3, 0.3, 0.2]))
+    if case == "glmm":  # the GLMM runs (K12) at the Laplace deviance alone
+        kw = dict(outcome="binary", estimator="glm", effects=np.array([-0.3, 0.3, 0.2]), nagq=7)
     elif case == "wide":  # 8 clusters + 128 crossed levels
         kw = dict(grid=[1024], cluster=ClusterStatic(
             "fixed_clusters", 8, 0.25, extra_groupings=(ExtraGroupingStatic("crossed", 128, 0.1),)))

@@ -240,3 +240,36 @@ def test_row_contractions_and_f32_solves_match_the_reference():
     for got, want in zip(outs, wants):
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+# ROADMAP C2 for the GLM: at p >= 13 the reference's factor and solves take
+# the blocked order, the port's IRLS (kernel K6 and its plain version) the
+# scalar one. A logit GLM with 13 normals and the intercept (p = 14), SIMS
+# sims at N 150 and 300 on the reference's bytes: every flag equal, t^2 and
+# the overall statistic within WIDE_BAND (measured 9.7e-16 and 9.2e-15).
+WIDE_BAND = 1e-12
+
+
+def test_a_p14_glm_fit_against_the_blocked_reference():
+    effects = np.array([-0.4] + [0.1, -0.1, 0.05] * 4 + [0.1])
+    ref_spec, ref_arr = ref_lower.lower(
+        grid=[150, 300], var_types=["normal"] * 13, effects=effects,
+        target_cols=list(range(1, 14)), outcome="binary", estimator="glm", report_overall=True)
+    spec, arr = carry.from_reference(ref_spec, ref_arr)
+    assert len(spec.effective_fit_cols) == 14
+    X, y, _ = ref_datagen.generate_batch(ref_spec, ref_arr, 2137, 0,
+                                         jnp.arange(SIMS, dtype=jnp.uint32))
+    got = glmfit.glm_grid_stats(spec, datagen.to_device(arr, "cpu"), torch.as_tensor(np.array(X)),
+                                torch.as_tensor(np.array(y)))
+    arm = jax.jit(jax.vmap(lambda X_, y_: ref_glmfit.glm_grid_stats(ref_spec, ref_arr, X_, y_,
+                                                                    None)))
+    # compiled without LLVM's expensive passes: a third of the compile
+    want = arm.lower(X, y).compile(
+        compiler_options={"xla_llvm_disable_expensive_passes": True})(X, y)
+    assert sorted(got) == sorted(want)
+    for key in ("converged", "singular"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+    assert np.asarray(want["converged"]).mean() > 0.9
+    t2, overall = _rel(got["t2"], want["t2"]), _rel(got["overall"], want["overall"])
+    print(f"p = 14 logit GLM against the blocked reference: t^2 {t2:.2e}, overall {overall:.2e}")
+    assert t2 <= WIDE_BAND and overall <= WIDE_BAND

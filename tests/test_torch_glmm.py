@@ -228,8 +228,10 @@ def test_hessian_offsets_are_the_references_stencil():
     assert (offs[-1] == [0, -1, -1]).all()
 
 
-# Random-intercept GLMMs and GLMMs with up to three slopes run; more slopes
-# (kernel K10's q <= 4), extra groupings and K7's limits raise before any run.
+# Random-intercept GLMMs, GLMMs with up to three slopes and GLMMs with extra
+# groupings run; more slopes (kernel K10's q <= 4), extra groupings past
+# K12's joint Z of M <= 128 (20 + 110 columns) and K7's limits raise before
+# any run.
 _GLMM = dict(grid=[100], var_types=["normal"], effects=np.array([-0.3, 0.3]), target_cols=[1],
              outcome="binary", estimator="glm")
 GATED = {
@@ -238,8 +240,8 @@ GATED = {
                     cluster=ClusterStatic("fixed_clusters", 20, 0.25, slopes=tuple(
                         SlopeStatic(c, 0.1, 0.0) for c in range(1, 5)))), "K10 takes q <= 4"),
     "crossed": (dict(_GLMM, cluster=ClusterStatic(
-        "fixed_clusters", 20, 0.25, extra_groupings=(ExtraGroupingStatic("crossed", 10, 0.15),))),
-        "A12"),
+        "fixed_clusters", 20, 0.25, extra_groupings=(ExtraGroupingStatic("crossed", 110, 0.15),))),
+        "K12 takes M <= 128"),
     "nodes": (dict(_GLMM, nagq=27, cluster=ClusterStatic("fixed_clusters", 20, 0.25)),
               "K7 takes 1..25 nodes"),
     "clusters": (dict(_GLMM, grid=[2050], cluster=ClusterStatic("fixed_clusters", 1025, 0.25)),

@@ -76,10 +76,11 @@ def runs(monkeypatch):
 
 def _glmm():
     """A GLMM with a crossed second grouping (tests/test_glmm.py:417-430's
-    design): outside the port (A12)."""
+    design) of 120 raters: the GLMM with extra groupings runs (kernel K12),
+    but its joint Z of 12 + 120 columns is past K12's M <= 128."""
     m = MCPower("y ~ x1 + x2 + (1|site) + (1|rater)", family="logit")
     m.set_cluster("site", ICC=0.12, n_clusters=12)
-    m.set_cluster("rater", ICC=0.08, n_clusters=8)
+    m.set_cluster("rater", ICC=0.08, n_clusters=120)
     m.set_baseline_probability(0.35)
     m.set_effects("x1=0.3, x2=0.2")
     return m
@@ -87,13 +88,14 @@ def _glmm():
 
 def test_scenarios_raise_before_any_run(runs):
     """Scenarios run (tests/test_torch_model_scenarios.py); on a design
-    outside the port, a GLMM with an extra grouping, every scenario is
-    checked before the first runs, so the call raises naming A12 with
-    nothing run."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    outside the port, a GLMM with an extra grouping past kernel K12's
+    limit, every scenario is checked before the first runs, so the call
+    raises naming K12 with nothing run (the sample-size range on its
+    1,440-row atom)."""
+    with pytest.raises(NotImplementedError, match="kernel K12"):
         _glmm().find_power(192, scenarios=True, n_sims=8, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        _glmm().find_sample_size(from_size=96, to_size=480, scenarios=True, n_sims=8,
+    with pytest.raises(NotImplementedError, match="kernel K12"):
+        _glmm().find_sample_size(from_size=1440, to_size=4320, scenarios=True, n_sims=8,
                                  verbose=False, device="cpu")
     assert runs == []
     _ols().find_power(200, n_sims=8, verbose=False, device="cpu")
@@ -106,17 +108,22 @@ def test_scenarios_raise_before_any_run(runs):
     ("y ~ x1 + x2 + (1 + x1|cluster) + (1|rater)", "logit", "x2=right_skewed", "A12"),
 ])
 def test_designs_outside_the_port_raise_before_any_run(runs, formula, family, types, item):
+    """Fits wider than p = 16 raise naming B10. A GLMM with extra groupings
+    (A12) runs, through kernel K12, up to a joint Z of M <= 128 columns: with
+    110 raters beside 20 clusters with a slope (M = 150) it raises naming
+    K12."""
     m = MCPower(formula, family=family)
     if family == "logit":
         m.set_baseline_probability(0.3)
     if "|" in formula:  # a random slope on x1 and a crossed second grouping
         m.set_cluster("cluster", tau_squared=0.25, n_clusters=20, random_slopes=["x1"],
                       slope_variance=0.1)
-        m.set_cluster("rater", ICC=0.08, n_clusters=10)
+        m.set_cluster("rater", ICC=0.08, n_clusters=110)
     if types:
         m.set_variable_type(types)
     m.set_effects(", ".join(f"{n}=0.2" for n in m.effect_names))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(NotImplementedError,
+                       match="kernel K12" if item == "A12" else f"ROADMAP {item}"):
         m.find_power(200, n_sims=8, verbose=False, device="cpu")
     assert runs == []
 

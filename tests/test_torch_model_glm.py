@@ -92,10 +92,12 @@ def test_glm_designs_outside_the_slice_raise_before_any_run(runs):
     m.set_effects(", ".join(f"{n}=0.2" for n in m.effect_names))
     with pytest.raises(NotImplementedError, match="ROADMAP B10"):
         m.find_power(200, n_sims=8, verbose=False, device="cpu")
-    m = _glm("logit", "y ~ x1 + (1|school) + (1|rater)")  # a crossed GLMM
+    # a crossed GLMM runs (kernel K12); 110 raters beside 20 schools (M = 130)
+    # is past K12's M <= 128
+    m = _glm("logit", "y ~ x1 + (1|school) + (1|rater)")
     m.set_cluster("school", ICC=0.2, n_clusters=20)
-    m.set_cluster("rater", ICC=0.1, n_clusters=10)
+    m.set_cluster("rater", ICC=0.1, n_clusters=110)
     m.set_effects("x1=0.3")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(NotImplementedError, match="kernel K12"):
         m.find_power(200, n_sims=8, verbose=False, device="cpu")
     assert runs == []

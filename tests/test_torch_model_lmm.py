@@ -76,11 +76,13 @@ def test_the_default_device_is_the_card(monkeypatch, method):
 def test_unported_lmm_designs_raise_before_any_run(monkeypatch, change, item):
     """The LMM's random slopes run (tests/test_torch_model_slopes.py), and so
     does the same model as a clustered logit with a random slope (a GLMM with
-    slopes, tests/test_torch_model_glmm_slopes.py); with a crossed second
-    grouping beside the slope it raises A12. The LMM's scenarios run
-    (tests/test_torch_model_scenarios.py), and the same model as a
-    clustered logit with a crossed second grouping (a GLMM with an extra
-    grouping) under ``scenarios=True`` raises A12."""
+    slopes, tests/test_torch_model_glmm_slopes.py) and with a crossed second
+    grouping beside the slope (A12, kernel K12); with 110 raters (a joint Z
+    of 20 x 2 + 110 columns) it is past K12's M <= 128 and raises naming
+    K12. The LMM's scenarios run (tests/test_torch_model_scenarios.py), and
+    so does the same model as a clustered logit with a crossed second
+    grouping (A12, K12); with 110 raters under ``scenarios=True`` it raises
+    naming K12."""
     calls = []
     monkeypatch.setattr(runner.batch, "run_batch", lambda *a, **k: calls.append(1))
     m = _lmm()
@@ -89,16 +91,17 @@ def test_unported_lmm_designs_raise_before_any_run(monkeypatch, change, item):
         kw["scenarios"] = True
         m = MCPower("y ~ x1 + x2 + (1|cluster) + (1|rater)", family="logit")
         m.set_cluster("cluster", ICC=0.2, n_clusters=20)
-        m.set_cluster("rater", ICC=0.1, n_clusters=10)
+        m.set_cluster("rater", ICC=0.1, n_clusters=110)
         m.set_baseline_probability(0.3)
         m.set_effects("x1=0.3, x2=0.2")
     else:
         m = MCPower("y ~ x1 + x2 + (1 + x1|cluster) + (1|rater)", family="logit")
         m.set_cluster("cluster", tau_squared=0.25, n_clusters=20, random_slopes=["x1"],
                       slope_variance=0.1)
-        m.set_cluster("rater", ICC=0.1, n_clusters=10)
+        m.set_cluster("rater", ICC=0.1, n_clusters=110)
         m.set_baseline_probability(0.3)
         m.set_effects("x1=0.3, x2=0.2")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(NotImplementedError,
+                       match="kernel K12" if item == "A12" else f"ROADMAP {item}"):
         m.find_power(200, n_sims=8, verbose=False, device="cpu", **kw)
     assert calls == []

@@ -8,9 +8,10 @@ flip per count, ``chip_smoke.compare_trees``), the golden values of the chip
 run must be the reference's, and the scenarios must order optimistic >=
 realistic >= doomer where the reference's do. Then a custom scenario of
 ``set_scenario_configs`` (a uniform residual swap and a heteroskedasticity
-driver), and a GLMM with a crossed second grouping under
-``scenarios=True``, which raises A12 before any run (random-intercept GLMMs
-under scenarios run: tests/test_torch_model_glmm.py)."""
+driver), and a GLMM with a nested grouping past kernel K12's limit under
+``scenarios=True``, which raises naming K12 before any run (GLMMs, with or
+without extra groupings, run under scenarios: tests/test_torch_model_glmm.py,
+chip_smoke.py's model_glmm_crossed_scenarios)."""
 
 import sys
 from pathlib import Path
@@ -102,13 +103,16 @@ def test_a_custom_scenario_matches_the_reference():
 
 
 def test_a_glmm_under_scenarios_raises_before_any_run(monkeypatch):
+    """A GLMM with extra groupings runs under scenarios (kernel K12); one
+    past K12's joint Z of M <= 128 (20 clusters, 140 wards nested in them)
+    raises before any scenario runs."""
     calls = []
     monkeypatch.setattr(runner.batch, "run_batch", lambda *a, **k: calls.append(1))
-    m = MCPower("y ~ x1 + x2 + (1|cluster) + (1|rater)", family="logit")
+    m = MCPower("y ~ x1 + x2 + (1|cluster/ward)", family="logit")
     m.set_cluster("cluster", ICC=0.2, n_clusters=20)
-    m.set_cluster("rater", ICC=0.1, n_clusters=10)
+    m.set_cluster("cluster:ward", ICC=0.1, n_clusters=140, n_per_parent=7)
     m.set_baseline_probability(0.3)
     m.set_effects("x1=0.3, x2=0.2")
-    with pytest.raises(NotImplementedError, match="extra groupings \\(ROADMAP A12\\.2\\)"):
-        m.find_power(200, scenarios=True, n_sims=8, verbose=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="a joint Z of 160 columns .*kernel K12"):
+        m.find_power(280, scenarios=True, n_sims=8, verbose=False, device="cpu")
     assert calls == []

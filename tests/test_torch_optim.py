@@ -12,7 +12,9 @@ rule on its own against ``_select_candidate``. ``nelder_mead_carry`` (the
 plain version of kernel K10's search) against the reference's, on the same
 objective read off a warm-started fixed-point iterate that the search
 carries, at two phase schedules and with clipping: the same vertex, value
-and final carry, bit for bit.
+and final carry, bit for bit; and the reference's ``dynamic_budget=True``
+(one traced body, the budget looked up by iteration) against the port's
+phased loop on the extras' schedules, bit for bit.
 """
 
 import jax
@@ -139,3 +141,43 @@ def test_nelder_mead_carry_matches_the_reference_bit_for_bit(q, phases):
     np.testing.assert_array_equal(got_a.numpy(), want[2])
     assert (got_x.numpy()[::2, 0] == 0.0).sum() > 0  # the lower bound binds
     assert not np.array_equal(got_a.numpy(), a0)
+
+
+@pytest.mark.parametrize("q,phases", [(1, ((12, 8), (18, 3))), (2, ((12, 8), (33, 3)))])
+def test_the_dynamic_budget_is_the_phased_loop(q, phases):
+    """The reference's extra-groupings search passes ``dynamic_budget=True``
+    (glmmfit.py:466-477): one traced body whose budget is ``budgets[
+    searchsorted(bounds, i, side="right")]`` over the phases' cumulative
+    iteration counts. That is the schedule of the port's phased loop, which
+    has no such flag: on the extras' schedules (30 iterations for d <= 3,
+    45 beyond, 12 of them at 8 steps) the two searches end at the same
+    vertex, value and carry, bit for bit."""
+    d = q * (q + 1) // 2
+    c = _targets(d, 11 * q)
+    x0 = np.abs(np.random.default_rng(q + 5).normal(0.5, 0.2, size=(CELLS, d)))
+    a0 = np.random.default_rng(q + 6).normal(0.0, 1.0, size=(CELLS, d))
+    lower = _lower(q)
+
+    @jax.jit
+    def ref(x0, a0, c):
+        def one(x0_, a0_, c_):
+            def f(x, a, budget):  # a traced budget: the fixed point as a loop
+                a = jax.lax.fori_loop(0, budget, lambda _, a_: (a_ + x) * 0.5, a)
+                return _objective(jnp, a, c_, np.inf), a
+            return ref_optim.nelder_mead_carry(f, x0_, a0_, phases=phases, init_step=STEP,
+                                               lower=jnp.asarray(lower), dynamic_budget=True)
+        return jax.vmap(one)(x0, a0, c)
+
+    want = [np.asarray(v) for v in ref(jnp.asarray(x0), jnp.asarray(a0), jnp.asarray(c))]
+    ct = torch.as_tensor(c)
+
+    def f(points, aux, budget):
+        a = _fixed_point(torch, points, aux[0][:, None, :], budget)
+        return _objective(torch, a, ct[:, None, :], np.inf), (a,)
+
+    got_x, got_f, (got_a,) = optim.nelder_mead_carry(
+        f, torch.as_tensor(x0), (torch.as_tensor(a0),), phases=phases, init_step=STEP,
+        lower=torch.as_tensor(lower))
+    np.testing.assert_array_equal(got_x.numpy(), want[0])
+    np.testing.assert_array_equal(got_f.numpy(), want[1])
+    np.testing.assert_array_equal(got_a.numpy(), want[2])
