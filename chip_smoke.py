@@ -6,7 +6,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (``--checks-only`` stops after phase 3; ``--compare LABEL=DIR`` adds phase
-5's A/B against K1, K3, K6 and K7 built from another ``csrc`` directory.)
+5's A/B against K1, K2's joint mode, K3, K6, K7 and K12 built from another
+``csrc`` directory.)
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -119,8 +120,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    at a launch of the slope-GLMM flow and at the glmm_slopes cells, K11 at
    the lmm_extras arm's cells and at a launch of the crossed and the dense
    extras flows (K10's and K11's plain versions at one shape each), K12 at
-   the glmm_extras arm's cells and at a launch of the crossed and the dense
-   GLMM flows (its plain version's time the one call of phase 3), K2's joint
+   the glmm_extras arm's cells and at a launch of the crossed, the nested
+   and the dense GLMM flows (its plain version's time the one call of phase
+   3; the form its launcher takes, work areas in shared memory or in
+   scratch, printed beside), K2's joint
    mode at the arm's rows and a crossed flow
    launch's, beside one ``torch.bmm`` of a dense one-hot Z) on
    the device, from
@@ -131,9 +134,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    rate for their type; K6's counts the steps its cells ran, from the
    kernel's step counter) and, for K2, one ``torch.bmm`` that computes the
    same statistics at the OLS shape; with ``--compare LABEL=DIR`` (another
-   ``csrc`` directory, such as the parent commit's; repeatable) its K1, K3,
-   K6 and K7 are built too, checked against this tree's (K7 bit for bit)
-   and timed beside them in turns (other, this, this, other); K1 at the realistic LMM's long
+   ``csrc`` directory, such as the parent commit's; repeatable) its K1, K2,
+   K3, K6, K7 and K12 are built too, checked against this tree's (K7 bit
+   for bit; K12's eight outputs at every case of ``K12_CHECKS`` and K2's
+   joint ztz, ztx and zty at ``K2_JOINT_CHECKS``, bit for bit) and timed
+   beside them in turns (other, this, this, other; K12 at its four rows, K2
+   in its joint mode at its two); K1 at the realistic LMM's long
    normals with its cluster streams padded in one launch against them in a
    launch of their own; then each arm's wall (the GLMM and slope arms' too),
    and a profile of each arm (wall median of PROFILE_REPS (3) calls, busy share, largest
@@ -826,12 +832,12 @@ K12_DESIGNS = {
 K12_FLOW_CASES = {"glmm_crossed_flow_launch": ("model_glmm_crossed_power", N_SIMS // 8),
                   "glmm_nested_flow_launch": ("model_glmm_nested_power", N_SIMS // 8),
                   "glmm_dense_flow_launch": ("model_glmm_dense_extras_power", N_SIMS // 8)}
-# Sims of each case: the main path's at the arm and the crossed and dense
-# flow launches (phase 5 times K12 there); the plain version runs many small
-# operations a pass, so the other windows stay small.
+# Sims of each case: the main path's at the arm and the crossed, nested and
+# dense flow launches (phase 5 times K12 there); the plain version runs many
+# small operations a pass, so the other windows stay small.
 K12_CHECKS = {
     "glmm_extras": GLMM_EXTRAS_SIMS, "glmm_extras_dense": 256,
-    "glmm_crossed_flow_launch": N_SIMS // 8, "glmm_nested_flow_launch": 256,
+    "glmm_crossed_flow_launch": N_SIMS // 8, "glmm_nested_flow_launch": N_SIMS // 8,
     "glmm_dense_flow_launch": N_SIMS // 8, "glmm_extras_two": 128,
     "glmm_extras_exslope": 128, "glmm_extras_probit": 128, "glmm_extras_poisson": 128,
     "glmm_extras_hessian": 64, "glmm_extras_p16": 32,
@@ -3231,13 +3237,27 @@ def kernel_swapped(kernels_mod, name: str, k):
         kernels_mod.KERNELS[name] = mine
 
 
+# The launch entries of a kernel whose wrapper launches more than one
+# (K2's joint mode has an entry of its own).
+LAUNCH_ENTRIES = {"grid_suffstats": ("grid_suffstats", "grid_suffstats_joint")}
+
+
 def _c_entry_points(source: Path, name: str) -> list:
-    """The ``extern "C"`` declaration of kernel ``name``'s launch entry
-    (``mcp_<name>``) in a source, whitespace collapsed: the interface its
-    wrapper launches."""
+    """The ``extern "C"`` declarations of kernel ``name``'s launch entries
+    (``mcp_<name>``, and those of LAUNCH_ENTRIES) in a source, whitespace
+    collapsed: the interfaces its wrappers launch."""
     text = source.read_text()
     return [" ".join(m.split()) for m in re.findall(r'extern "C"[^{]*', text)
-            if f" mcp_{name}(" in m]
+            for entry in LAUNCH_ENTRIES.get(name, (name,)) if f" mcp_{entry}(" in m]
+
+
+# The kernels ``--compare`` builds from another tree: their outputs are held
+# to this tree's and timed beside them in phase 5.
+COMPARED = ("philox_fill", "ols_solve", "glm_irls", "glmm_intercept", "grid_suffstats",
+            "glmm_extras")
+# Those compared on every timing row of their name; K2 is compared in its
+# joint mode and K12 at its cases, each in a block of its own.
+COMPARED_BY_ROW = ("philox_fill", "ols_solve", "glm_irls", "glmm_intercept")
 
 
 def other_kernels(kernels_mod, csrc: Path, label: str, names) -> Dict[str, object]:
@@ -3498,7 +3518,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", default=[], metavar="LABEL=DIR",
                     help="a csrc directory of another tree (the parent commit's, say): build its "
-                         "K1, K3, K6 and K7 too and time them beside this tree's, in turns; "
+                         "K1, K2, K3, K6, K7 and K12 too, hold their outputs to this tree's and "
+                         "time them beside this tree's, in turns (K2: its joint mode); "
                          "repeatable")
     ap.add_argument("--checks-only", action="store_true",
                     help="stop after phase 3 (build, ptxas, each kernel against its plain "
@@ -3533,14 +3554,13 @@ def main(argv=None) -> int:
 
     # --- phase 2: build ---
     took = kernels.build_all()
-    others = {}  # label -> K1, K3, K6 and K7 built from that csrc, for phase 5's A/B
+    others = {}  # label -> K1, K2, K3, K6, K7 and K12 built from that csrc, for phase 5's A/B
     for spec in opts.compare:
         label, _, path = spec.partition("=")
         csrc = Path(path).resolve()
         check(label.isidentifier() and (csrc / "philox_fill.cu").exists(),
               f"--compare {spec}: want LABEL=DIR with DIR/philox_fill.cu")
-        others[label] = other_kernels(kernels, csrc, label,
-                                      ("philox_fill", "ols_solve", "glm_irls", "glmm_intercept"))
+        others[label] = other_kernels(kernels, csrc, label, COMPARED)
     procs = {(lb, n): k.start_build() for lb, ks in others.items() for n, k in ks.items()}
     for (lb, n), proc in procs.items():
         others[lb][n].finish_build(proc)
@@ -4580,19 +4600,25 @@ def main(argv=None) -> int:
                        mixedfit.joint_reml_plain, args_, k11_bound(args_, out_), None))
 
     # K12 at the glmm_extras arm's cells (structured, Me 10), at a launch of
-    # the crossed GLMM flow (structured, Me 10) and of the dense GLMM flow (M
-    # 58, d 4); the plain version's time is its one call of phase 3 (CUDA
-    # events around it)
-    known_plain = {}
+    # the crossed GLMM flow (structured, Me 10), of the nested one
+    # (structured, Me 48) and of the dense one (M 58, d 4); the plain
+    # version's time is its one call of phase 3 (CUDA events around it); the
+    # form its launcher takes (work areas in shared memory or in scratch)
+    known_plain, k12_geometry = {}, {}
     for key, case, shape in (
             ("glmm_extras arm", "glmm_extras",
              "glmm_extras arm cells {}, N 200, M 30 (m 20 + 10), p 3, structured"),
             ("glmm_extras crossed", "glmm_crossed_flow_launch",
              "crossed GLMM flow launch, cells {}, N 480, M 34 (m 24 + 10), p 2, structured"),
+            ("glmm_extras nested", "glmm_nested_flow_launch",
+             "nested GLMM flow launch, cells {}, N 480, M 72 (m 24 + 48), p 2, structured"),
             ("glmm_extras dense", "glmm_dense_flow_launch",
              "dense GLMM flow launch, cells {}, N 480, M 58 (24 x 2 + 10), p 2, dense")):
         args_, out_ = k12_args_by[case], k12_out[case]
         known_plain[key] = k12_plain_ms[case]
+        k12_geometry[key.split()[1]] = glmmfit.glmm_extras_geometry(*args_)
+        print(f"K12 launch form at the {key.split()[1]} row: {k12_geometry[key.split()[1]]}",
+              flush=True)
         timing.append((key, shape.format(tuple(out_[2].shape)), glmmfit.glmm_extras_kernel,
                        glmmfit.glmm_extras_plain, args_, k12_bound(args_, out_), None))
 
@@ -4693,6 +4719,8 @@ def main(argv=None) -> int:
     # PR 10's is launched as PR 10's wrapper launched it.
     for key, shape, fk, fp, inputs, _, _ in timing:
         name = key.split()[0]
+        if name not in COMPARED_BY_ROW:
+            continue
         copies = input_copies(inputs)
         for lb, ks in others.items():
             if name not in ks:
@@ -4737,6 +4765,53 @@ def main(argv=None) -> int:
                   f"{n1:.4f}, this {n2:.4f}, {lb} {o2:.4f}; speed-up {(o1 + o2) / (n1 + n2):.2f}x",
                   flush=True)
 
+    # Each compared build's K12 and K2 joint mode: K12's eight outputs bit
+    # for bit at every K12_CHECKS case, K2's joint ztz, ztx and zty at every
+    # K2_JOINT_CHECKS case; then their timing rows in turns (other, this,
+    # this, other)
+    for lb, ks in others.items():
+        if "glmm_extras" in ks:
+            for case, args_ in k12_args_by.items():
+                with kernel_swapped(kernels, "glmm_extras", ks["glmm_extras"]):
+                    theirs = glmmfit.glmm_extras_kernel(*args_)
+                n_diff = sum(int((~((a == b) | (a.isnan() & b.isnan()))).sum())
+                             for a, b in zip(theirs, k12_out[case]))
+                check(n_diff == 0, f"A/B K12 {case}: {lb}'s build differs in {n_diff} entries")
+            print(f"A/B K12 against {lb}: the same bits in all eight outputs at the "
+                  f"{len(k12_args_by)} cases of K12_CHECKS", flush=True)
+        if "grid_suffstats" in ks:
+            for name in K2_JOINT_CHECKS:
+                spec_, arr_ = lower_design(lower, ClusterStatic, name)
+                X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
+                                                   sim_ids[:GOLDEN_SIMS], plain=True)
+                ours = olsfit.joint_suffstats_kernel(spec_, X_, y_)
+                with kernel_swapped(kernels, "grid_suffstats", ks["grid_suffstats"]):
+                    theirs = olsfit.joint_suffstats_kernel(spec_, X_, y_)
+                n_diff = sum(int((theirs[k] != ours[k]).sum()) for k in ("ztz", "ztx", "zty"))
+                check(n_diff == 0, f"A/B K2 joint {name}: {lb}'s build differs in {n_diff} entries")
+            print(f"A/B K2 joint mode against {lb}: the same bits in ztz, ztx and zty at "
+                  f"{', '.join(K2_JOINT_CHECKS)}", flush=True)
+    for key, shape, fk, fp, inputs, _, _ in timing:
+        kname = key.split()[0]
+        if kname not in ("glmm_extras", "grid_suffstats_joint"):
+            continue
+        name = "grid_suffstats" if kname == "grid_suffstats_joint" else kname
+        copies = input_copies(inputs)
+        k_reps = 5 if name == "glmm_extras" else reps
+        for lb, ks in others.items():
+            if name not in ks:
+                continue
+            turns = []
+            for k in (ks[name], kernels.KERNELS[name], kernels.KERNELS[name], ks[name]):
+                with kernel_swapped(kernels, name, k):
+                    turns.append(device_ms(fk, copies, k_reps, kname + "_kernel", launches=1))
+            o1, n1, n2, o2 = turns
+            timed[key].setdefault("compare", {})[lb] = dict(ms=(o1 + o2) / 2.0, turns=[o1, o2],
+                                                             this_turns=[n1, n2])
+            print(f"A/B {key} ({shape}) against {lb}, device ms in turns: {lb} {o1:.4f}, this "
+                  f"{n1:.4f}, this {n2:.4f}, {lb} {o2:.4f}; speed-up {(o1 + o2) / (n1 + n2):.2f}x",
+                  flush=True)
+
     for name in ("reml_intercept", "glm_irls", "poisson_quantile"):
         records[name].update(timed[name])
     records["glmm_intercept"].update(timed["glmm_intercept agq7"], by_shape={
@@ -4749,7 +4824,8 @@ def main(argv=None) -> int:
     records["joint_reml"].update(timed["joint_reml crossed"], by_shape={
         shape: timed[f"joint_reml {shape}"] for shape in ("arm", "crossed", "dense")})
     records["glmm_extras"].update(timed["glmm_extras crossed"], by_shape={
-        shape: timed[f"glmm_extras {shape}"] for shape in ("arm", "crossed", "dense")})
+        shape: timed[f"glmm_extras {shape}"] for shape in ("arm", "crossed", "nested", "dense")},
+        geometry=k12_geometry)
     records["grid_suffstats_joint"].update(timed["grid_suffstats_joint crossed"], by_arm={
         arm: timed[f"grid_suffstats_joint {arm}"] for arm in ("arm", "crossed")})
     records["glm_irls"]["by_shape"] = {"arm": timed["glm_irls"], "flow": timed["glm_irls flow"],

@@ -62,27 +62,51 @@
 // dependent steps (n = Me structured, M dense). chip_smoke.k12_bound counts
 // the operations.
 //
-// The design, a first version (simple and right):
+// The design (redesigned for Hopper after the first version's cycle counts
+// by region, chip_k12_profile.py: the row walks and the capacitance held
+// 85-90% of a cell's cycles, each a chain of read-modify-writes through
+// device memory):
 // - one block of four warps a cell; in the search warp g evaluates
 //   candidate g and in the initial simplex vertex 4 r + g; warp 0 runs the
 //   f64 fit and the last stage, and the Hessian's stencil points go round
 //   the four warps;
-// - a pass: lane l takes primary levels l, l + 32, ... and walks each
-//   level's rows, computing the row quantities, keeping w, zw and X beta per
-//   row, and summing its levels' entries and its share of the whole-row
-//   sums; then lane l takes extras levels l, l + 32, ... and walks their
-//   rows from the kept row quantities; then the blocks between groupings are
-//   mirrored and the whole-row sums combined; then the capacitance;
-// - each warp's state (theta, beta, v, Z'WZ, the right-hand sides, the kept
-//   row quantities and the capacitance's work area) lives in a device scratch
-//   sized by mcp_glmm_extras_scratch_bytes, f32 in the search and f64 after
-//   it in the same bytes; the carried v and the fit's v beside it; rows are
-//   read from device memory;
+// - the cell's rows are staged once, before the search, in the order of
+//   the primary grouping's level lists (primary position t): the fit and
+//   slope columns of X and y (f32, as read), each extras grouping's level of
+//   the row, each extras grouping's list as primary positions, and every
+//   level's first and end position below the cell's n. A pass reads rows
+//   from there and keeps w, zw and X beta at their primary positions;
+// - a pass: first the row quantities (eta, the link, w and zw, and the
+//   deviance term or X beta) of every row below n, two rows a lane at a
+//   time over all 32 lanes (rows are independent), kept at their primary
+//   positions; then lane l takes primary levels l, l + 32, ... and walks each
+//   level's rows, four read before they are added: the entries the level
+//   owns alone (its block of Z'WZ, its rows of the right-hand sides) and the
+//   lane's share of the whole-row sums are summed in registers and stored
+//   once; entries scattered by the row's level in another grouping are added
+//   in place. Then lane l takes extras levels l, l + 32, ... the same way;
+//   then the blocks between groupings are mirrored and the whole-row sums
+//   combined; then the capacitance (joint_cap.cuh: an entry of S or C a
+//   lane, dependent sums reading four terms ahead). Every entry receives the
+//   same additions in the same order as in a walk that adds each into
+//   memory;
+// - each warp's f32 work area (theta, beta, v, Z'WZ, the right-hand sides,
+//   the kept row quantities, X'WX and the capacitance's work area; the p x p
+//   matrices at their order p) lives in dynamic shared memory where the
+//   four areas fit beside the staged rows and the card holds as many cells
+//   an SM that way as with them in device scratch, else in scratch (the
+//   launcher's place() picks, mcp_glmm_extras_geometry reports; both forms
+//   run the same arithmetic). The f64 fit of warp 0 takes the shared areas'
+//   bytes once the search is over; the Hessian's four f64 areas, and a stage that
+//   does not fit in shared memory, are in device scratch sized by
+//   mcp_glmm_extras_scratch_bytes. The carried v and the fit's v sit with
+//   the simplex in static shared memory;
 // - thread 0 keeps the simplex in shared memory and runs the sort, the
 //   candidates and the selection between rounds;
-// - one pass function a type, not inlined, by a run-time kind (a step, a
-//   v-only step, the deviance, the fit's mode) and form; one instantiation,
-//   run-time sizes.
+// - one pass function a type, p bucket (p <= 4 or <= 16: the register sums'
+//   sizes), form of the capacitance (structured or dense) and kernel
+//   variant (registers held to three cells an SM, or not), not inlined, by a
+//   run-time kind (a step, a v-only step, the deviance, the fit's mode).
 
 #include "common.cuh"
 #include "glmm_link.cuh"
@@ -112,7 +136,6 @@ using mcp::jcap::WARP;
 constexpr int WARPS = 4;  // a cell's warps: the four candidates
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_QG = 4;  // components of one grouping (d <= 10)
-constexpr int MAX_NT = MAX_P * (MAX_P + 1) / 2;
 constexpr int MAX_V = 1 + 2 * MAX_P + 2 * MAX_P * (MAX_P - 1);  // Hessian stencil points
 constexpr int N_PIRLS = 12;
 constexpr int N_PIRLS_SLOPE = 8;
@@ -124,7 +147,14 @@ constexpr double EPS_RANK = 1e-6;
 constexpr double H_STEP = 1e-4;
 constexpr double SENTINEL = 1e30;
 constexpr double EXTRAS_PIN = 1e-3;
+constexpr int MAX_SMEM_BYTES = 227 * 1024;  // a block's shared memory on the H100
+constexpr int CHUNK = 4;  // rows a level walk reads before it adds them, in order
+// the stage's columns beyond p and its ints a row, at most: the slope
+// columns (MAX_G groupings of MAX_QG - 1), y, per extras grouping its level
+// and its list, the primary level and the inverse of the primary list
+constexpr int STAGE_MAX_EXTRA = MAX_G * (MAX_QG - 1) + 1 + 2 * (MAX_G - 1) + 2;
 enum { K_STEP = 0, K_VSTEP = 1, K_TAIL = 2, K_MODE = 3 };
+enum { FORM_AUTO = 0, FORM_SHARED = 1, FORM_SCRATCH = 2, FORM_CAP_SHARED = 3 };
 
 struct Args {
     const float* X;
@@ -136,6 +166,8 @@ struct Args {
     int M, ng, m1, Me, d, nq, structured, nm_iters, mlev;
     int levels[MAX_G], comps[MAX_G], coff[MAX_G + 1], toff[MAX_G], loff[MAX_G], lev0[MAX_G + 1];
     int zc[MAX_G][MAX_QG];  // the X column of component k >= 1 of grouping g
+    int zs[MAX_G][MAX_QG];  // its column in the stage
+    int rw, yc;             // the stage's floats a row, y's column
     const int* ids;         // (ng, max_n): each row's level per grouping
     const int* lvl_off;     // per grouping its levels' offsets into lvl_rows (m_g + 1)
     const int* lvl_rows;    // (ng, max_n): each grouping's rows by level, ascending
@@ -145,6 +177,9 @@ struct Args {
     const double* theta_in;  // (cells, d): fit here, no search; or null
     double* scratch;
     long long cell_doubles;
+    int stage_shared, area_shared;  // where the stage and the f32 areas live
+    int cap_shared;                 // the areas in scratch but their capacitance parts
+    int stage_bytes;                // the stage's bytes, a multiple of 16
     double *beta, *cov, *tau2, *ybar, *theta;
     uint8_t *flags, *pinned;
 };
@@ -163,18 +198,21 @@ struct Shared {
     int cbase[MAX_M];
     unsigned char cgrp[MAX_M], crr[MAX_M];
     float carry_beta[MAX_P];
+    float carry_v[MAX_M];
     double fin_beta[MAX_P];
+    double fin_v[MAX_M];
     double axx[MAX_P * MAX_P];
     double lap, ysum;
     double hv[MAX_V];
 };
 
-// A warp's area, in elements of T (f32 in the search, f64 after it, in the
-// same bytes): Z'WZ (structured: diag G_PP (m1), G_PE (m1 x Me), G_EE (Me x
-// Me); dense, and for the Hessian: M x M), the right-hand sides (M x (p +
-// 1)), u (then the new v), v, theta, beta, the kept row quantities w, zw
-// and X beta (max_n each), X'WX, X'Wz, the last stage's four p x p
-// matrices and the capacitance's work area.
+// A warp's area, in elements of T (f32 in the search, f64 after it): Z'WZ
+// (structured: diag G_PP (m1), G_PE (m1 x Me), G_EE (Me x Me); dense, and
+// for the Hessian: M x M), the right-hand sides (M x (p + 1)), u (then the
+// new v), v, theta, beta, the kept row quantities w, zw and X beta (a
+// v-only step) or the deviance term (a deviance) (max_n each, by primary
+// position), X'WX (p x p), X'Wz, the last stage's four p x p matrices and
+// the capacitance's work area.
 struct WLay {
     size_t g, raw, u, v, th, bt, wbuf, zwbuf, xbbuf, xwx, xwz, fin, cap, total;
 };
@@ -184,9 +222,9 @@ __host__ __device__ inline WLay wlay_of(int M, int m1, int Me, int p, int max_n,
     WLay w;
     size_t gs = structured ? (size_t)m1 + (size_t)m1 * Me + (size_t)Me * Me : (size_t)M * M;
     if (hessian && (size_t)M * M > gs) gs = (size_t)M * M;
-    size_t cs = layout_of(structured, M, m1, Me, p).total();
+    size_t cs = layout_of(structured, M, m1, Me, p, p).total();
     if (hessian) {  // the stencil's dense passes
-        const size_t vs = layout_of(0, M, m1, Me, p).total();
+        const size_t vs = layout_of(0, M, m1, Me, p, p).total();
         if (vs > cs) cs = vs;
     }
     w.g = 0;
@@ -199,17 +237,111 @@ __host__ __device__ inline WLay wlay_of(int M, int m1, int Me, int p, int max_n,
     w.zwbuf = w.wbuf + max_n;
     w.xbbuf = w.zwbuf + max_n;
     w.xwx = w.xbbuf + max_n;
-    w.xwz = w.xwx + MAX_P * MAX_P;
+    w.xwz = w.xwx + (size_t)p * p;
     w.fin = w.xwz + MAX_P;
-    w.cap = w.fin + 4 * MAX_P * MAX_P;
+    w.cap = w.fin + 4 * (size_t)p * p;
     w.total = w.cap + cs;
     return w;
 }
 
-// Doubles of scratch a cell takes: the four warps' areas, the carried v
-// (f32) and the fit's v (f64).
-__host__ __device__ inline long long cell_doubles(const WLay& w, int M) {
-    return (long long)WARPS * (long long)w.total + 2LL * M;
+// Ints a stage takes at most for a plan of M columns (the scratch's share
+// where it cannot sit in shared memory).
+__host__ __device__ inline long long stage_ints_bound(int M, int p, int max_n) {
+    return (long long)max_n * (p + STAGE_MAX_EXTRA) + 2LL * M;
+}
+
+// Shared memory a block may hold beside its static state.
+inline long long dyn_budget() { return (long long)MAX_SMEM_BYTES - (long long)sizeof(Shared); }
+
+// Doubles of scratch a cell takes: the four warps' f64 areas (the f32 areas
+// inside them where they are not in shared memory), then the stage where even
+// its bound does not fit in shared memory.
+__host__ __device__ inline long long cell_doubles_of(const WLay& w, int M, int p, int max_n,
+                                                     long long budget) {
+    const long long st = stage_ints_bound(M, p, max_n);
+    return (long long)WARPS * (long long)w.total + ((st * 4 + 15) / 16 * 16 > budget ? (st + 1) / 2 : 0);
+}
+
+// The staged rows of a cell (see the design note), by primary position t.
+struct Stage {
+    const float* xs;  // (max_n, rw): the fit columns, the slope columns, y
+    const int* idp;   // (ng - 1, max_n): extras grouping g's level of the row at t
+    const int* epos;  // (ng - 1, max_n): extras grouping g's row list as primary positions
+    const int* inv;   // (max_n,): each row's primary position (rows below n: those of the cell)
+    const int* lvp;   // (max_n,): the primary level of the row at t
+    const int* lo;    // per level (the primary's, then the extras' in order): its first position
+    const int* le;    // and its end below n
+    int n;            // the cell's rows
+};
+
+// Ints of a stage: xs, idp, epos, inv, lvp, lo and le.
+__host__ __device__ inline long long stage_ints(const Args& a) {
+    const long long levels = (long long)a.levels[0] + a.mlev;
+    return (long long)a.max_n * (a.rw + 2 * (a.ng - 1) + 2) + 2 * levels;
+}
+
+__device__ inline Stage stage_at(const Args& a, int* base, int n) {
+    Stage s;
+    const long long mx = a.max_n, levels = (long long)a.levels[0] + a.mlev;
+    s.xs = reinterpret_cast<const float*>(base);
+    s.idp = base + mx * a.rw;
+    s.epos = s.idp + mx * (a.ng - 1);
+    s.inv = s.epos + mx * (a.ng - 1);
+    s.lvp = s.inv + mx;
+    s.lo = s.lvp + mx;
+    s.le = s.lo + levels;
+    s.n = n;
+    return s;
+}
+
+// Stage the cell's rows (all threads of the block; ends at a barrier).
+__device__ void build_stage(const Args& a, int* base, long long sim, int n) {
+    const int t0 = threadIdx.x, nt = blockDim.x;
+    const long long mx = a.max_n;
+    const int levels = a.levels[0] + a.mlev;
+    float* xs = reinterpret_cast<float*>(base);
+    int* idp = base + mx * a.rw;
+    int* epos = idp + mx * (a.ng - 1);
+    int* inv = epos + mx * (a.ng - 1);
+    int* lvp = inv + mx;
+    int* lo = lvp + mx;
+    int* le = lo + levels;
+    for (int t = t0; t < a.max_n; t += nt) inv[a.lvl_rows[t]] = t;
+    for (int li = t0; li < levels; li += nt) {  // each level's rows below n: a lower bound
+        int g = 0, lv = li;
+        if (li >= a.levels[0]) {
+            g = 1;
+            while (g + 1 < a.ng && li - a.levels[0] >= a.lev0[g + 1]) ++g;
+            lv = li - a.levels[0] - a.lev0[g];
+        }
+        const int* rows = a.lvl_rows + (long long)g * mx;
+        int b = a.lvl_off[a.loff[g] + lv], e = a.lvl_off[a.loff[g] + lv + 1];
+        lo[li] = b;
+        while (b < e) {
+            const int mid = (b + e) / 2;
+            if (rows[mid] < n) b = mid + 1;
+            else e = mid;
+        }
+        le[li] = b;
+    }
+    __syncthreads();
+    const float* Xs = a.X + sim * mx * a.P;
+    const float* ys = a.y + sim * mx;
+    for (int t = t0; t < a.max_n; t += nt) {
+        const int rr = a.lvl_rows[t];
+        if (rr >= n) continue;
+        const float* row = Xs + (long long)rr * a.P;
+        float* dst = xs + (long long)t * a.rw;
+        for (int k = 0; k < a.p; ++k) dst[k] = row[a.fit[k]];
+        for (int g = 0; g < a.ng; ++g)
+            for (int k = 1; k < a.comps[g]; ++k) dst[a.zs[g][k]] = row[a.zc[g][k]];
+        dst[a.yc] = ys[rr];
+        lvp[t] = a.ids[rr];
+        for (int h = 1; h < a.ng; ++h) idp[(h - 1) * mx + t] = a.ids[h * mx + rr];
+    }
+    for (long long e = t0; e < (a.ng - 1) * mx; e += nt)
+        epos[e] = inv[a.lvl_rows[mx + e]];
+    __syncthreads();
 }
 
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
@@ -236,16 +368,83 @@ struct GSrc {
     __device__ T raw(int row, int c) const { return rw[(size_t)row * r + c]; }
 };
 
+// The row quantities of a pass for the link LINK: per row below n (the lanes
+// take them two at a time, independent of each other) eta = X beta + sum z
+// u, the link's mu, var and dmu, w = dmu^2 / max(var, 1e-10) and zw = eta +
+// (y - mu) / dmu, kept at the row's primary position, with X beta for a
+// v-only step or the deviance term for a deviance in `aux`.
+template <typename T, int PB, bool ST, int LINK>
+__device__ __forceinline__ void row_quantities(const Args& a, const Stage& sg, int lane, int kind,
+                                               const T* u, const T* bt, T* wb, T* zwb, T* aux) {
+    const bool vstep = kind == K_VSTEP, want_dev = kind == K_TAIL || kind == K_MODE;
+    const int p = a.p, ng = a.ng, rw = a.rw, yc = a.yc;
+    const long long mx = a.max_n;
+    for (int k0 = lane; k0 < sg.n; k0 += 2 * WARP) {
+        const bool two = k0 + WARP < sg.n;
+        int t[2];
+        t[0] = sg.inv[k0];
+        t[1] = two ? sg.inv[k0 + WARP] : t[0];
+        T xb[2], yv[2], zu[2] = {T(0), T(0)};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float* row = sg.xs + (long long)t[h] * rw;
+            T acc = T(0);
+#pragma unroll
+            for (int k = 0; k < PB; ++k)
+                if (k < p) acc = acc + (T)row[k] * bt[k];
+            xb[h] = acc;
+            yv[h] = (T)row[yc];
+        }
+        for (int g = 0; g < ng; ++g) {
+            const int qg = ST ? 1 : a.comps[g];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int lvg = g == 0 ? sg.lvp[t[h]] : sg.idp[(g - 1) * mx + t[h]];
+                const int base = a.coff[g] + lvg * qg;
+                for (int k = 0; k < qg; ++k) {
+                    T tz = u[base + k];
+                    if (k) tz = (T)sg.xs[(long long)t[h] * rw + a.zs[g][k]] * tz;
+                    zu[h] = (g == 0 && k == 0) ? tz : zu[h] + tz;
+                }
+            }
+        }
+        T wt[2], zw[2], ax[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const T eta = xb[h] + zu[h];
+            T mu, var, dmu;
+            mu_var_dmu<T>(LINK, eta, mu, var, dmu);
+            wt[h] = dmu * dmu / clamp_lo(var, T(MU_EPS));
+            zw[h] = eta + (yv[h] - mu) / dmu;
+            ax[h] = vstep ? xb[h] : (want_dev ? dev_term<T>(LINK, yv[h], mu) : T(0));
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            if (h == 0 || two) {
+                wb[t[h]] = wt[h];
+                zwb[t[h]] = zw[h];
+                aux[t[h]] = ax[h];
+            }
+        }
+    }
+}
+
 // One pass of the warp over its cell's rows (glmmfit._extras_pass) in the
-// warp's area `w` (theta, beta and v there). K_STEP and K_VSTEP update beta
-// and v in place (or keep them, where the step is not finite); K_TAIL
-// returns the Laplace deviance; K_MODE returns it and writes the ridged
-// Schur matrix to axx (p x p).
-template <typename T>
-__device__ __noinline__ T extras_pass(const Args& a, const Shared& S, long long sim, int n,
-                                      int lane, int kind, bool structured, T* w, double* axx) {
+// warp's area `w` (theta, beta and v there), for p <= PB, in the structured
+// (ST) or the dense form, compiled apart for each kernel variant (MINB);
+// the capacitance's work area at `cw` (null: the area's own). K_STEP and K_VSTEP update beta and v in place (or
+// keep them, where the step is not finite); K_TAIL returns the Laplace
+// deviance; K_MODE returns it and writes the ridged Schur matrix to axx (p x
+// p).
+template <typename T, int PB, bool ST, int MINB>
+__device__ __noinline__ T extras_pass(const Args& a, const Shared& S, const Stage sg, int lane,
+                                      int kind, T* w, T* cw, double* axx) {
+    constexpr int NT = PB * (PB + 1) / 2;
+    constexpr int QB = ST ? 1 : MAX_QG;  // components of a grouping, at most
+    constexpr int QT = QB * (QB + 1) / 2;
     const WLay wl = wlay_of(a.M, a.m1, a.Me, a.p, a.max_n, a.structured, a.hessian);
-    const int M = a.M, p = a.p, ng = a.ng, m1 = a.m1, Me = a.Me;
+    const int M = a.M, p = a.p, ng = a.ng, m1 = a.m1, Me = a.Me, rw = a.rw;
+    const long long mx = a.max_n;
     const bool step = kind == K_STEP, vstep = kind == K_VSTEP, mode = kind == K_MODE;
     const bool want_a = step || mode, want_dev = kind == K_TAIL || mode;
     const int r = vstep ? 1 : p + 1;
@@ -263,8 +462,7 @@ __device__ __noinline__ T extras_pass(const Args& a, const Shared& S, long long 
     T* xbb = w + wl.xbbuf;
     T* xwx = w + wl.xwx;
     T* xwz = w + wl.xwz;
-    const float* Xs = a.X + sim * (long long)a.max_n * a.P;
-    const float* ys = a.y + sim * (long long)a.max_n;
+    K12_T0(clk_p);
 
     // u = Lam v: column (g, level, i) sums v(g, level, k) Lg[i][k] from k = 0
     for (int col = lane; col < M; col += WARP) {
@@ -274,196 +472,291 @@ __device__ __noinline__ T extras_pass(const Args& a, const Shared& S, long long 
         u[col] = acc;
     }
     __syncwarp();
+    T bt[PB];
+#pragma unroll
+    for (int k = 0; k < PB; ++k) bt[k] = k < p ? beta[k] : T(0);
 
-    // the primary levels: the row quantities, the levels' entries and this
-    // lane's share of the whole-row sums
-    T pxx[MAX_NT], pxz[MAX_P], pdev = T(0);
-    for (int i = 0; i < nt; ++i) pxx[i] = T(0);
-    for (int i = 0; i < p; ++i) pxz[i] = T(0);
-    const int q0 = a.comps[0];
+    // the row quantities of every row below n, over all lanes (rows are
+    // independent of each other)
+    if (a.link == mcp::LINK_LOGIT)
+        row_quantities<T, PB, ST, mcp::LINK_LOGIT>(a, sg, lane, kind, u, bt, wb, zwb, xbb);
+    else if (a.link == mcp::LINK_PROBIT)
+        row_quantities<T, PB, ST, mcp::LINK_PROBIT>(a, sg, lane, kind, u, bt, wb, zwb, xbb);
+    else
+        row_quantities<T, PB, ST, mcp::LINK_POISSON>(a, sg, lane, kind, u, bt, wb, zwb, xbb);
+    __syncwarp();
+
+    // the primary levels: the levels' entries and this lane's share of the
+    // whole-row sums, each level's rows in order, four rows read at a time
+    T pxx[NT], pxz[PB], pdev = T(0);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) pxx[i] = T(0);
+#pragma unroll
+    for (int i = 0; i < PB; ++i) pxz[i] = T(0);
+    const int q0 = ST ? 1 : a.comps[0];
     for (int lv = lane; lv < a.levels[0]; lv += WARP) {
         const int c0 = a.coff[0] + lv * q0;
-        if (structured) {
-            G[lv] = T(0);
+        if (ST) {
             for (int e = 0; e < Me; ++e) Gpe[(size_t)lv * Me + e] = T(0);
         } else {
             for (int k = 0; k < q0; ++k)
                 for (int j = 0; j < M; ++j) G[(size_t)(c0 + k) * M + j] = T(0);
         }
-        for (int k = 0; k < q0; ++k)
-            for (int c = 0; c < r; ++c) raw[(size_t)(c0 + k) * r + c] = T(0);
-        T lxx[MAX_NT], lxz[MAX_P], ldev = T(0);
-        for (int i = 0; i < nt; ++i) lxx[i] = T(0);
-        for (int i = 0; i < p; ++i) lxz[i] = T(0);
-        const int t1 = a.lvl_off[a.loff[0] + lv + 1];
-        for (int t = a.lvl_off[a.loff[0] + lv]; t < t1; ++t) {
-            const int rr = a.lvl_rows[t];
-            if (rr >= n) break;
-            const float* row = Xs + (long long)rr * a.P;
-            T x[MAX_P];
-            for (int k = 0; k < p; ++k) x[k] = (T)row[a.fit[k]];
-            const T yv = (T)ys[rr];
-            T xb = T(0);
-            for (int k = 0; k < p; ++k) xb = xb + x[k] * beta[k];
-            T zu = T(0);
-            for (int g = 0; g < ng; ++g) {
-                const int lvg = g == 0 ? lv : a.ids[(size_t)g * a.max_n + rr];
-                const int base = a.coff[g] + lvg * a.comps[g];
-                for (int k = 0; k < a.comps[g]; ++k) {
-                    T tz = u[base + k];
-                    if (k) tz = (T)row[a.zc[g][k]] * tz;
-                    zu = (g == 0 && k == 0) ? tz : zu + tz;
-                }
+        T gacc[QT], racc[QB], rx[QB][PB], lxx[NT], lxz[PB], ldev = T(0);
+#pragma unroll
+        for (int i = 0; i < QT; ++i) gacc[i] = T(0);
+#pragma unroll
+        for (int k = 0; k < QB; ++k) {
+            racc[k] = T(0);
+#pragma unroll
+            for (int c = 0; c < PB; ++c) rx[k][c] = T(0);
+        }
+#pragma unroll
+        for (int i = 0; i < NT; ++i) lxx[i] = T(0);
+#pragma unroll
+        for (int i = 0; i < PB; ++i) lxz[i] = T(0);
+        const int t1 = sg.le[lv];
+        for (int tb = sg.lo[lv]; tb < t1; tb += CHUNK) {
+            T wq[CHUNK], zq[CHUNK], aq[CHUNK], xq[CHUNK][PB], z0q[CHUNK][QB];
+#pragma unroll
+            for (int h = 0; h < CHUNK; ++h) {
+                const int t = min(tb + h, t1 - 1);
+                const float* row = sg.xs + (long long)t * rw;
+                wq[h] = wb[t];
+                zq[h] = zwb[t];
+                aq[h] = xbb[t];
+#pragma unroll
+                for (int k = 0; k < PB; ++k) xq[h][k] = k < p ? (T)row[k] : T(0);
+                z0q[h][0] = T(1);
+#pragma unroll
+                for (int k = 1; k < QB; ++k) z0q[h][k] = k < q0 ? (T)row[a.zs[0][k]] : T(0);
             }
-            const T eta = xb + zu;
-            T mu, var, dmu;
-            mu_var_dmu<T>(a.link, eta, mu, var, dmu);
-            const T wt = dmu * dmu / clamp_lo(var, T(MU_EPS));
-            const T zw = eta + (yv - mu) / dmu;
-            wb[rr] = wt;
-            zwb[rr] = zw;
-            xbb[rr] = xb;
-            T z0[MAX_QG], wz[MAX_QG];
-            z0[0] = T(1);
-            wz[0] = wt;
-            for (int k = 1; k < q0; ++k) {
-                z0[k] = (T)row[a.zc[0][k]];
-                wz[k] = z0[k] * wt;
-            }
-            if (structured) {
-                G[lv] = G[lv] + wt;
-                for (int h = 1; h < ng; ++h) {
-                    const size_t e = (size_t)lv * Me + (a.coff[h] - m1) + a.ids[(size_t)h * a.max_n + rr];
-                    Gpe[e] = Gpe[e] + wt;
-                }
-            } else {
-                for (int k = 0; k < q0; ++k)
-                    for (int l = 0; l <= k; ++l) {
-                        const size_t e = (size_t)(c0 + k) * M + c0 + l;
-                        G[e] = G[e] + (l == 0 ? wz[k] : wz[k] * z0[l]);
+#pragma unroll
+            for (int h = 0; h < CHUNK; ++h) {
+                if (tb + h >= t1) break;
+                const int t = tb + h;
+                const T wt = wq[h], zw = zq[h];
+                T wz[QB];
+                wz[0] = wt;
+#pragma unroll
+                for (int k = 1; k < QB; ++k) wz[k] = z0q[h][k] * wt;
+                if (ST) {
+                    gacc[0] = gacc[0] + wt;
+                    for (int g = 1; g < ng; ++g) {
+                        const size_t e = (size_t)lv * Me + (a.coff[g] - m1) + sg.idp[(g - 1) * mx + t];
+                        Gpe[e] = Gpe[e] + wt;
                     }
-                for (int h = 1; h < ng; ++h) {
-                    const int bh = a.coff[h] + a.ids[(size_t)h * a.max_n + rr] * a.comps[h];
-                    for (int l = 0; l < a.comps[h]; ++l) {
-                        const T zl = l == 0 ? T(1) : (T)row[a.zc[h][l]];
-                        for (int k = 0; k < q0; ++k) {
-                            const size_t e = (size_t)(c0 + k) * M + bh + l;
-                            G[e] = G[e] + (l == 0 ? wz[k] : wz[k] * zl);
+                } else {
+#pragma unroll
+                    for (int k = 0; k < QB; ++k)
+#pragma unroll
+                        for (int l = 0; l <= k; ++l)
+                            if (k < q0)
+                                gacc[tri(k, l)] = gacc[tri(k, l)] + (l == 0 ? wz[k] : wz[k] * z0q[h][l]);
+                    for (int g = 1; g < ng; ++g) {
+                        const int bh = a.coff[g] + sg.idp[(g - 1) * mx + t] * a.comps[g];
+                        for (int l = 0; l < a.comps[g]; ++l) {
+                            const T zl = l == 0 ? T(1) : (T)sg.xs[(long long)t * rw + a.zs[g][l]];
+#pragma unroll
+                            for (int k = 0; k < QB; ++k) {
+                                if (k < q0) {
+                                    const size_t e = (size_t)(c0 + k) * M + bh + l;
+                                    G[e] = G[e] + (l == 0 ? wz[k] : wz[k] * zl);
+                                }
+                            }
                         }
                     }
                 }
-            }
-            if (step || vstep) {
-                const T rz = step ? zw : zw - xb;
-                for (int k = 0; k < q0; ++k) {
-                    const size_t e = (size_t)(c0 + k) * r;
-                    raw[e] = raw[e] + wz[k] * rz;
+                if (step || vstep) {
+                    const T rz = step ? zw : zw - aq[h];
+#pragma unroll
+                    for (int k = 0; k < QB; ++k)
+                        if (k < q0) racc[k] = racc[k] + wz[k] * rz;
                 }
-            }
-            if (want_a) {
-                for (int k = 0; k < q0; ++k)
-                    for (int c = 0; c < p; ++c) {
-                        const size_t e = (size_t)(c0 + k) * r + 1 + c;
-                        raw[e] = raw[e] + wz[k] * x[c];
+                if (want_a) {
+#pragma unroll
+                    for (int k = 0; k < QB; ++k)
+#pragma unroll
+                        for (int c = 0; c < PB; ++c)
+                            if (k < q0 && c < p) rx[k][c] = rx[k][c] + wz[k] * xq[h][c];
+#pragma unroll
+                    for (int i = 0; i < PB; ++i) {
+                        if (i < p) {
+                            const T xw = xq[h][i] * wt;
+#pragma unroll
+                            for (int j = 0; j <= i; ++j)
+                                lxx[tri(i, j)] = lxx[tri(i, j)] + xw * xq[h][j];
+                        }
                     }
-                for (int i = 0; i < p; ++i) {
-                    const T xw = x[i] * wt;
-                    for (int j = 0; j <= i; ++j) lxx[tri(i, j)] = lxx[tri(i, j)] + xw * x[j];
                 }
+                if (step) {
+                    const T wzw = wt * zw;
+#pragma unroll
+                    for (int k = 0; k < PB; ++k)
+                        if (k < p) lxz[k] = lxz[k] + xq[h][k] * wzw;
+                }
+                if (want_dev) ldev = ldev + aq[h];
             }
-            if (step) {
-                const T wzw = wt * zw;
-                for (int k = 0; k < p; ++k) lxz[k] = lxz[k] + x[k] * wzw;
-            }
-            if (want_dev) ldev = ldev + dev_term<T>(a.link, yv, mu);
         }
-        if (!structured)  // the level's block, mirrored
-            for (int k = 0; k < q0; ++k)
-                for (int l = 0; l < k; ++l)
-                    G[(size_t)(c0 + l) * M + c0 + k] = G[(size_t)(c0 + k) * M + c0 + l];
-        if (want_a)
-            for (int i = 0; i < nt; ++i) pxx[i] = pxx[i] + lxx[i];
-        if (step)
-            for (int i = 0; i < p; ++i) pxz[i] = pxz[i] + lxz[i];
+        // the entries the level owns, stored once (the dense block mirrored)
+        if (ST) {
+            G[lv] = gacc[0];
+        } else {
+#pragma unroll
+            for (int k = 0; k < QB; ++k)
+#pragma unroll
+                for (int l = 0; l <= k; ++l)
+                    if (k < q0) {
+                        G[(size_t)(c0 + k) * M + c0 + l] = gacc[tri(k, l)];
+                        if (l < k) G[(size_t)(c0 + l) * M + c0 + k] = gacc[tri(k, l)];
+                    }
+        }
+#pragma unroll
+        for (int k = 0; k < QB; ++k) {
+            if (k < q0) {
+                raw[(size_t)(c0 + k) * r] = racc[k];
+#pragma unroll
+                for (int c = 0; c < PB; ++c)
+                    if (c + 1 < r) raw[(size_t)(c0 + k) * r + 1 + c] = rx[k][c];
+            }
+        }
+        if (want_a) {
+#pragma unroll
+            for (int i = 0; i < NT; ++i)
+                if (i < nt) pxx[i] = pxx[i] + lxx[i];
+        }
+        if (step) {
+#pragma unroll
+            for (int i = 0; i < PB; ++i)
+                if (i < p) pxz[i] = pxz[i] + lxz[i];
+        }
         if (want_dev) pdev = pdev + ldev;
     }
     __syncwarp();
+    K12_ADD32(1, clk_p);
+    K12_T0(clk_e);
 
-    // the extras levels, from the kept row quantities
+    // the extras levels, from the kept row quantities, four rows read at a time
     for (int e = lane; e < a.mlev; e += WARP) {
         int g = 1;
         while (g + 1 < ng && e >= a.lev0[g + 1]) ++g;
-        const int lv = e - a.lev0[g], qg = a.comps[g], cg = a.coff[g] + lv * qg;
-        if (structured) {
+        const int lv = e - a.lev0[g], qg = ST ? 1 : a.comps[g], cg = a.coff[g] + lv * qg;
+        if (ST) {
             for (int j = a.coff[g] - m1; j < Me; ++j) Gee[(size_t)(cg - m1) * Me + j] = T(0);
         } else {
             for (int k = 0; k < qg; ++k)
                 for (int j = a.coff[g]; j < M; ++j) G[(size_t)(cg + k) * M + j] = T(0);
         }
-        for (int k = 0; k < qg; ++k)
-            for (int c = 0; c < r; ++c) raw[(size_t)(cg + k) * r + c] = T(0);
-        const int t1 = a.lvl_off[a.loff[g] + lv + 1];
-        for (int t = a.lvl_off[a.loff[g] + lv]; t < t1; ++t) {
-            const int rr = a.lvl_rows[(size_t)g * a.max_n + t];
-            if (rr >= n) break;
-            const float* row = Xs + (long long)rr * a.P;
-            const T wt = wb[rr], zw = zwb[rr];
-            T zg[MAX_QG], wz[MAX_QG];
-            zg[0] = T(1);
-            wz[0] = wt;
-            for (int k = 1; k < qg; ++k) {
-                zg[k] = (T)row[a.zc[g][k]];
-                wz[k] = zg[k] * wt;
+        T gacc[QT], racc[QB], rx[QB][PB];
+#pragma unroll
+        for (int i = 0; i < QT; ++i) gacc[i] = T(0);
+#pragma unroll
+        for (int k = 0; k < QB; ++k) {
+            racc[k] = T(0);
+#pragma unroll
+            for (int c = 0; c < PB; ++c) rx[k][c] = T(0);
+        }
+        const int* ep = sg.epos + (g - 1) * mx;
+        const int li = a.levels[0] + e;
+        const int t1 = sg.le[li];
+        for (int tb = sg.lo[li]; tb < t1; tb += CHUNK) {
+            int tq[CHUNK];
+            T wq[CHUNK], zq[CHUNK], aq[CHUNK], xq[CHUNK][PB], zgq[CHUNK][QB];
+#pragma unroll
+            for (int h = 0; h < CHUNK; ++h) tq[h] = ep[min(tb + h, t1 - 1)];
+#pragma unroll
+            for (int h = 0; h < CHUNK; ++h) {
+                const float* row = sg.xs + (long long)tq[h] * rw;
+                wq[h] = wb[tq[h]];
+                zq[h] = zwb[tq[h]];
+                aq[h] = xbb[tq[h]];
+#pragma unroll
+                for (int k = 0; k < PB; ++k) xq[h][k] = k < p ? (T)row[k] : T(0);
+                zgq[h][0] = T(1);
+#pragma unroll
+                for (int k = 1; k < QB; ++k) zgq[h][k] = k < qg ? (T)row[a.zs[g][k]] : T(0);
             }
-            if (structured) {
-                const size_t ei = (size_t)(cg - m1) * Me;
-                Gee[ei + cg - m1] = Gee[ei + cg - m1] + wt;
-                for (int h = g + 1; h < ng; ++h) {
-                    const size_t eh = ei + (a.coff[h] - m1) + a.ids[(size_t)h * a.max_n + rr];
-                    Gee[eh] = Gee[eh] + wt;
-                }
-            } else {
-                for (int k = 0; k < qg; ++k)
-                    for (int l = 0; l <= k; ++l) {
-                        const size_t el = (size_t)(cg + k) * M + cg + l;
-                        G[el] = G[el] + (l == 0 ? wz[k] : wz[k] * zg[l]);
+#pragma unroll
+            for (int h = 0; h < CHUNK; ++h) {
+                if (tb + h >= t1) break;
+                const int t = tq[h];
+                const T wt = wq[h], zw = zq[h];
+                T wz[QB];
+                wz[0] = wt;
+#pragma unroll
+                for (int k = 1; k < QB; ++k) wz[k] = zgq[h][k] * wt;
+                if (ST) {
+                    gacc[0] = gacc[0] + wt;
+                    for (int hh = g + 1; hh < ng; ++hh) {
+                        const size_t eh = (size_t)(cg - m1) * Me + (a.coff[hh] - m1) +
+                                          sg.idp[(hh - 1) * mx + t];
+                        Gee[eh] = Gee[eh] + wt;
                     }
-                for (int h = g + 1; h < ng; ++h) {
-                    const int bh = a.coff[h] + a.ids[(size_t)h * a.max_n + rr] * a.comps[h];
-                    for (int l = 0; l < a.comps[h]; ++l) {
-                        const T zl = l == 0 ? T(1) : (T)row[a.zc[h][l]];
-                        for (int k = 0; k < qg; ++k) {
-                            const size_t el = (size_t)(cg + k) * M + bh + l;
-                            G[el] = G[el] + (l == 0 ? wz[k] : wz[k] * zl);
+                } else {
+#pragma unroll
+                    for (int k = 0; k < QB; ++k)
+#pragma unroll
+                        for (int l = 0; l <= k; ++l)
+                            if (k < qg)
+                                gacc[tri(k, l)] = gacc[tri(k, l)] + (l == 0 ? wz[k] : wz[k] * zgq[h][l]);
+                    for (int hh = g + 1; hh < ng; ++hh) {
+                        const int bh = a.coff[hh] + sg.idp[(hh - 1) * mx + t] * a.comps[hh];
+                        for (int l = 0; l < a.comps[hh]; ++l) {
+                            const T zl = l == 0 ? T(1) : (T)sg.xs[(long long)t * rw + a.zs[hh][l]];
+#pragma unroll
+                            for (int k = 0; k < QB; ++k) {
+                                if (k < qg) {
+                                    const size_t el = (size_t)(cg + k) * M + bh + l;
+                                    G[el] = G[el] + (l == 0 ? wz[k] : wz[k] * zl);
+                                }
+                            }
                         }
                     }
                 }
-            }
-            if (step || vstep) {
-                const T rz = step ? zw : zw - xbb[rr];
-                for (int k = 0; k < qg; ++k) {
-                    const size_t el = (size_t)(cg + k) * r;
-                    raw[el] = raw[el] + wz[k] * rz;
+                if (step || vstep) {
+                    const T rz = step ? zw : zw - aq[h];
+#pragma unroll
+                    for (int k = 0; k < QB; ++k)
+                        if (k < qg) racc[k] = racc[k] + wz[k] * rz;
+                }
+                if (want_a) {
+#pragma unroll
+                    for (int k = 0; k < QB; ++k)
+#pragma unroll
+                        for (int c = 0; c < PB; ++c)
+                            if (k < qg && c < p) rx[k][c] = rx[k][c] + wz[k] * xq[h][c];
                 }
             }
-            if (want_a) {
-                for (int k = 0; k < qg; ++k)
-                    for (int c = 0; c < p; ++c) {
-                        const size_t el = (size_t)(cg + k) * r + 1 + c;
-                        raw[el] = raw[el] + wz[k] * (T)row[a.fit[c]];
+        }
+        if (ST) {
+            Gee[(size_t)(cg - m1) * Me + cg - m1] = gacc[0];
+        } else {
+#pragma unroll
+            for (int k = 0; k < QB; ++k)
+#pragma unroll
+                for (int l = 0; l <= k; ++l)
+                    if (k < qg) {
+                        G[(size_t)(cg + k) * M + cg + l] = gacc[tri(k, l)];
+                        if (l < k) G[(size_t)(cg + l) * M + cg + k] = gacc[tri(k, l)];
                     }
+        }
+#pragma unroll
+        for (int k = 0; k < QB; ++k) {
+            if (k < qg) {
+                raw[(size_t)(cg + k) * r] = racc[k];
+#pragma unroll
+                for (int c = 0; c < PB; ++c)
+                    if (c + 1 < r) raw[(size_t)(cg + k) * r + 1 + c] = rx[k][c];
             }
         }
-        if (!structured)
-            for (int k = 0; k < qg; ++k)
-                for (int l = 0; l < k; ++l)
-                    G[(size_t)(cg + l) * M + cg + k] = G[(size_t)(cg + k) * M + cg + l];
     }
     __syncwarp();
+    K12_ADD32(2, clk_e);
+    K12_T0(clk_m);
 
     // the blocks between groupings, mirrored: a row a lane, its columns in
     // earlier groupings
-    if (structured) {
+    if (ST) {
         for (int e = lane; e < Me; e += WARP) {
             const int lim = a.coff[S.cgrp[m1 + e]] - m1;
             for (int j = 0; j < lim; ++j) Gee[(size_t)e * Me + j] = Gee[(size_t)j * Me + e];
@@ -475,25 +768,30 @@ __device__ __noinline__ T extras_pass(const Args& a, const Shared& S, long long 
         }
     }
     // the whole-row sums over the lanes
-    for (int i = 0; i < p; ++i) {
-        for (int j = 0; j <= i; ++j) {
-            const T s = want_a ? warp_sum(pxx[tri(i, j)]) : T(0);
-            if (lane == 0) xwx[i * p + j] = xwx[j * p + i] = s;
+#pragma unroll
+    for (int i = 0; i < PB; ++i) {
+        if (i < p) {
+#pragma unroll
+            for (int j = 0; j <= i; ++j) {
+                const T s = want_a ? warp_sum(pxx[tri(i, j)]) : T(0);
+                if (lane == 0) xwx[i * p + j] = xwx[j * p + i] = s;
+            }
+            const T s = step ? warp_sum(pxz[i]) : T(0);
+            if (lane == 0) xwz[i] = s;
         }
-        const T s = step ? warp_sum(pxz[i]) : T(0);
-        if (lane == 0) xwz[i] = s;
     }
     const T dev = want_dev ? warp_sum(pdev) : T(0);
     __syncwarp();
+    K12_ADD32(3, clk_m);
 
     // the capacitance of Z'WZ and its solve of the right-hand sides
-    const Layout lay = layout_of(structured ? 1 : 0, M, m1, Me, vstep ? 0 : p);
-    T* cw = w + wl.cap;
-    const GSrc<T> src{G, raw, M, m1, Me, r, structured};
-    const T logdet = capacitance(a, S, th, src, cw, lay, structured, kind != K_TAIL, lane);
+    const Layout lay = layout_of(ST ? 1 : 0, M, m1, Me, vstep ? 0 : p, p);
+    if (cw == nullptr) cw = w + wl.cap;
+    const GSrc<T> src{G, raw, M, m1, Me, r, ST};
+    const T logdet = capacitance(a, S, th, src, cw, lay, ST, kind != K_TAIL, lane);
+    K12_T0(clk_s);
     if (want_dev) {
-        T vv = v[0] * v[0];
-        for (int i = 1; i < M; ++i) vv = vv + v[i] * v[i];
+        const T vv = mcp::jcap::fold_add(v[0] * v[0], M - 1, [&](int i) { return v[1 + i] * v[1 + i]; });
         const T lap = (T(2) * dev + vv) + logdet;
         if (mode) {  // the f64 fit's Schur matrix
             const T* acc = cw + lay.acc();
@@ -506,6 +804,7 @@ __device__ __noinline__ T extras_pass(const Args& a, const Shared& S, long long 
             }
             __syncwarp();
         }
+        K12_ADD32(6, clk_s);
         return lap;
     }
     if (vstep) {  // v = C^-1 Lam' r
@@ -517,6 +816,7 @@ __device__ __noinline__ T extras_pass(const Args& a, const Shared& S, long long 
         if (ok)
             for (int row = lane; row < M; row += WARP) v[row] = sol[row];
         __syncwarp();
+        K12_ADD32(6, clk_s);
         return T(0);
     }
     // the Schur system, beta and v
@@ -541,8 +841,8 @@ __device__ __noinline__ T extras_pass(const Args& a, const Shared& S, long long 
     const T* solr = cw + lay.rhs();
     bool fin = true;
     for (int row = lane; row < M; row += WARP) {
-        const T* s = !structured ? solr + (size_t)row * r
-                                 : (row < m1 ? solk + (size_t)row * r : solr + (size_t)(row - m1) * r);
+        const T* s = !ST ? solr + (size_t)row * r
+                         : (row < m1 ? solk + (size_t)row * r : solr + (size_t)(row - m1) * r);
         T acc2 = s[1] * bn[0];
         for (int c = 1; c < p; ++c) acc2 = acc2 + s[1 + c] * bn[c];
         const T vn = s[0] - acc2;
@@ -557,18 +857,21 @@ __device__ __noinline__ T extras_pass(const Args& a, const Shared& S, long long 
             for (int i = 0; i < p; ++i) beta[i] = bn[i];
     }
     __syncwarp();
+    K12_ADD32(6, clk_s);
     return T(0);
 }
 
 // `steps` passes of step_kind, then one of last_kind; its result.
-template <typename T>
-__device__ __forceinline__ T chain(const Args& a, const Shared& S, long long sim, int n, int lane,
+template <typename T, int PB, int MINB>
+__device__ __forceinline__ T chain(const Args& a, const Shared& S, const Stage sg, int lane,
                                    int steps, int step_kind, int last_kind, bool structured, T* w,
-                                   double* axx) {
+                                   T* cw, double* axx) {
     T out = T(0);
-    for (int s = 0; s <= steps; ++s)
-        out = extras_pass<T>(a, S, sim, n, lane, s < steps ? step_kind : last_kind, structured, w,
-                             axx);
+    for (int s = 0; s <= steps; ++s) {
+        const int kind = s < steps ? step_kind : last_kind;
+        out = structured ? extras_pass<T, PB, true, MINB>(a, S, sg, lane, kind, w, cw, axx)
+                         : extras_pass<T, PB, false, MINB>(a, S, sg, lane, kind, w, cw, axx);
+    }
     return out;
 }
 
@@ -602,21 +905,40 @@ __device__ __forceinline__ void load_state(const WLay& wl, T* w, const double* t
     __syncwarp();
 }
 
-__global__ void __launch_bounds__(WARP * WARPS) glmm_extras_kernel(const Args a) {
+// The kernel's variants: PB the p bucket (4 or 16) and MINB the cells an SM
+// its registers are held to: 3 (168 registers a thread; the f32 passes fit,
+// the f64 ones of the fit's end spill) for launches whose work areas fit
+// three cells an SM in shared memory, else 1 (as many as the passes take).
+template <int PB, int MINB>
+__global__ void __launch_bounds__(WARP * WARPS, MINB)
+    glmm_extras_kernel(const __grid_constant__ Args a) {
+    extern __shared__ __align__(16) unsigned char k12_dyn[];
     __shared__ Shared S;
     const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP, t = threadIdx.x;
+    K12_T0(clk_all);
     const long long cell = blockIdx.x;
     const long long sim = cell / a.G;
     const int n = a.grid[cell % a.G];
     const int M = a.M, p = a.p, D = a.d;
     const bool st = a.structured != 0;
     const WLay wl = wlay_of(M, a.m1, a.Me, p, a.max_n, a.structured, a.hessian);
-    double* base = a.scratch + cell * a.cell_doubles;
-    double* wd = base + (long long)warp * wl.total;
-    float* w32 = reinterpret_cast<float*>(wd);
-    float* carry_v = reinterpret_cast<float*>(base + (long long)WARPS * wl.total);
-    double* fin_v = base + (long long)WARPS * wl.total + M;
+    double* base = a.scratch + cell * a.cell_doubles;  // the four f64 areas, then a stage
+    int* stage = a.stage_shared ? reinterpret_cast<int*>(k12_dyn)
+                                : reinterpret_cast<int*>(base + (long long)WARPS * wl.total);
+    float* areas = reinterpret_cast<float*>(k12_dyn + (a.stage_shared ? a.stage_bytes : 0));
+    // warp g's f32 area; warp 0's f64 fit area; warp g's Hessian area
+    auto area32 = [&](int g) -> float* {
+        return a.area_shared ? areas + (long long)g * wl.total
+                             : reinterpret_cast<float*>(base + (long long)g * wl.total);
+    };
+    float* w32 = area32(warp);
+    // the capacitance's f32 work area, where it is in shared memory apart
+    float* cap32 = a.cap_shared ? areas + (long long)warp * (wl.total - wl.cap) : nullptr;
+    double* wfit = a.area_shared ? reinterpret_cast<double*>(areas) : base;
+    double* whes = base + (long long)warp * wl.total;
 
+    build_stage(a, stage, sim, n);
+    const Stage sg = stage_at(a, stage, n);
     for (int col = t; col < M; col += WARP * WARPS) {  // the column table
         int g = 0;
         while (g + 1 < a.ng && col >= a.coff[g + 1]) ++g;
@@ -647,11 +969,13 @@ __global__ void __launch_bounds__(WARP * WARPS) glmm_extras_kernel(const Args a)
             const int vtx = round * WARPS + warp;
             if (vtx <= D) {
                 load_state<float>(wl, w32, S.verts[vtx], D, nullptr, a.beta0, p, nullptr, M, lane);
-                const float lap = chain<float>(a, S, sim, n, lane, N_PIRLS_SLOPE, K_STEP, K_TAIL, st,
-                                               w32, nullptr);
+                const float lap = chain<float, PB, MINB>(a, S, sg, lane, N_PIRLS_SLOPE, K_STEP, K_TAIL,
+                                                   st, w32, cap32, nullptr);
                 if (lane == 0) S.fc[warp] = isfinite(lap) ? (double)lap : SENTINEL;
             }
+            K12_T0(clk_b0);
             __syncthreads();
+            K12_ADD(8, clk_b0);
             if (t == 0) {  // the first minimum's mode seeds the carry
                 S.src = -1;
                 for (int g = 0; g < WARPS; ++g) {
@@ -667,8 +991,8 @@ __global__ void __launch_bounds__(WARP * WARPS) glmm_extras_kernel(const Args a)
             }
             __syncthreads();
             if (S.src >= 0) {
-                const float* sw = reinterpret_cast<const float*>(base + (long long)S.src * wl.total);
-                for (int i = t; i < M; i += WARP * WARPS) carry_v[i] = sw[wl.v + i];
+                const float* sw = area32(S.src);
+                for (int i = t; i < M; i += WARP * WARPS) S.carry_v[i] = sw[wl.v + i];
                 if (t < p) S.carry_beta[t] = sw[wl.bt + t];
             }
             __syncthreads();
@@ -676,18 +1000,29 @@ __global__ void __launch_bounds__(WARP * WARPS) glmm_extras_kernel(const Args a)
         // the search: four candidates from the carry, the accepted one's mode carried
         for (int it = 0; it < a.nm_iters; ++it) {
             const int budget = it < NM_FULL ? N_PIRLS_SLOPE : N_PIRLS_SLOPE_WARM;
+            K12_T0(clk_n0);
             if (t == 0) mcp::nm_candidates(a.lower, S, D);
+            K12_ADD(7, clk_n0);
+            K12_T0(clk_b1);
             __syncthreads();
-            load_state<float>(wl, w32, S.cand[warp], D, S.carry_beta, nullptr, p, carry_v, M, lane);
-            const float lap = chain<float>(a, S, sim, n, lane, budget, K_STEP, K_TAIL, st, w32,
-                                           nullptr);
+            K12_ADD(8, clk_b1);
+            load_state<float>(wl, w32, S.cand[warp], D, S.carry_beta, nullptr, p, S.carry_v, M,
+                              lane);
+            const float lap = chain<float, PB, MINB>(a, S, sg, lane, budget, K_STEP, K_TAIL, st, w32,
+                                                     cap32, nullptr);
             if (lane == 0) S.fc[warp] = isfinite(lap) ? (double)lap : SENTINEL;
+            K12_T0(clk_b2);
             __syncthreads();
+            K12_ADD(8, clk_b2);
+            K12_T0(clk_n1);
             if (t == 0) S.src = mcp::nm_select_and_replace(S, D);
+            K12_ADD(7, clk_n1);
+            K12_T0(clk_b3);
             __syncthreads();
+            K12_ADD(8, clk_b3);
             {
-                const float* sw = reinterpret_cast<const float*>(base + (long long)S.src * wl.total);
-                for (int i = t; i < M; i += WARP * WARPS) carry_v[i] = sw[wl.v + i];
+                const float* sw = area32(S.src);
+                for (int i = t; i < M; i += WARP * WARPS) S.carry_v[i] = sw[wl.v + i];
                 if (t < p) S.carry_beta[t] = sw[wl.bt + t];
             }
             __syncthreads();
@@ -702,52 +1037,53 @@ __global__ void __launch_bounds__(WARP * WARPS) glmm_extras_kernel(const Args a)
     }
 
     // the cold f64 fit at the optimum (warp 0); the outcome's row sum
+    K12_T0(clk_d);
     if (warp == 0) {
-        load_state<double>(wl, wd, S.theta, D, nullptr, a.beta0, p, nullptr, M, lane);
-        const double lap = chain<double>(a, S, sim, n, lane, N_PIRLS, K_STEP, K_MODE, st, wd,
-                                         S.axx);
-        for (int i = lane; i < M; i += WARP) fin_v[i] = wd[wl.v + i];
+        load_state<double>(wl, wfit, S.theta, D, nullptr, a.beta0, p, nullptr, M, lane);
+        const double lap = chain<double, PB, MINB>(a, S, sg, lane, N_PIRLS, K_STEP, K_MODE, st, wfit, nullptr,
+                                             S.axx);
+        for (int i = lane; i < M; i += WARP) S.fin_v[i] = wfit[wl.v + i];
         double ysum = 0.0;
-        const float* yrow = a.y + sim * (long long)a.max_n;
         for (int lv = lane; lv < a.levels[0]; lv += WARP) {
             double acc = 0.0;
-            const int t1 = a.lvl_off[a.loff[0] + lv + 1];
-            for (int tt = a.lvl_off[a.loff[0] + lv]; tt < t1; ++tt) {
-                const int rr = a.lvl_rows[tt];
-                if (rr >= n) break;
-                acc = acc + (double)yrow[rr];
-            }
+            const int t1 = sg.le[lv];
+            for (int tt = sg.lo[lv]; tt < t1; ++tt)
+                acc = acc + (double)sg.xs[(long long)tt * a.rw + a.yc];
             ysum = ysum + acc;
         }
         ysum = warp_sum(ysum);
         if (lane == 0) {
             S.lap = lap;
             S.ysum = ysum;
-            for (int k = 0; k < p; ++k) S.fin_beta[k] = wd[wl.bt + k];
+            for (int k = 0; k < p; ++k) S.fin_beta[k] = wfit[wl.bt + k];
         }
     }
+    K12_ADD(9, clk_d);
     __syncthreads();
 
     // the Hessian's stencil: v-only passes through the dense capacitance
     const int nv = a.hessian ? 1 + 2 * p + 2 * p * (p - 1) : 0;
+    K12_T0(clk_h);
     for (int e = warp; e < nv; e += WARPS) {
         __syncwarp();
-        for (int k = lane; k < D; k += WARP) wd[wl.th + k] = S.theta[k];
-        for (int k = lane; k < p; k += WARP) wd[wl.bt + k] = S.fin_beta[k] + stencil(e, k, p);
-        for (int i = lane; i < M; i += WARP) wd[wl.v + i] = fin_v[i];
+        for (int k = lane; k < D; k += WARP) whes[wl.th + k] = S.theta[k];
+        for (int k = lane; k < p; k += WARP) whes[wl.bt + k] = S.fin_beta[k] + stencil(e, k, p);
+        for (int i = lane; i < M; i += WARP) whes[wl.v + i] = S.fin_v[i];
         __syncwarp();
-        const double hv = chain<double>(a, S, sim, n, lane, N_V_PIRLS, K_VSTEP, K_TAIL, false, wd,
-                                        nullptr);
+        const double hv = chain<double, PB, MINB>(a, S, sg, lane, N_V_PIRLS, K_VSTEP, K_TAIL, false,
+                                            whes, nullptr, nullptr);
         if (lane == 0) S.hv[e] = hv;
     }
+    K12_ADD(10, clk_h);
     __syncthreads();
+    K12_ADD(0, clk_all);
     if (warp != 0) return;
 
     // the last stage on warp 0: the factor, the rank probe, the covariance
-    double* L = wd + wl.fin;
-    double* R = L + MAX_P * MAX_P;
-    double* INV = R + MAX_P * MAX_P;
-    double* H = INV + MAX_P * MAX_P;
+    double* L = wfit + wl.fin;
+    double* R = L + p * p;
+    double* INV = R + p * p;
+    double* H = INV + p * p;
     for (int e = lane; e < p * p; e += WARP) {
         const int i = e / p, j = e % p;
         L[e] = S.axx[e];
@@ -822,14 +1158,188 @@ __global__ void __launch_bounds__(WARP * WARPS) glmm_extras_kernel(const Args a)
     for (int i = 0; i < D; ++i) a.theta[cell * D + i] = S.theta[i];
 }
 
+// The launch's forced form (FORM_AUTO unless mcp_glmm_extras_set_form says
+// otherwise: a measurement knob).
+int g_form = FORM_AUTO;
+
+// The plan of a launch from the C arguments (pointers may be null for a
+// geometry query); a cudaError_t.
+int make_args(Args& a, const void* X, const void* y, int sims, int max_n, int P, const int* fit,
+              int pf, int ng, const int* levels, const int* comps, const int* zcols, int G, int link,
+              int hessian, int force_dense) {
+    if (sims <= 0 || G <= 0 || pf < 1 || pf > MAX_P || max_n <= 0 || P <= 0 || link < 0 ||
+        link > 2 || ng < 2 || ng > MAX_G)
+        return (int)cudaErrorInvalidValue;
+    a.X = (const float*)X;
+    a.y = (const float*)y;
+    a.sims = sims;
+    a.max_n = max_n;
+    a.P = P;
+    a.G = G;
+    a.p = pf;
+    a.link = link;
+    a.hessian = hessian;
+    for (int k = 0; k < MAX_P; ++k) a.fit[k] = k < pf ? fit[k] : 0;
+    int col = 0, d = 0, nq = 0, zoff = 0, loff = 0, lev = 0, scol = pf;
+    bool all_q1 = true;
+    for (int g = 0; g < ng; ++g) {
+        if (levels[g] <= 0 || comps[g] <= 0 || comps[g] > MAX_QG) return (int)cudaErrorInvalidValue;
+        a.levels[g] = levels[g];
+        a.comps[g] = comps[g];
+        a.coff[g] = col;
+        a.toff[g] = d;
+        a.loff[g] = loff;
+        a.lev0[g] = lev;
+        for (int k = 0; k < MAX_QG; ++k) {
+            const bool slope = k >= 1 && k < comps[g];
+            a.zc[g][k] = slope ? zcols[zoff + k - 1] : 0;
+            a.zs[g][k] = slope ? scol++ : 0;
+        }
+        zoff += comps[g] - 1;
+        col += levels[g] * comps[g];
+        d += comps[g] * (comps[g] + 1) / 2;
+        nq += comps[g];
+        loff += levels[g] + 1;
+        if (g >= 1) lev += levels[g];
+        all_q1 = all_q1 && comps[g] == 1;
+    }
+    a.coff[ng] = col;
+    a.lev0[ng] = lev;
+    a.lev0[0] = 0;
+    if (col > MAX_M || d > MAX_D) return (int)cudaErrorInvalidValue;
+    a.M = col;
+    a.ng = ng;
+    a.m1 = levels[0] * comps[0];
+    a.Me = col - a.m1;
+    a.d = d;
+    a.nq = nq;
+    a.mlev = lev;
+    a.structured = (all_q1 && !force_dense) ? 1 : 0;
+    a.nm_iters = d <= 3 ? 30 : 45;
+    a.yc = scol;
+    a.rw = scol + 1;
+    // the stage in shared memory where it fits (place() decides the areas)
+    const long long budget = dyn_budget();
+    const WLay wl = wlay_of(a.M, a.m1, a.Me, pf, max_n, a.structured, hessian);
+    const long long stage = (stage_ints(a) * 4 + 15) / 16 * 16;
+    a.stage_shared = stage <= budget ? 1 : 0;
+    a.stage_bytes = a.stage_shared ? (int)stage : 0;
+    a.area_shared = 0;
+    a.cap_shared = 0;
+    a.cell_doubles = cell_doubles_of(wl, a.M, pf, max_n, budget);
+    return 0;
+}
+
+inline size_t dyn_bytes(const Args& a) {
+    const WLay wl = wlay_of(a.M, a.m1, a.Me, a.p, a.max_n, a.structured, a.hessian);
+    const size_t per_warp = a.area_shared ? wl.total : (a.cap_shared ? wl.total - wl.cap : 0);
+    return (size_t)a.stage_bytes + (size_t)WARPS * per_warp * sizeof(float);
+}
+
+// Resident cells an SM of the form `a` describes; leaves the kernel's
+// shared-memory attribute set for it.
+template <int PB, int MINB>
+int occupancy(const Args& a, int* per_sm) {
+    const size_t smem = dyn_bytes(a);
+    auto kernel = glmm_extras_kernel<PB, MINB>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, WARP * WARPS, smem);
+}
+
+// Where the four f32 areas live and which variant runs. The areas in shared
+// memory with the 168-register variant where that holds three cells an SM
+// (p <= 4); else the unbounded variant, in the form that holds the most cells
+// an SM, the earlier on a tie: the areas in shared memory, their
+// capacitance parts alone in shared memory (the factor's and the solves'
+// chains of loads after stores stay on chip), all in device scratch. The
+// latency of a cell's chains falls with each step; the cells in flight must
+// not. g_form forces a form. Sets a.area_shared, a.cap_shared, *minb (the
+// variant) and the attribute; per_sm the resident cells an SM.
+template <int PB>
+int place(Args& a, int* minb, int* per_sm) {
+    const WLay wl = wlay_of(a.M, a.m1, a.Me, a.p, a.max_n, a.structured, a.hessian);
+    const long long f4 = (long long)WARPS * (long long)sizeof(float);
+    const bool fits = a.stage_shared && a.stage_bytes + f4 * (long long)wl.total <= dyn_budget();
+    const bool fits_cap =
+        a.stage_shared && a.stage_bytes + f4 * (long long)(wl.total - wl.cap) <= dyn_budget();
+    int err;
+    if constexpr (PB <= 4) {
+        if (fits && (g_form == FORM_AUTO || g_form == FORM_SHARED)) {
+            a.area_shared = 1;
+            a.cap_shared = 0;
+            if ((err = occupancy<PB, 3>(a, per_sm))) return err;
+            *minb = 3;
+            if (*per_sm >= 3) return 0;
+        }
+    }
+    *minb = 1;
+    // the forms in order of preference, each allowed by g_form and the budget
+    const int forms[3][2] = {{1, 0}, {0, 1}, {0, 0}};  // (area_shared, cap_shared)
+    const bool ok[3] = {fits && (g_form == FORM_AUTO || g_form == FORM_SHARED),
+                        fits_cap && (g_form == FORM_AUTO || g_form == FORM_CAP_SHARED),
+                        g_form == FORM_AUTO || g_form == FORM_SCRATCH ||
+                            (g_form == FORM_SHARED && !fits) || (g_form == FORM_CAP_SHARED && !fits_cap)};
+    int best = -1, best_cells = -1;
+    for (int f = 0; f < 3; ++f) {
+        if (!ok[f]) continue;
+        a.area_shared = forms[f][0];
+        a.cap_shared = forms[f][1];
+        int cells = 0;
+        if ((err = occupancy<PB, 1>(a, &cells))) return err;
+        if (cells > best_cells) {
+            best = f;
+            best_cells = cells;
+        }
+    }
+    a.area_shared = forms[best][0];
+    a.cap_shared = forms[best][1];
+    return occupancy<PB, 1>(a, per_sm);
+}
+
 }  // namespace
 
 // Bytes of device scratch a launch of `cells` cells takes.
 extern "C" long long mcp_glmm_extras_scratch_bytes(long long cells, int M, int m1, int Me, int p,
                                                    int max_n, int structured, int hessian) {
     const WLay wl = wlay_of(M, m1, Me, p, max_n, structured, hessian);
-    return cells * cell_doubles(wl, M) * (long long)sizeof(double);
+    return cells * cell_doubles_of(wl, M, p, max_n, dyn_budget()) * (long long)sizeof(double);
 }
+
+// The form a launch takes, from mcp_glmm_extras's plan arguments: out[0] 1
+// where the f32 work areas are in shared memory (else device scratch), out[1]
+// 1 where the staged rows are, out[2] the dynamic and out[3] the static
+// shared bytes a block, out[4] resident blocks (cells) an SM, out[5] the p
+// bucket, out[6] the cells an SM the variant's registers are held to, out[7]
+// 1 where the areas are in scratch but their capacitance parts in shared
+// memory. Returns a cudaError_t.
+extern "C" int mcp_glmm_extras_geometry(int sims, int max_n, int P, const int* fit, int pf, int ng,
+                                        const int* levels, const int* comps, const int* zcols,
+                                        int G, int link, int hessian, int force_dense, int* out) {
+    Args a;
+    int err = make_args(a, nullptr, nullptr, sims, max_n, P, fit, pf, ng, levels, comps, zcols, G,
+                        link, hessian, force_dense);
+    if (err) return err;
+    int per_sm = 0, minb = 1;
+    err = pf <= 4 ? place<4>(a, &minb, &per_sm) : place<MAX_P>(a, &minb, &per_sm);
+    if (err) return err;
+    out[0] = a.area_shared;
+    out[1] = a.stage_shared;
+    out[2] = (int)dyn_bytes(a);
+    out[3] = (int)sizeof(Shared);
+    out[4] = per_sm;
+    out[5] = pf <= 4 ? 4 : MAX_P;
+    out[6] = minb;
+    out[7] = a.cap_shared;
+    return 0;
+}
+
+// Where later launches put the f32 work areas: 0 as the launcher picks
+// (place), 1 shared memory where they fit, 2 device scratch, 3 scratch with
+// the capacitance parts in shared memory where they fit (to time one form
+// against another; all give the same bits).
+extern "C" void mcp_glmm_extras_set_form(int form) { g_form = form; }
 
 // X (sims, max_n, P), y (sims, max_n) f32 on the device; fit (pf,) in host
 // memory; per grouping (the primary first, ng of them) its levels and
@@ -853,64 +1363,21 @@ extern "C" int mcp_glmm_extras(const void* X, const void* y, int sims, int max_n
                                int hessian, int force_dense, const void* theta_in, void* scratch,
                                void* beta, void* cov, void* tau2, void* ybar, void* flags,
                                void* pinned, void* theta, void* stream) {
-    if (sims <= 0 || G <= 0 || pf < 1 || pf > MAX_P || max_n <= 0 || P <= 0 || link < 0 ||
-        link > 2 || ng < 2 || ng > MAX_G)
-        return (int)cudaErrorInvalidValue;
     Args a;
-    a.X = (const float*)X;
-    a.y = (const float*)y;
-    a.sims = sims;
-    a.max_n = max_n;
-    a.P = P;
-    a.G = G;
-    a.p = pf;
-    a.link = link;
-    a.hessian = hessian;
-    for (int k = 0; k < MAX_P; ++k) a.fit[k] = k < pf ? fit[k] : 0;
-    int col = 0, d = 0, nq = 0, zoff = 0, loff = 0, lev = 0;
-    bool all_q1 = true;
-    for (int g = 0; g < ng; ++g) {
-        if (levels[g] <= 0 || comps[g] <= 0 || comps[g] > MAX_QG) return (int)cudaErrorInvalidValue;
-        a.levels[g] = levels[g];
-        a.comps[g] = comps[g];
-        a.coff[g] = col;
-        a.toff[g] = d;
-        a.loff[g] = loff;
-        a.lev0[g] = lev;
-        for (int k = 0; k < MAX_QG; ++k) a.zc[g][k] = (k >= 1 && k < comps[g]) ? zcols[zoff + k - 1] : 0;
-        zoff += comps[g] - 1;
-        col += levels[g] * comps[g];
-        d += comps[g] * (comps[g] + 1) / 2;
-        nq += comps[g];
-        loff += levels[g] + 1;
-        if (g >= 1) lev += levels[g];
-        all_q1 = all_q1 && comps[g] == 1;
-    }
-    a.coff[ng] = col;
-    a.lev0[ng] = lev;
-    a.lev0[0] = 0;
-    if (col > MAX_M || d > MAX_D) return (int)cudaErrorInvalidValue;
-    a.M = col;
-    a.ng = ng;
-    a.m1 = levels[0] * comps[0];
-    a.Me = col - a.m1;
-    a.d = d;
-    a.nq = nq;
-    a.mlev = lev;
-    a.structured = (all_q1 && !force_dense) ? 1 : 0;
-    a.nm_iters = d <= 3 ? 30 : 45;
+    int err = make_args(a, X, y, sims, max_n, P, fit, pf, ng, levels, comps, zcols, G, link,
+                        hessian, force_dense);
+    if (err) return err;
     a.ids = (const int*)ids;
     a.lvl_off = (const int*)lvl_off;
     a.lvl_rows = (const int*)lvl_rows;
     a.grid = (const int*)grid;
     a.beta0 = (const double*)beta0;
     for (int k = 0; k < MAX_D; ++k) {
-        a.theta0[k] = k < d ? theta0[k] : 0.0;
-        a.lower[k] = k < d ? lower[k] : 0.0;
+        a.theta0[k] = k < a.d ? theta0[k] : 0.0;
+        a.lower[k] = k < a.d ? lower[k] : 0.0;
     }
     a.theta_in = (const double*)theta_in;
     a.scratch = (double*)scratch;
-    a.cell_doubles = cell_doubles(wlay_of(a.M, a.m1, a.Me, pf, max_n, a.structured, hessian), a.M);
     a.beta = (double*)beta;
     a.cov = (double*)cov;
     a.tau2 = (double*)tau2;
@@ -920,6 +1387,29 @@ extern "C" int mcp_glmm_extras(const void* X, const void* y, int sims, int max_n
     a.pinned = (uint8_t*)pinned;
     const long long cells = (long long)sims * G;
     if (cells > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
-    glmm_extras_kernel<<<(unsigned)cells, WARP * WARPS, 0, (cudaStream_t)stream>>>(a);
+    int per_sm = 0, minb = 1;
+    const dim3 blocks((unsigned)cells), threads(WARP * WARPS);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (pf <= 4) {
+        if ((err = place<4>(a, &minb, &per_sm))) return err;
+        if (minb == 3)
+            glmm_extras_kernel<4, 3><<<blocks, threads, dyn_bytes(a), st>>>(a);
+        else
+            glmm_extras_kernel<4, 1><<<blocks, threads, dyn_bytes(a), st>>>(a);
+    } else {
+        if ((err = place<MAX_P>(a, &minb, &per_sm))) return err;
+        glmm_extras_kernel<MAX_P, 1><<<blocks, threads, dyn_bytes(a), st>>>(a);
+    }
     return (int)cudaGetLastError();
 }
+
+#ifdef MCP_K12_CLOCKS
+extern "C" int mcp_k12_clocks(void* dst, int zero) {
+    if (zero) {
+        void* p = nullptr;
+        int err = (int)cudaGetSymbolAddress(&p, mcp_k12_clk);
+        return err ? err : (int)cudaMemset(p, 0, sizeof(mcp_k12_clk));
+    }
+    return (int)cudaMemcpyFromSymbol(dst, mcp_k12_clk, sizeof(mcp_k12_clk));
+}
+#endif

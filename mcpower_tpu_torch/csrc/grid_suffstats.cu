@@ -603,14 +603,38 @@ extern "C" int mcp_grid_suffstats(const void* X, const void* y, int sims, int ma
 // yty come from the launch of the main entry beside this one.
 //
 // No dense Z: each row touches Q = sum_g q_g columns, so it adds Q^2 entries
-// to ztz, Q p to ztx and Q to zty. One block per sim keeps the sim's ztz,
-// ztx and zty in shared memory (M <= 128: 148 KB at p = 16). The entries
-// split into streams by the pair of components they join ((a, b) for ztz,
-// (a, k) for ztx, a for zty): a stream's entries are its own, so each stream
-// is walked by one thread over the rows in order, no atomics, the same sums
-// on every run. After each grid segment the block writes its running sums
-// (the prefix) out. Counts (products of ones) are exact; the X sums agree
-// with the plain version (scatter_add over the rows) to rounding.
+// to ztz, Q p to ztx and Q to zty. An entry's additions come from one
+// stream (the pair of components it joins: (a, b) for ztz, (a, k) for ztx,
+// a for zty) and from the rows at one level of component a (its column
+// fixes that level), so an entry's sum is the rows of that level in
+// ascending order, segment by grid segment. Counts (products of ones) are
+// exact; the X sums agree with the plain version (scatter_add over the
+// rows) to rounding.
+//
+// What bounds it on the H100: device memory in principle (each sim's X and
+// y read once, M^2 + M p + M doubles written a grid point), but the sums
+// are dependent chains: an entry takes its rows one after another.
+//
+// What the design does about it:
+// - A block is persistent over sims and holds one sim's ztz, ztx and zty in
+//   shared memory. Rows come in windows (the whole design where it fits, so
+//   almost always one): a window's level ids are staged, and each grouping's
+//   rows sorted by level, once a block where there is one window (for each
+//   window of each sim otherwise), stably (a counting sort: a
+//   count per level, a scan, then a warp a grouping places 32 rows at a time
+//   by __match_any_sync ranks), into per-level row lists.
+// - A sim's window of X and y is staged with coalesced copies; the block's
+//   threads take work items (column ia of Z, partner), the partner a
+//   component b (ztz), a fit column k (ztx) or y (zty), and walk the rows of
+//   ia's level in the list, in ascending order: M (Q + p + 1) short chains
+//   in place of Q^2 + Q p + Q chains over every row. Threads of one column
+//   read the same rows (broadcasts).
+// - An entry whose column is fixed by the item (ztx, zty, and ztz where b is
+//   in a's grouping, so at a's level) is summed in a register from the
+//   prefix before the segment and stored once; ztz entries of another
+//   grouping's level are added in shared memory. Either way each entry
+//   receives the same additions in the same order as a walk over every row.
+// - After each grid segment the block writes its running sums out.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -619,78 +643,201 @@ constexpr int JOINT_MAX_GROUPS = 4;
 constexpr int JOINT_MAX_Q = 16;  // components over all groupings
 constexpr int JOINT_MAX_M = 128;
 constexpr int JOINT_THREADS = 128;
+constexpr unsigned JOINT_FULL = 0xffffffffu;
 
 struct JointArgs {
     const float* X;
     const float* y;
     const int* grid;  // (G,) device
     const int* ids;   // (groups, max_n) device
-    int sims, max_n, P, G, pf, M, Q;
+    int sims, max_n, P, G, pf, M, Q, groups, levels_all;
+    int window;  // rows staged a window
     int fit[MCP_MAX_P];
-    // per component a: its grouping's column offset, q_g, r and the X column
-    // of its value (-1: the intercept's 1)
+    // per component a: its grouping's column offset, q_g, r, the X column of
+    // its value (-1: the intercept's 1) and its grouping
     int off[JOINT_MAX_Q], qg[JOINT_MAX_Q], r[JOINT_MAX_Q], xcol[JOINT_MAX_Q], grp[JOINT_MAX_Q];
+    // per grouping: its levels, its first level among all groupings' and its
+    // first component
+    int m[JOINT_MAX_GROUPS], lev0[JOINT_MAX_GROUPS], comp0[JOINT_MAX_GROUPS];
     double *ztz, *ztx, *zty;
 };
 
-__device__ __forceinline__ void joint_col(const JointArgs& a, int comp, int i, const float* Xs,
-                                          int& col, double& v) {
-    const int lv = a.ids[(long long)a.grp[comp] * a.max_n + i];
-    col = a.off[comp] + lv * a.qg[comp] + a.r[comp];
-    v = a.xcol[comp] < 0 ? 1.0 : (double)Xs[(long long)i * a.P + a.xcol[comp]];
+// Shared memory of the joint kernel, in bytes from its start.
+struct JointSmem {
+    size_t zz, xs, ids, rows, lstart, cur, end, total;
+};
+
+__host__ __device__ inline JointSmem joint_smem_of(int M, int pf, int P, int groups,
+                                                   int levels_all, int window) {
+    JointSmem s;
+    s.zz = 0;
+    s.xs = s.zz + sizeof(double) * ((size_t)M * M + (size_t)M * pf + M);
+    s.ids = s.xs + sizeof(float) * (size_t)window * (P + 1);
+    s.rows = s.ids + sizeof(int) * (size_t)groups * window;
+    s.lstart = s.rows + sizeof(int) * (size_t)groups * window;
+    s.cur = s.lstart + sizeof(int) * (size_t)(levels_all + groups);
+    s.end = s.cur + sizeof(int) * (size_t)levels_all;
+    s.total = s.end + sizeof(int) * (size_t)levels_all;
+    return s;
+}
+
+// The window's level ids and each grouping's rows by level, stably sorted:
+// lstart[lev0[g] + g + L] is level L's first position in grouping g's list.
+__device__ void joint_sort_window(const JointArgs& a, int w0, int wn, int* ids_s, int* rows_s,
+                                  int* lstart, int* fill) {
+    const int t = threadIdx.x, nt = blockDim.x;
+    for (int e = t; e < a.groups * wn; e += nt) {
+        const int g = e / wn, i = e % wn;
+        ids_s[g * a.window + i] = a.ids[(long long)g * a.max_n + w0 + i];
+    }
+    for (int e = t; e < a.levels_all; e += nt) fill[e] = 0;
+    __syncthreads();
+    for (int e = t; e < a.groups * wn; e += nt) {
+        const int g = e / wn, i = e % wn;
+        atomicAdd(&fill[a.lev0[g] + ids_s[g * a.window + i]], 1);
+    }
+    __syncthreads();
+    if (t < a.groups) {  // exclusive scan of the counts, a grouping a thread
+        int acc = 0;
+        for (int L = 0; L < a.m[t]; ++L) {
+            const int c = fill[a.lev0[t] + L];
+            lstart[a.lev0[t] + t + L] = acc;
+            fill[a.lev0[t] + L] = acc;
+            acc += c;
+        }
+        lstart[a.lev0[t] + t + a.m[t]] = acc;
+    }
+    __syncthreads();
+    const int warp = t / 32, lane = t % 32;
+    const unsigned below = (1u << lane) - 1u;
+    for (int g = warp; g < a.groups; g += nt / 32) {  // place 32 rows at a time, ranks in order
+        for (int base = 0; base < wn; base += 32) {
+            const int i = base + lane;
+            const int lv = i < wn ? ids_s[g * a.window + i] : -1;
+            const unsigned same = __match_any_sync(JOINT_FULL, lv);
+            int pos = 0;
+            if (lv >= 0) pos = fill[a.lev0[g] + lv] + __popc(same & below);
+            __syncwarp();
+            if (lv >= 0) {
+                rows_s[g * a.window + pos] = i;
+                if (lane == 31 - __clz(same)) fill[a.lev0[g] + lv] = pos + 1;
+            }
+            __syncwarp();
+        }
+    }
+    __syncthreads();
 }
 
 __global__ void __launch_bounds__(JOINT_THREADS) grid_suffstats_joint_kernel(const JointArgs a) {
-    extern __shared__ __align__(16) double joint_smem[];
-    double* zz = joint_smem;
-    const int M = a.M, Q = a.Q, p = a.pf;
+    extern __shared__ __align__(16) unsigned char joint_raw[];
+    const int M = a.M, Q = a.Q, p = a.pf, P = a.P, W = a.Q + a.pf + 1;
+    const JointSmem sl = joint_smem_of(M, p, P, a.groups, a.levels_all, a.window);
+    double* zz = reinterpret_cast<double*>(joint_raw + sl.zz);
     double* zx = zz + (size_t)M * M;
     double* zy = zx + (size_t)M * p;
-    const long long sim = blockIdx.x;
-    const float* Xs = a.X + sim * a.max_n * a.P;
-    const float* ys = a.y + sim * a.max_n;
-    const int total = M * M + M * p + M;
-    for (int e = threadIdx.x; e < total; e += blockDim.x) zz[e] = 0.0;
-    __syncthreads();
-    const int streams = Q * Q + Q * p + Q;
-    int prev = 0;
-    for (int g = 0; g < a.G; ++g) {
-        const int n = a.grid[g];
-        for (int s = threadIdx.x; s < streams; s += blockDim.x) {
-            if (s < Q * Q) {
-                const int ca = s / Q, cb = s % Q;
-                for (int i = prev; i < n; ++i) {
-                    int ia, ib;
-                    double va, vb;
-                    joint_col(a, ca, i, Xs, ia, va);
-                    joint_col(a, cb, i, Xs, ib, vb);
-                    zz[ia * M + ib] += va * vb;
+    float* xs = reinterpret_cast<float*>(joint_raw + sl.xs);  // window x (P + 1): X, then y
+    int* ids_s = reinterpret_cast<int*>(joint_raw + sl.ids);
+    int* rows_s = reinterpret_cast<int*>(joint_raw + sl.rows);
+    int* lstart = reinterpret_cast<int*>(joint_raw + sl.lstart);
+    int* cur = reinterpret_cast<int*>(joint_raw + sl.cur);
+    int* end = reinterpret_cast<int*>(joint_raw + sl.end);
+    const int t = threadIdx.x, nt = blockDim.x;
+    const int total = M * M + M * p + M, items = M * W;
+    int staged = -1;  // the window whose ids and lists are in shared memory
+    for (long long sim = blockIdx.x; sim < a.sims; sim += gridDim.x) {
+        const float* Xs = a.X + sim * a.max_n * P;
+        const float* ys = a.y + sim * a.max_n;
+        for (int e = t; e < total; e += nt) zz[e] = 0.0;
+        int win = -1, w0 = 0, wn = 0, prev = 0;
+        for (int g = 0; g < a.G; ++g) {
+            const int n = a.grid[g];
+            while (prev < n) {
+                const int k = prev / a.window;
+                if (k != win) {  // stage window k: its lists (once where one window), X and y
+                    __syncthreads();
+                    win = k;
+                    w0 = k * a.window;
+                    wn = min(a.window, a.max_n - w0);
+                    if (staged != k) {
+                        joint_sort_window(a, w0, wn, ids_s, rows_s, lstart, cur);
+                        staged = k;
+                    }
+                    const float* xw = Xs + (long long)w0 * P;
+                    for (int e = t; e < wn * P; e += nt) xs[(e / P) * (P + 1) + e % P] = xw[e];
+                    for (int i = t; i < wn; i += nt) xs[i * (P + 1) + P] = ys[w0 + i];
+                    for (int gg = 0; gg < a.groups; ++gg)
+                        for (int L = t; L < a.m[gg]; L += nt)
+                            cur[a.lev0[gg] + L] = lstart[a.lev0[gg] + gg + L];
+                    __syncthreads();
                 }
-            } else if (s < Q * Q + Q * p) {
-                const int ca = (s - Q * Q) / p, k = (s - Q * Q) % p;
-                for (int i = prev; i < n; ++i) {
-                    int ia;
-                    double va;
-                    joint_col(a, ca, i, Xs, ia, va);
-                    zx[ia * p + k] += va * (double)Xs[(long long)i * a.P + a.fit[k]];
+                const int b = min(n, w0 + wn) - w0;  // rows [prev, w0 + b) of this window
+                for (int gg = 0; gg < a.groups; ++gg) {
+                    for (int L = t; L < a.m[gg]; L += nt) {
+                        const int lim = lstart[a.lev0[gg] + gg + L + 1];
+                        int e = cur[a.lev0[gg] + L];
+                        while (e < lim && rows_s[gg * a.window + e] < b) ++e;
+                        end[a.lev0[gg] + L] = e;
+                    }
                 }
-            } else {
-                const int ca = s - Q * Q - Q * p;
-                for (int i = prev; i < n; ++i) {
-                    int ia;
-                    double va;
-                    joint_col(a, ca, i, Xs, ia, va);
-                    zy[ia] += va * (double)ys[i];
+                __syncthreads();
+                for (int it = t; it < items; it += nt) {
+                    const int ia = it / W, part = it % W;
+                    int ga = 0;
+                    while (ga + 1 < a.groups && ia >= a.off[a.comp0[ga + 1]]) ++ga;
+                    const int rel = ia - a.off[a.comp0[ga]], qa = a.qg[a.comp0[ga]];
+                    const int L = rel / qa, ca = a.comp0[ga] + rel % qa;
+                    const int xa = a.xcol[ca];
+                    const int* lst = rows_s + ga * a.window;
+                    const int e0 = cur[a.lev0[ga] + L], e1 = end[a.lev0[ga] + L];
+                    if (part < Q) {  // ztz, partner component cb
+                        const int cb = part, xb = a.xcol[cb];
+                        if (a.grp[cb] == ga) {  // b at a's level: one entry
+                            double* dst = zz + (size_t)ia * M + a.off[cb] + L * a.qg[cb] + a.r[cb];
+                            double acc = *dst;
+                            for (int e = e0; e < e1; ++e) {
+                                const float* row = xs + lst[e] * (P + 1);
+                                const double va = xa < 0 ? 1.0 : (double)row[xa];
+                                const double vb = xb < 0 ? 1.0 : (double)row[xb];
+                                acc += va * vb;
+                            }
+                            *dst = acc;
+                        } else {  // b's level varies with the row
+                            const int* idb = ids_s + a.grp[cb] * a.window;
+                            double* zrow = zz + (size_t)ia * M + a.off[cb] + a.r[cb];
+                            const int qb = a.qg[cb];
+                            for (int e = e0; e < e1; ++e) {
+                                const int i = lst[e];
+                                const float* row = xs + i * (P + 1);
+                                const double va = xa < 0 ? 1.0 : (double)row[xa];
+                                const double vb = xb < 0 ? 1.0 : (double)row[xb];
+                                zrow[idb[i] * qb] += va * vb;
+                            }
+                        }
+                    } else {  // ztx column k, or zty
+                        const int k = part - Q;
+                        const int xc = k < p ? a.fit[k] : P;
+                        double* dst = k < p ? zx + (size_t)ia * p + k : zy + ia;
+                        double acc = *dst;
+                        for (int e = e0; e < e1; ++e) {
+                            const float* row = xs + lst[e] * (P + 1);
+                            const double va = xa < 0 ? 1.0 : (double)row[xa];
+                            acc += va * (double)row[xc];
+                        }
+                        *dst = acc;
+                    }
                 }
+                __syncthreads();
+                for (int gg = 0; gg < a.groups; ++gg)
+                    for (int L = t; L < a.m[gg]; L += nt) cur[a.lev0[gg] + L] = end[a.lev0[gg] + L];
+                prev = w0 + b;
             }
+            __syncthreads();
+            const long long cell = sim * a.G + g;
+            for (int e = t; e < M * M; e += nt) a.ztz[cell * M * M + e] = zz[e];
+            for (int e = t; e < M * p; e += nt) a.ztx[cell * M * p + e] = zx[e];
+            for (int e = t; e < M; e += nt) a.zty[cell * M + e] = zy[e];
         }
         __syncthreads();
-        const long long cell = sim * a.G + g;
-        for (int e = threadIdx.x; e < M * M; e += blockDim.x) a.ztz[cell * M * M + e] = zz[e];
-        for (int e = threadIdx.x; e < M * p; e += blockDim.x) a.ztx[cell * M * p + e] = zx[e];
-        for (int e = threadIdx.x; e < M; e += blockDim.x) a.zty[cell * M + e] = zy[e];
-        __syncthreads();
-        prev = n;
     }
 }
 
@@ -720,6 +867,7 @@ extern "C" int mcp_grid_suffstats_joint(const void* X, const void* y, int sims, 
     a.P = P;
     a.G = G;
     a.pf = pf;
+    a.groups = groups;
     for (int i = 0; i < pf; ++i) {
         if (fit[i] < 0 || fit[i] >= P) return (int)cudaErrorInvalidValue;
         a.fit[i] = fit[i];
@@ -727,10 +875,14 @@ extern "C" int mcp_grid_suffstats_joint(const void* X, const void* y, int sims, 
     for (int g = 0; g < G; ++g)
         if (grid[g] < (g ? grid[g - 1] : 0) || grid[g] > max_n) return (int)cudaErrorInvalidValue;
     if (grid[G - 1] != max_n) return (int)cudaErrorInvalidValue;
-    int M = 0, Q = 0, zi = 0;
+    int M = 0, Q = 0, zi = 0, lev = 0;
     for (int g = 0; g < groups; ++g) {
         if (levels[g] <= 0 || comps[g] <= 0 || Q + comps[g] > JOINT_MAX_Q)
             return (int)cudaErrorInvalidValue;
+        a.m[g] = levels[g];
+        a.lev0[g] = lev;
+        a.comp0[g] = Q;
+        lev += levels[g];
         for (int r = 0; r < comps[g]; ++r) {
             a.off[Q] = M;
             a.qg[Q] = comps[g];
@@ -749,14 +901,31 @@ extern "C" int mcp_grid_suffstats_joint(const void* X, const void* y, int sims, 
     if (M > JOINT_MAX_M) return (int)cudaErrorInvalidValue;
     a.M = M;
     a.Q = Q;
+    a.levels_all = lev;
     a.ztz = (double*)ztz;
     a.ztx = (double*)ztx;
     a.zty = (double*)zty;
-    const size_t smem = sizeof(double) * ((size_t)M * M + (size_t)M * pf + M);
-    if (smem > (size_t)MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+    // the whole design as one window where it fits, else the widest window
+    // that does (at least one warp of rows)
+    const size_t fixed = joint_smem_of(M, pf, P, groups, lev, 0).total;
+    const size_t per_row = sizeof(float) * (size_t)(P + 1) + 2 * sizeof(int) * (size_t)groups;
+    if (fixed + 32 * per_row > (size_t)MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+    const long long fit_rows = (long long)(((size_t)MAX_SMEM_BYTES - fixed) / per_row);
+    a.window = (int)(fit_rows < max_n ? fit_rows : max_n);
+    const size_t smem = joint_smem_of(M, pf, P, groups, lev, a.window).total;
     cudaError_t err = cudaFuncSetAttribute(grid_suffstats_joint_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    grid_suffstats_joint_kernel<<<sims, JOINT_THREADS, smem, (cudaStream_t)stream>>>(a);
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_suffstats_joint_kernel,
+                                                             JOINT_THREADS, smem)) != cudaSuccess)
+        return (int)err;
+    if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+    const long long resident = (long long)sms * per_sm;
+    const unsigned blocks = (unsigned)(sims < resident ? sims : resident);
+    grid_suffstats_joint_kernel<<<blocks, JOINT_THREADS, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

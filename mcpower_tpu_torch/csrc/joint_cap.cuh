@@ -21,11 +21,30 @@
 // Me and per grouping comps (q_g), coff (its first column) and toff (its
 // first theta entry); the column table `S` has each column's grouping cgrp,
 // component crr and level base cbase. Lanes take the entries of the panel and
-// trailing updates, the rows of a factor column and the (row, column) pairs of
-// the solves, with __syncwarp between dependent steps.
+// trailing updates, the rows of a factor column, the entries of C or S and
+// the (row, column) pairs of the solves, with __syncwarp between dependent
+// steps; a chain of dependent sums reads four terms ahead (fold_add).
 #pragma once
 
 #include <math.h>
+
+// K12's cycle counts by region: chip_k12_profile.py builds glmm_extras.cu with
+// -DMCP_K12_CLOCKS=cells, and lane 0 of each warp of the first `cells` cells adds
+// clock64() deltas into row blockIdx.x of mcp_k12_clk (slots: chip_k12_profile.REGIONS).
+#ifdef MCP_K12_CLOCKS
+__device__ unsigned long long mcp_k12_clk[MCP_K12_CLOCKS * 12];
+#define K12_T0(v) long long v = clock64()
+#define K12_RE(v) v = clock64()
+#define K12_ADD(k, v) do { if (threadIdx.x % 32 == 0 && blockIdx.x < MCP_K12_CLOCKS) \
+    atomicAdd(&mcp_k12_clk[(long long)blockIdx.x * 12 + (k)], \
+              (unsigned long long)(clock64() - (v))); } while (0)
+#define K12_ADD32(k, v) do { if (sizeof(T) == 4) K12_ADD(k, v); } while (0)
+#else
+#define K12_T0(v)
+#define K12_RE(v)
+#define K12_ADD(k, v)
+#define K12_ADD32(k, v)
+#endif
 
 namespace mcp {
 namespace jcap {
@@ -47,13 +66,15 @@ constexpr int VEC_FROM = 13;  // smallchol.VEC_FROM_P
 // parallel and added in order.
 struct Layout {
     int n, r, keep, m1, e;  // factor size, right-hand sides (p + 1), rows kept
+    int pm;                 // the p x p matrices' order (MAX_P, or p where the area is tight)
+    __host__ __device__ int ld() const { return n | 1; }  // the factor's row stride, odd
     __host__ __device__ size_t mat() const { return 0; }
-    __host__ __device__ size_t rhs() const { return (size_t)n * n; }
+    __host__ __device__ size_t rhs() const { return (size_t)n * ld(); }
     __host__ __device__ size_t kept() const { return rhs() + (size_t)n * r; }
     __host__ __device__ size_t acc() const { return kept() + (size_t)keep * r; }
     __host__ __device__ size_t pmat() const { return acc() + (size_t)r * r; }
-    __host__ __device__ size_t pinv() const { return pmat() + (size_t)MAX_P * MAX_P; }
-    __host__ __device__ size_t vecs() const { return pinv() + (size_t)MAX_P * MAX_P; }
+    __host__ __device__ size_t pinv() const { return pmat() + (size_t)pm * pm; }
+    __host__ __device__ size_t vecs() const { return pinv() + (size_t)pm * pm; }
     __host__ __device__ size_t av() const { return vecs() + 2 * MAX_P + MAX_D; }
     __host__ __device__ size_t de() const { return av() + m1; }
     __host__ __device__ size_t cpe() const { return de() + e; }
@@ -65,8 +86,10 @@ struct Layout {
     __host__ __device__ size_t total() const { return logs() + (size_t)keep + n; }
 };
 
-__host__ __device__ inline Layout layout_of(int structured, int M, int m1, int Me, int p) {
+__host__ __device__ inline Layout layout_of(int structured, int M, int m1, int Me, int p,
+                                            int pm = MAX_P) {
     Layout l;
+    l.pm = pm;
     l.n = structured ? Me : M;
     l.r = p + 1;
     l.keep = structured ? m1 : M;
@@ -77,31 +100,72 @@ __host__ __device__ inline Layout layout_of(int structured, int M, int m1, int M
 
 __device__ __forceinline__ int vech(int i, int j, int q) { return j * q - j * (j - 1) / 2 + (i - j); }
 
+// s + term(0) + term(1) + ... + term(n - 1), added in that order (s - ... for
+// fold_sub): four terms are read before they are added, so the loads of a
+// dependent chain in shared memory overlap; the sums are the loop's own.
+template <typename T, class F>
+__device__ __forceinline__ T fold_add(T s, int n, F term) {
+    int k = 0;
+    for (; k + 4 <= n; k += 4) {
+        const T t0 = term(k), t1 = term(k + 1), t2 = term(k + 2), t3 = term(k + 3);
+        s = s + t0;
+        s = s + t1;
+        s = s + t2;
+        s = s + t3;
+    }
+    for (; k < n; ++k) s = s + term(k);
+    return s;
+}
+
+template <typename T, class F>
+__device__ __forceinline__ T fold_sub(T s, int n, F term) {
+    int k = 0;
+    for (; k + 4 <= n; k += 4) {
+        const T t0 = term(k), t1 = term(k + 1), t2 = term(k + 2), t3 = term(k + 3);
+        s = s - t0;
+        s = s - t1;
+        s = s - t2;
+        s = s - t3;
+    }
+    for (; k < n; ++k) s = s - term(k);
+    return s;
+}
+
+// Row i of the lower triangle's entry e (e = i (i + 1) / 2 + j, j <= i).
+__device__ __forceinline__ int tri_row(int e) {
+    int i = (int)((sqrtf(8.0f * (float)e + 1.0f) - 1.0f) * 0.5f);
+    while (i * (i + 1) / 2 > e) --i;
+    while ((i + 1) * (i + 2) / 2 <= e) ++i;
+    return i;
+}
+
 // ---------------------------------------------------------------------------
-// Warp-wide factor and solves on an n x n row-major matrix in shared memory
-// (smallchol's chol / solve_lower / solve_upper_t below VEC_FROM, chol_vec /
-// _forward_vec / _backward_vec from it), in place.
+// Warp-wide factor and solves on an n x n row-major matrix, its rows ld apart
+// (n where not given; odd in the capacitance's factor, so the entries of a
+// column fall in distinct shared-memory banks), in place (smallchol's chol /
+// solve_lower / solve_upper_t below VEC_FROM, chol_vec / _forward_vec /
+// _backward_vec from it).
 // ---------------------------------------------------------------------------
 
 template <typename T>
-__device__ void chol_scalar(T* A, int n, int lane) {
+__device__ void chol_scalar(T* A, int n, int ld, int lane) {
     for (int j = 0; j < n; ++j) {
-        const T piv = sqrt(A[j * n + j]);
+        const T piv = sqrt(A[j * ld + j]);
         const T inv = T(1) / piv;
         __syncwarp();
-        if (lane == 0) A[j * n + j] = piv;
-        for (int i = j + 1 + lane; i < n; i += WARP) A[i * n + j] = A[i * n + j] * inv;
+        if (lane == 0) A[j * ld + j] = piv;
+        for (int i = j + 1 + lane; i < n; i += WARP) A[i * ld + j] = A[i * ld + j] * inv;
         __syncwarp();
         for (int i = j + 1 + lane; i < n; i += WARP) {  // the trailing lower triangle
-            const T lij = A[i * n + j];
-            for (int c = j + 1; c <= i; ++c) A[i * n + c] = A[i * n + c] - lij * A[c * n + j];
+            const T lij = A[i * ld + j];
+            for (int c = j + 1; c <= i; ++c) A[i * ld + c] = A[i * ld + c] - lij * A[c * ld + j];
         }
         __syncwarp();
     }
 }
 
 template <typename T>
-__device__ void chol_blocked(T* A, int n, int lane) {
+__device__ void chol_blocked(T* A, int n, int ld, int lane) {
     for (int j0 = 0; j0 < n; j0 += BLOCK) {
         const int j1 = min(j0 + BLOCK, n), bw = j1 - j0;
         // the panel: S = A - (its contraction with the columns before it);
@@ -110,22 +174,21 @@ __device__ void chol_blocked(T* A, int n, int lane) {
         if (j0 > 0 && j < j1) {
             for (int i = j0 + lane / BLOCK; i < n; i += WARP / BLOCK) {
                 if (j <= i) {
-                    T acc = T(0);
-                    for (int k = 0; k < j0; ++k) acc = acc + A[i * n + k] * A[j * n + k];
-                    A[i * n + j] = A[i * n + j] - acc;
+                    const T acc = fold_add(T(0), j0, [&](int k) { return A[i * ld + k] * A[j * ld + k]; });
+                    A[i * ld + j] = A[i * ld + j] - acc;
                 }
             }
         }
         __syncwarp();
         for (int g = j0; g < j1; ++g) {
-            const T piv = sqrt(A[g * n + g]);
+            const T piv = sqrt(A[g * ld + g]);
             __syncwarp();
-            for (int i = g + lane; i < n; i += WARP) A[i * n + g] = A[i * n + g] / piv;
+            for (int i = g + lane; i < n; i += WARP) A[i * ld + g] = A[i * ld + g] / piv;
             __syncwarp();
             for (int i = g + 1 + lane; i < n; i += WARP) {  // the rank-1 tail in the panel
-                const T lig = A[i * n + g];
+                const T lig = A[i * ld + g];
                 for (int c = g + 1; c < j1 && c <= i; ++c)
-                    A[i * n + c] = A[i * n + c] - lig * A[c * n + g];
+                    A[i * ld + c] = A[i * ld + c] - lig * A[c * ld + g];
             }
             __syncwarp();
         }
@@ -133,29 +196,32 @@ __device__ void chol_blocked(T* A, int n, int lane) {
 }
 
 template <typename T>
-__device__ void chol_auto(T* A, int n, bool blocked, int lane) {
-    if (blocked) chol_blocked(A, n, lane);
-    else chol_scalar(A, n, lane);
+__device__ void chol_auto(T* A, int n, bool blocked, int lane, int ld = 0) {
+    if (blocked) chol_blocked(A, n, ld ? ld : n, lane);
+    else chol_scalar(A, n, ld ? ld : n, lane);
 }
 
 // Solve (L L') X = B in place, B (n, r) row-major.
 template <typename T>
-__device__ void cho_solve_auto(const T* L, T* B, int n, int r, bool blocked, int lane) {
+__device__ void cho_solve_auto(const T* L, T* B, int n, int r, bool blocked, int lane,
+                               int ld = 0) {
+    if (ld == 0) ld = n;
     if (!blocked) {
         for (int i = 0; i < n; ++i) {  // forward, right-looking
-            for (int c = lane; c < r; c += WARP) B[i * r + c] = B[i * r + c] / L[i * n + i];
+            for (int c = lane; c < r; c += WARP) B[i * r + c] = B[i * r + c] / L[i * ld + i];
             __syncwarp();
             for (int k = i + 1 + lane; k < n; k += WARP) {
-                const T lki = L[k * n + i];
+                const T lki = L[k * ld + i];
                 for (int c = 0; c < r; ++c) B[k * r + c] = B[k * r + c] - lki * B[i * r + c];
             }
             __syncwarp();
         }
         for (int i = n - 1; i >= 0; --i) {  // backward, the later rows ascending
             for (int c = lane; c < r; c += WARP) {
-                T s = B[i * r + c];
-                for (int k = i + 1; k < n; ++k) s = s - L[k * n + i] * B[k * r + c];
-                B[i * r + c] = s / L[i * n + i];
+                const T s = fold_sub(B[i * r + c], n - i - 1, [&](int k) {
+                    return L[(i + 1 + k) * ld + i] * B[(i + 1 + k) * r + c];
+                });
+                B[i * r + c] = s / L[i * ld + i];
             }
             __syncwarp();
         }
@@ -165,16 +231,15 @@ __device__ void cho_solve_auto(const T* L, T* B, int n, int r, bool blocked, int
         const int j1 = min(j0 + BLOCK, n);
         for (int e = lane; e < (j1 - j0) * r; e += WARP) {
             const int i = j0 + e / r, c = e % r;
-            T acc = T(0);
-            for (int k = 0; k < j0; ++k) acc = acc + L[i * n + k] * B[k * r + c];
+            const T acc = fold_add(T(0), j0, [&](int k) { return L[i * ld + k] * B[k * r + c]; });
             B[i * r + c] = B[i * r + c] - acc;
         }
         __syncwarp();
         for (int g = j0; g < j1; ++g) {
-            for (int c = lane; c < r; c += WARP) B[g * r + c] = B[g * r + c] / L[g * n + g];
+            for (int c = lane; c < r; c += WARP) B[g * r + c] = B[g * r + c] / L[g * ld + g];
             __syncwarp();
             for (int k = g + 1 + lane; k < j1; k += WARP) {
-                const T lkg = L[k * n + g];
+                const T lkg = L[k * ld + g];
                 for (int c = 0; c < r; ++c) B[k * r + c] = B[k * r + c] - lkg * B[g * r + c];
             }
             __syncwarp();
@@ -185,16 +250,17 @@ __device__ void cho_solve_auto(const T* L, T* B, int n, int r, bool blocked, int
         const int j1 = min(j0 + BLOCK, n);
         for (int e = lane; e < (j1 - j0) * r; e += WARP) {
             const int i = j0 + e / r, c = e % r;
-            T acc = T(0);
-            for (int k = j1; k < n; ++k) acc = acc + L[k * n + i] * B[k * r + c];
+            const T acc = fold_add(T(0), n - j1, [&](int k) {
+                return L[(j1 + k) * ld + i] * B[(j1 + k) * r + c];
+            });
             B[i * r + c] = B[i * r + c] - acc;
         }
         __syncwarp();
         for (int g = j1 - 1; g >= j0; --g) {
             for (int c = lane; c < r; c += WARP) {
                 T s = B[g * r + c];
-                for (int k = g + 1; k < j1; ++k) s = s - L[k * n + g] * B[k * r + c];
-                B[g * r + c] = s / L[g * n + g];
+                for (int k = g + 1; k < j1; ++k) s = s - L[k * ld + g] * B[k * r + c];
+                B[g * r + c] = s / L[g * ld + g];
             }
             __syncwarp();
         }
@@ -245,11 +311,14 @@ __device__ __forceinline__ T lam_rows(const A& a, const CT& S, const T* th, int 
 template <typename T, class A, class CT, class Src>
 __device__ T capacitance(const A& a, const CT& S, const T* th, const Src& c, T* sm,
                          const Layout& lay, bool structured, bool solve, int lane) {
-    const int M = a.M, r = lay.r, n = lay.n;
+    const int M = a.M, r = lay.r, n = lay.n, ld = lay.ld();
     T* mat = sm + lay.mat();
     T* rhs = sm + lay.rhs();
     T* kept = sm + lay.kept();
     T* acc = sm + lay.acc();
+    K12_T0(clk_f);
+    K12_T0(clk_v);
+    K12_T0(clk_l);
     T logdet_v;
     if (structured) {
         const int m1 = a.m1, Me = a.Me;
@@ -264,100 +333,105 @@ __device__ T capacitance(const A& a, const CT& S, const T* th, const Src& c, T* 
         for (int j = lane; j < m1; j += WARP) av[j] = T(1) + (l1 * l1) * c.z(j, j);
         for (int e = lane; e < Me; e += WARP) dE[e] = dE_of(a, th, e);
         __syncwarp();
-        for (int j = lane; j < m1; j += WARP) {  // Cpe = (l1 G_PE) dE, Cpe / a; rp, rp / a
+        // Cpe = (l1 G_PE) dE and Cpe / a, a row a lane (an entry a lane costs
+        // K11 registers, and with them a wave at the lmm_extras arm); rp, rp / a
+        for (int j = lane; j < m1; j += WARP) {
             for (int ee = 0; ee < Me; ++ee) {
                 const T v = (l1 * c.z(j, m1 + ee)) * dE[ee];
                 cpe[j * Me + ee] = v;
                 cpa[j * Me + ee] = v / av[j];
             }
-            for (int cc = 0; cc < (solve ? r : 0); ++cc) {
-                const T v = l1 * c.raw(j, cc);
-                rp[j * r + cc] = v;
-                rpa[j * r + cc] = v / av[j];
-            }
+        }
+        for (int e = lane; e < (solve ? m1 * r : 0); e += WARP) {
+            const int j = e / r, cc = e % r;
+            const T v = l1 * c.raw(j, cc);
+            rp[e] = v;
+            rpa[e] = v / av[j];
         }
         for (int ee = lane; ee < (solve ? Me : 0); ee += WARP)
             for (int cc = 0; cc < r; ++cc) re[ee * r + cc] = dE[ee] * c.raw(m1 + ee, cc);
         __syncwarp();
-        for (int e1 = lane; e1 < Me; e1 += WARP) {  // S, lower triangle, a row a lane
-            for (int e2 = 0; e2 <= e1; ++e2) {
-                T s = T(0);
-                for (int j = 0; j < m1; ++j) s = s + cpe[j * Me + e1] * cpa[j * Me + e2];
-                const T cee = T(e1 == e2 ? 1 : 0) + (dE[e1] * dE[e2]) * c.z(m1 + e1, m1 + e2);
-                mat[e1 * n + e2] = cee - s;
-            }
+        for (int e = lane; e < Me * (Me + 1) / 2; e += WARP) {  // S, lower triangle, an entry a lane
+            const int e1 = tri_row(e), e2 = e - e1 * (e1 + 1) / 2;
+            const T s = fold_add(T(0), m1, [&](int j) { return cpe[j * Me + e1] * cpa[j * Me + e2]; });
+            const T cee = T(e1 == e2 ? 1 : 0) + (dE[e1] * dE[e2]) * c.z(m1 + e1, m1 + e2);
+            mat[e1 * ld + e2] = cee - s;
         }
         for (int e = lane; e < (solve ? Me * r : 0); e += WARP) {  // t = re - Cpe' (rp / a)
             const int ee = e / r, cc = e % r;
-            T s = T(0);
-            for (int j = 0; j < m1; ++j) s = s + cpe[j * Me + ee] * rpa[j * r + cc];
+            const T s = fold_add(T(0), m1, [&](int j) { return cpe[j * Me + ee] * rpa[j * r + cc]; });
             rhs[e] = re[e] - s;
         }
         __syncwarp();
-        chol_auto(mat, n, n >= VEC_FROM, lane);
+        K12_T0(clk_c);
+        chol_auto(mat, n, n >= VEC_FROM, lane, ld);
+        K12_ADD32(11, clk_c);
+        K12_ADD32(4, clk_f);
+        K12_RE(clk_v);
         if (solve) {
-            cho_solve_auto(mat, rhs, n, r, n >= VEC_FROM, lane);
+            cho_solve_auto(mat, rhs, n, r, n >= VEC_FROM, lane, ld);
             for (int e = lane; e < m1 * r; e += WARP) {  // xp = rp / a - (Cpe xe) / a
                 const int j = e / r, cc = e % r;
-                T s = T(0);
-                for (int ee = 0; ee < Me; ++ee) s = s + cpe[j * Me + ee] * rhs[ee * r + cc];
+                const T s = fold_add(T(0), Me, [&](int ee) { return cpe[j * Me + ee] * rhs[ee * r + cc]; });
                 kept[e] = rpa[e] - s / av[j];
             }
             __syncwarp();
             for (int e = lane; e < r * r; e += WARP) {  // [rp; re]' [xp; xe]
                 const int i = e / r, jj = e % r;
-                T s = T(0);
-                for (int row = 0; row < m1; ++row) s = s + rp[row * r + i] * kept[row * r + jj];
-                for (int ee = 0; ee < Me; ++ee) s = s + re[ee * r + i] * rhs[ee * r + jj];
-                acc[e] = s;
+                const T s = fold_add(T(0), m1, [&](int row) { return rp[row * r + i] * kept[row * r + jj]; });
+                acc[e] = fold_add(s, Me, [&](int ee) { return re[ee * r + i] * rhs[ee * r + jj]; });
             }
         }
+        K12_ADD32(5, clk_v);
+        K12_RE(clk_l);
         T* logs = sm + lay.logs();  // log a, then the factor's log pivots
         for (int j = lane; j < m1 + n; j += WARP)
-            logs[j] = log(j < m1 ? av[j] : mat[(j - m1) * n + (j - m1)]);
+            logs[j] = log(j < m1 ? av[j] : mat[(j - m1) * ld + (j - m1)]);
         __syncwarp();
-        T la = logs[0];
-        for (int j = 1; j < m1; ++j) la = la + logs[j];
-        T ld = logs[m1];
-        for (int i = 1; i < n; ++i) ld = ld + logs[m1 + i];
-        logdet_v = la + T(2) * ld;
+        const T la = fold_add(logs[0], m1 - 1, [&](int j) { return logs[1 + j]; });
+        const T lf = fold_add(logs[m1], n - 1, [&](int i) { return logs[m1 + 1 + i]; });
+        logdet_v = la + T(2) * lf;
     } else {
-        for (int ia = lane; ia < M; ia += WARP) {  // C = I + Lam' ztz Lam, lower, a row a lane
-            for (int ib = 0; ib <= ia; ++ib) {
-                const int h = S.cgrp[ib], s2 = S.crr[ib], base = S.cbase[ib];
-                T cv = T(0);
-                for (int ss = s2; ss < a.comps[h]; ++ss) {
-                    const T w = lam_rows(a, S, th, ia, [&](int row) { return c.z(row, base + ss); });
-                    const T u = lam_of(a, th, h, ss, s2) * w;
-                    cv = (ss == s2) ? u : cv + u;
-                }
-                mat[ia * n + ib] = T(ia == ib ? 1 : 0) + cv;
+        for (int e = lane; e < M * (M + 1) / 2; e += WARP) {  // C = I + Lam' ztz Lam, lower, an entry a lane
+            const int ia = tri_row(e), ib = e - ia * (ia + 1) / 2;
+            const int h = S.cgrp[ib], s2 = S.crr[ib], base = S.cbase[ib];
+            T cv = T(0);
+            for (int ss = s2; ss < a.comps[h]; ++ss) {
+                const T w = lam_rows(a, S, th, ia, [&](int row) { return c.z(row, base + ss); });
+                const T u = lam_of(a, th, h, ss, s2) * w;
+                cv = (ss == s2) ? u : cv + u;
             }
-            for (int cc = 0; cc < (solve ? r : 0); ++cc) {  // Lam' [zty | ztx]
-                const T v = lam_rows(a, S, th, ia, [&](int rr) { return c.raw(rr, cc); });
-                kept[ia * r + cc] = v;
-                rhs[ia * r + cc] = v;
-            }
+            mat[ia * ld + ib] = T(ia == ib ? 1 : 0) + cv;
+        }
+        for (int e = lane; e < (solve ? M * r : 0); e += WARP) {  // Lam' [zty | ztx]
+            const int ia = e / r, cc = e % r;
+            const T v = lam_rows(a, S, th, ia, [&](int rr) { return c.raw(rr, cc); });
+            kept[e] = v;
+            rhs[e] = v;
         }
         __syncwarp();
-        chol_blocked(mat, n, lane);
+        K12_T0(clk_c);
+        chol_blocked(mat, n, ld, lane);
+        K12_ADD32(11, clk_c);
+        K12_ADD32(4, clk_f);
+        K12_RE(clk_v);
         if (solve) {
-            cho_solve_auto(mat, rhs, n, r, true, lane);
+            cho_solve_auto(mat, rhs, n, r, true, lane, ld);
             for (int e = lane; e < r * r; e += WARP) {
                 const int i = e / r, jj = e % r;
-                T s = T(0);
-                for (int row = 0; row < M; ++row) s = s + kept[row * r + i] * rhs[row * r + jj];
-                acc[e] = s;
+                acc[e] = fold_add(T(0), M, [&](int row) { return kept[row * r + i] * rhs[row * r + jj]; });
             }
         }
+        K12_ADD32(5, clk_v);
+        K12_RE(clk_l);
         T* logs = sm + lay.logs();  // the factor's log pivots
-        for (int i = lane; i < n; i += WARP) logs[i] = log(mat[i * n + i]);
+        for (int i = lane; i < n; i += WARP) logs[i] = log(mat[i * ld + i]);
         __syncwarp();
-        T ld = logs[0];
-        for (int i = 1; i < n; ++i) ld = ld + logs[i];
-        logdet_v = T(2) * ld;
+        const T lf = fold_add(logs[0], n - 1, [&](int i) { return logs[1 + i]; });
+        logdet_v = T(2) * lf;
     }
     __syncwarp();
+    K12_ADD32(4, clk_l);
     return logdet_v;
 }
 

@@ -1403,6 +1403,51 @@ def glmm_extras_scratch_bytes(cells: int, M: int, m1: int, p: int, max_n: int,
     return int(fn(cells, M, m1, M - m1, p, max_n, int(structured), int(hessian)))
 
 
+_EXTRAS_GEOMETRY_KEYS = ("areas_shared", "stage_shared", "dynamic_smem", "static_smem",
+                         "cells_per_sm", "p_bucket", "register_bound_cells", "cap_shared")
+
+
+def glmm_extras_geometry(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequence[int],
+                         grid: Sequence[int], groups, beta0=None, theta0=None, lower=None,
+                         hessian: bool = False, theta=None, dense: bool = False) -> Dict[str, int]:
+    """The form K12's C launcher takes for :func:`glmm_extras_kernel`'s
+    arguments (the same order; only the shapes count): ``areas_shared`` 1
+    where the four warps' f32 work areas sit in shared memory (else device
+    scratch), ``stage_shared`` 1 where the staged rows do, the dynamic and
+    static shared bytes a block, resident cells an SM, the p bucket and the
+    cells an SM its registers are held to (3 or 1) of the kernel variant
+    that runs, and ``cap_shared`` 1 where the areas are in scratch but their
+    capacitance parts in shared memory. Builds and loads K12; needs a CUDA
+    device."""
+    fit = [int(c) for c in fit]
+    levels = [int(m) for _, m, _ in groups]
+    comps = [1 + len(cols) for _, _, cols in groups]
+    zcols = [int(c) for _, _, cols in groups for c in cols]
+    sims, max_n, P = X.shape
+    pf, ng = len(fit), len(groups)
+    out = (ctypes.c_int * len(_EXTRAS_GEOMETRY_KEYS))()
+    fn = kernels.KERNELS["glmm_extras"].fn("mcp_glmm_extras_geometry", [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_int)])
+    err = fn(sims, max_n, P, (ctypes.c_int * pf)(*fit), pf, ng, (ctypes.c_int * ng)(*levels),
+             (ctypes.c_int * ng)(*comps), (ctypes.c_int * max(len(zcols), 1))(*zcols),
+             len(list(grid)), code, int(hessian), int(dense), out)
+    if err != 0:
+        raise RuntimeError(f"glmm_extras geometry failed with CUDA error {err}")
+    return dict(zip(_EXTRAS_GEOMETRY_KEYS, out))
+
+
+def glmm_extras_set_form(form: int) -> None:
+    """Where K12's later launches put the warps' f32 work areas: 0 as its
+    launcher picks, 1 shared memory where they fit, 2 device scratch, 3
+    scratch with their capacitance parts in shared memory where those fit.
+    Every form gives the same bits; a knob to time one against another."""
+    fn = kernels.KERNELS["glmm_extras"].fn("mcp_glmm_extras_set_form", [ctypes.c_int])
+    fn.restype = None
+    fn(int(form))
+
+
 def glmm_extras_kernel(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequence[int],
                        grid: Sequence[int], groups, beta0: torch.Tensor, theta0, lower,
                        hessian: bool = False, theta: torch.Tensor = None, dense: bool = False):
