@@ -6,8 +6,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (``--checks-only`` stops after phase 3; ``--compare LABEL=DIR`` adds phase
-5's A/B against K1, K2's joint mode, K3, K6, K7 and K12 built from another
-``csrc`` directory.)
+5's A/B against K1, K2's joint mode, K3, K6, K7, K10, K11 and K12 built from
+another ``csrc`` directory.)
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -24,7 +24,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (``cuobjdump``), K6's launch geometry and resident blocks per SM at
    p = 1..16 at the GLM arm's and the logit sample-size flow's launch, and
    K7's (warps a cell, cells a block, resident cells per SM, waves, the
-   staged or streamed path) at its timed shapes;
+   staged or streamed path) at its timed shapes, K10's (shared or streamed
+   form, shared bytes, resident cells an SM, waves, registers and local
+   bytes a thread) and K11's (its capacitance's form, warps a cell, the
+   twin staged or not, shared bytes, resident cells an SM, waves,
+   registers and local bytes) at theirs (``K10_SHAPES``, ``K11_SHAPES``);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (10,000 sims; the LMM's N = 200, p = 3, m = 20, G = 1,
    the curve design's p = 7, G = 8 and the GLM arm's N = 300, p = 4), and
@@ -63,7 +67,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    case of ``K10_CHECKS`` (``benchmarks/throughput.py``'s glmm_slopes, a
    launch of the slope-GLMM flow, and off the path q = 3, q = 4 at p = 16,
    probit, Poisson, the FD Hessian, blocked clusters and 300 clusters),
-   every output bit-identical (flags, pins, beta, cov, tau^2, ybar, theta);
+   every output bit-identical (flags, pins, beta, cov, tau^2, ybar, theta),
+   and at ``K10_STREAMED_CHECKS`` again in its streamed form (state in
+   device scratch), the same bits;
    K2's joint mode (structured, dense, an extra grouping's own slope and
    p = 16) within ``K2_JOINT_REL``, its counts exact; K11 at every case of
    ``K11_CHECKS`` (the two extras arms, a launch of each extras flow:
@@ -117,9 +123,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    at a launch of README flow 3's power and sample-size flows, K9 at a
    launch of README flow 2 and at the lmm_slopes and lmm_multislope cells,
    K2's slope mode at the lmm_slopes rows and a README flow 2 launch's, K10
-   at a launch of the slope-GLMM flow and at the glmm_slopes cells, K11 at
-   the lmm_extras arm's cells and at a launch of the crossed and the dense
-   extras flows (K10's and K11's plain versions at one shape each), K12 at
+   at a launch of the slope-GLMM flow, at the glmm_slopes cells and at a
+   launch of the slope-GLMM sample-size flow (1,250 sims x 11 grid points),
+   K11 at the lmm_extras arm's cells and at a launch of the crossed, the
+   nested and the dense extras flows (K10's and K11's plain versions at one
+   shape each), K12 at
    the glmm_extras arm's cells and at a launch of the crossed, the nested
    and the dense GLMM flows (its plain version's time the one call of phase
    3; the form its launcher takes, work areas in shared memory or in
@@ -135,11 +143,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    kernel's step counter) and, for K2, one ``torch.bmm`` that computes the
    same statistics at the OLS shape; with ``--compare LABEL=DIR`` (another
    ``csrc`` directory, such as the parent commit's; repeatable) its K1, K2,
-   K3, K6, K7 and K12 are built too, checked against this tree's (K7 bit
-   for bit; K12's eight outputs at every case of ``K12_CHECKS`` and K2's
-   joint ztz, ztx and zty at ``K2_JOINT_CHECKS``, bit for bit) and timed
-   beside them in turns (other, this, this, other; K12 at its four rows, K2
-   in its joint mode at its two); K1 at the realistic LMM's long
+   K3, K6, K7, K10, K11 and K12 are built too, checked against this tree's
+   (K7 bit for bit; K11's seven outputs at every case of ``K11_CHECKS``,
+   K10's and K12's eight at every case of ``K10_CHECKS`` and ``K12_CHECKS``
+   and K2's joint ztz, ztx and zty at ``K2_JOINT_CHECKS``, bit for bit) and
+   timed beside them in turns (other, this, this, other; K10 at its three
+   rows, K11 and K12 at their four, K2 in its joint mode at its two); K1 at
+   the realistic LMM's long
    normals with its cluster streams padded in one launch against them in a
    launch of their own; then each arm's wall (the GLMM and slope arms' too),
    and a profile of each arm (wall median of PROFILE_REPS (3) calls, busy share, largest
@@ -727,7 +737,9 @@ K10_DESIGNS = {
 # Cases lowered by a flow of the slope GLMM: (flow, sims).
 K10_FLOW_CASES = {"glmm_slopes_flow_launch": ("model_glmm_slopes_power", N_SIMS // 8)}
 # Sims of each case: the plain version runs many small operations a pass,
-# so its windows stay small.
+# so its windows stay small. K10_STREAMED_CHECKS run again in the streamed
+# form, which a launch takes where the shared form does not fit.
+K10_STREAMED_CHECKS = ("glmm_slopes_blocked", "glmm_slopes_m300")
 K10_CHECKS = {
     "glmm_slopes": 512, "glmm_slopes_flow_launch": N_SIMS // 8, "glmm_slopes_q3": 128,
     "glmm_slopes_q4_p16": 16, "glmm_slopes_probit": 128, "glmm_slopes_poisson": 128,
@@ -3254,9 +3266,9 @@ def _c_entry_points(source: Path, name: str) -> list:
 # The kernels ``--compare`` builds from another tree: their outputs are held
 # to this tree's and timed beside them in phase 5.
 COMPARED = ("philox_fill", "ols_solve", "glm_irls", "glmm_intercept", "grid_suffstats",
-            "glmm_extras")
+            "glmm_extras", "joint_reml", "glmm_slope")
 # Those compared on every timing row of their name; K2 is compared in its
-# joint mode and K12 at its cases, each in a block of its own.
+# joint mode and K10, K11 and K12 at their cases, each in a block of its own.
 COMPARED_BY_ROW = ("philox_fill", "ols_solve", "glm_irls", "glmm_intercept")
 
 
@@ -3327,6 +3339,55 @@ def k7_geometry_line(glmmfit_mod, tag: str, shape) -> str:
             f"{g['cells_per_block']} cells a block ({g['threads']} threads, {g['smem']} B shared), "
             f"{g['cells_per_sm']} cells resident per SM, {g['blocks']} blocks in {g['waves']} "
             f"wave(s), scratch {g['scratch']} B")
+
+
+# K10's launch shapes (sims, max_n, pf, q, G, m) and K11's (cells, M, p,
+# groupings (levels, components), dense): their timed shapes.
+K10_SHAPES = {
+    "glmm_slopes arm": (512, 200, 3, 2, 1, 20),
+    "slope-GLMM flow launch": (N_SIMS // 8, 480, 2, 2, 1, 24),
+    "slope-GLMM sample-size launch": (N_SIMS // 8, 720, 2, 2, 11, 24),
+    "p = 16 check": (16, 240, 16, 4, 1, 24),
+    "300-cluster check": (16, 2400, 3, 2, 1, 300),
+}
+K11_SHAPES = {
+    "lmm_extras arm": (EXTRAS_SIMS, 30, 3, ((20, 1), (10, 1)), False),
+    "crossed flow launch": (N_SIMS // 8, 65, 3, ((40, 1), (25, 1)), False),
+    "nested flow launch": (N_SIMS // 8, 60, 2, ((12, 1), (48, 1)), False),
+    "dense extras flow launch": (N_SIMS // 8, 70, 2, ((30, 2), (10, 1)), False),
+}
+
+
+def k10_k11_geometry_lines(glmmfit_mod, mixedfit_mod) -> list:
+    """Lines of K10's and K11's launch geometry at their timed shapes, from
+    their C launchers (``mcp_glmm_slope_geometry``, ``mcp_joint_reml_geometry``):
+    the form, shared bytes, resident cells an SM, waves, and K10's
+    registers and local bytes a thread."""
+    import torch
+
+    lines = []
+    for tag, (sims, max_n, pf, q, G, m) in K10_SHAPES.items():
+        X = torch.empty((sims, max_n, 1))
+        g = glmmfit_mod.glmm_slope_geometry(0, X, None, list(range(pf)), list(range(q - 1)),
+                                            [max_n] * G, (True, m, m))
+        lines.append(f"  K10 geometry at the {tag} ({sims} sims, max_n {max_n}, p {pf}, q {q}, "
+                     f"G {G}, m {m}): {'shared' if g['form'] == 1 else 'streamed'} form, "
+                     f"{g['smem']} + {g['static_smem']} B shared, {g['cells_per_sm']} cells an SM "
+                     f"(registers {g['registers']} a thread, held for {g['min_cells_per_sm']}; "
+                     f"local {g['local_bytes']} B), {g['waves']} wave(s), p bucket {g['p_bucket']}")
+    for tag, (cells, M, p, shape, dense) in K11_SHAPES.items():
+        yty = torch.empty(cells)
+        g = mixedfit_mod.joint_reml_geometry(torch.empty((1, M, M)), None, None,
+                                             torch.empty((1, p, p)), None, yty, None, shape, None,
+                                             None, dense=dense)
+        lines.append(f"  K11 geometry at the {tag} ({cells} cells, M {M}, p {p}, groupings "
+                     f"{list(shape)}): {'structured' if g['structured'] else 'dense'}, "
+                     f"{g['warps_per_cell']} warps a cell, twin "
+                     f"{'staged' if g['twin_staged'] else 'read from device memory'} "
+                     f"({g['twin_bytes']} B), {g['smem']} + {g['static_smem']} B shared, "
+                     f"{g['cells_per_sm']} cells an SM (registers {g['registers']} a thread, "
+                     f"local {g['local_bytes']} B), {g['waves']} wave(s)")
+    return lines
 
 
 def _ptxas_summary(log: str) -> str:
@@ -3518,7 +3579,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", default=[], metavar="LABEL=DIR",
                     help="a csrc directory of another tree (the parent commit's, say): build its "
-                         "K1, K2, K3, K6, K7 and K12 too, hold their outputs to this tree's and "
+                         "K1, K2, K3, K6, K7, K10, K11 and K12 too, hold their outputs to this "
+                         "tree's and "
                          "time them beside this tree's, in turns (K2: its joint mode); "
                          "repeatable")
     ap.add_argument("--checks-only", action="store_true",
@@ -3554,7 +3616,7 @@ def main(argv=None) -> int:
 
     # --- phase 2: build ---
     took = kernels.build_all()
-    others = {}  # label -> K1, K2, K3, K6, K7 and K12 built from that csrc, for phase 5's A/B
+    others = {}  # label -> K1, K2, K3, K6, K7, K10, K11 and K12 built from that csrc (phase 5's A/B)
     for spec in opts.compare:
         label, _, path = spec.partition("=")
         csrc = Path(path).resolve()
@@ -3582,6 +3644,8 @@ def main(argv=None) -> int:
         print(line, flush=True)
     for tag, shape in K7_SHAPES.items():
         print(k7_geometry_line(glmmfit, tag, shape), flush=True)
+    for line in k10_k11_geometry_lines(glmmfit, mixedfit):
+        print(line, flush=True)
 
     # --- phase 3: each kernel against its plain version ---
     specs = {name: lower_design(lower, ClusterStatic, name) for name in DESIGNS}
@@ -3939,7 +4003,7 @@ def main(argv=None) -> int:
 
     # K10 on generated slope-GLMM rows, bit for bit; the Poisson design
     # draws its counts through K8
-    k10_args_by = {}
+    k10_args_by, k10_out = {}, {}
     flow_cases10 = {name: flow_lowered(flow)[0] for name, (flow, _) in K10_FLOW_CASES.items()}
     k10_err = 0.0
     for name, n in K10_CHECKS.items():
@@ -3953,6 +4017,7 @@ def main(argv=None) -> int:
         k10_args_by[name] = args
         got = glmmfit.glmm_slope_kernel(*args)
         want = glmmfit.glmm_slope_plain(*args)
+        k10_out[name] = got
         cells, q_ = want[2].numel(), want[6].shape[-1]
         n_conv, n_bnd = int(want[2].sum()), int(want[3].sum())
         pins = want[6].reshape(-1, q_).sum(0).tolist()
@@ -3970,6 +4035,20 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v}" for k, v in diffs.items())
               + f"; {time.perf_counter() - t_case:.1f} s", flush=True)
         check(not any(diffs.values()), f"K10 {name}: outputs differ from the plain version's {diffs}")
+    # the cases whose rows and f32 state fit in shared memory, again in the
+    # streamed form (state in device scratch, each cluster's rows through the
+    # whole chain): the same bits
+    glmmfit.glmm_slope_set_form(2)
+    try:
+        for name in K10_STREAMED_CHECKS:
+            again = glmmfit.glmm_slope_kernel(*k10_args_by[name])
+            n_diff = sum(int((~((a == b) | (a.isnan() & b.isnan()))).sum())
+                         for a, b in zip(again, k10_out[name]))
+            print(f"K10 glmm_slope {name} in the streamed form: {n_diff} entries differ from the "
+                  f"shared form's", flush=True)
+            check(n_diff == 0, f"K10 {name}: the streamed form differs in {n_diff} entries")
+    finally:
+        glmmfit.glmm_slope_set_form(0)
     records["glmm_slope"] = {"max_abs_err": k10_err}
 
     # K2's joint mode on generated extras designs: counts exact, the X sums
@@ -4562,6 +4641,20 @@ def main(argv=None) -> int:
         out_ = glmmfit.glmm_slope_kernel(*args_)
         timing.append((key, shape.format(tuple(out_[2].shape)), glmmfit.glmm_slope_kernel,
                        glmmfit.glmm_slope_plain, args_, k10_bound(args_, out_), None))
+    # K10 at a launch of the slope-GLMM sample-size flow (1,250 sims x 11 grid
+    # points, N 240..720)
+    ss_spec, ss_arr = flow_lowered("model_glmm_slopes_sample_size")[0]
+    ss_arr_d = datagen.to_device(ss_arr, dev)
+    Xs_, ys_, _ = datagen.generate_batch(ss_spec, ss_arr_d, SEED, 0, sim_ids[:N_SIMS // 8],
+                                         plain=True)
+    k10_args_by["sample_size_flow_launch"] = k10_args(ss_spec, ss_arr_d, Xs_, ys_)
+    args_ = k10_args_by["sample_size_flow_launch"]
+    out_ = glmmfit.glmm_slope_kernel(*args_)
+    timing.append(("glmm_slope sample_size",
+                   f"slope GLMM sample-size flow launch, cells {tuple(out_[2].shape)}, N "
+                   f"{ss_spec.grid[0]}..{ss_spec.grid[-1]}, m 24, p 2, q 2",
+                   glmmfit.glmm_slope_kernel, glmmfit.glmm_slope_plain, args_,
+                   k10_bound(args_, out_), None))
 
     def k2s(spec_):  # K2's slope mode and its plain version, taking (X, y)
         return (lambda X_, y_: olsfit.grid_suffstats_kernel(spec_, X_, y_, with_slopes=True),
@@ -4592,6 +4685,8 @@ def main(argv=None) -> int:
              "lmm_extras arm cells {}, N 200, M 30 (m 20 + 10), p 3, structured"),
             ("joint_reml crossed", "crossed_flow_launch",
              "crossed flow launch, cells {}, N 1000, M 65 (m 40 + 25), p 3, structured"),
+            ("joint_reml nested", "nested_flow_launch",
+             "nested flow launch, cells {}, N 720, M 60 (m 12 + 48), p 2, structured"),
             ("joint_reml dense", "dense_flow_timed",
              "dense extras flow launch, cells {}, N 600, M 70 (30 x 2 + 10), p 2, dense")):
         args_ = k11_args_by[case]
@@ -4765,11 +4860,30 @@ def main(argv=None) -> int:
                   f"{n1:.4f}, this {n2:.4f}, {lb} {o2:.4f}; speed-up {(o1 + o2) / (n1 + n2):.2f}x",
                   flush=True)
 
-    # Each compared build's K12 and K2 joint mode: K12's eight outputs bit
-    # for bit at every K12_CHECKS case, K2's joint ztz, ztx and zty at every
+    # Each compared build's K11, K10, K12 and K2 joint mode: K11's seven,
+    # K10's and K12's eight outputs bit for bit at every case of K11_CHECKS,
+    # K10_CHECKS and K12_CHECKS, K2's joint ztz, ztx and zty at every
     # K2_JOINT_CHECKS case; then their timing rows in turns (other, this,
     # this, other)
     for lb, ks in others.items():
+        if "joint_reml" in ks:  # K11's seven outputs at every K11_CHECKS case
+            for case in K11_CHECKS:
+                with kernel_swapped(kernels, "joint_reml", ks["joint_reml"]):
+                    theirs = mixedfit.joint_reml_kernel(*k11_args_by[case], with_theta=True)
+                n_diff = sum(int((~((a == b) | (a.isnan() & b.isnan()))).sum())
+                             for a, b in zip(theirs, k11_out[case]))
+                check(n_diff == 0, f"A/B K11 {case}: {lb}'s build differs in {n_diff} entries")
+            print(f"A/B K11 against {lb}: the same bits in all seven outputs at the "
+                  f"{len(K11_CHECKS)} cases of K11_CHECKS", flush=True)
+        if "glmm_slope" in ks:  # K10's eight outputs at every K10_CHECKS case
+            for case in K10_CHECKS:
+                with kernel_swapped(kernels, "glmm_slope", ks["glmm_slope"]):
+                    theirs = glmmfit.glmm_slope_kernel(*k10_args_by[case])
+                n_diff = sum(int((~((a == b) | (a.isnan() & b.isnan()))).sum())
+                             for a, b in zip(theirs, k10_out[case]))
+                check(n_diff == 0, f"A/B K10 {case}: {lb}'s build differs in {n_diff} entries")
+            print(f"A/B K10 against {lb}: the same bits in all eight outputs at the "
+                  f"{len(K10_CHECKS)} cases of K10_CHECKS", flush=True)
         if "glmm_extras" in ks:
             for case, args_ in k12_args_by.items():
                 with kernel_swapped(kernels, "glmm_extras", ks["glmm_extras"]):
@@ -4793,11 +4907,11 @@ def main(argv=None) -> int:
                   f"{', '.join(K2_JOINT_CHECKS)}", flush=True)
     for key, shape, fk, fp, inputs, _, _ in timing:
         kname = key.split()[0]
-        if kname not in ("glmm_extras", "grid_suffstats_joint"):
+        if kname not in ("glmm_extras", "grid_suffstats_joint", "joint_reml", "glmm_slope"):
             continue
         name = "grid_suffstats" if kname == "grid_suffstats_joint" else kname
         copies = input_copies(inputs)
-        k_reps = 5 if name == "glmm_extras" else reps
+        k_reps = 5 if name in ("glmm_extras", "joint_reml") else reps
         for lb, ks in others.items():
             if name not in ks:
                 continue
@@ -4820,9 +4934,9 @@ def main(argv=None) -> int:
     records["slope_reml"].update(timed["slope_reml readme2"], by_shape={
         shape: timed[f"slope_reml {shape}"] for shape in ("readme2", "lmm_slopes", "multislope")})
     records["glmm_slope"].update(timed["glmm_slope flow"], by_shape={
-        shape: timed[f"glmm_slope {shape}"] for shape in ("flow", "arm")})
+        shape: timed[f"glmm_slope {shape}"] for shape in ("flow", "arm", "sample_size")})
     records["joint_reml"].update(timed["joint_reml crossed"], by_shape={
-        shape: timed[f"joint_reml {shape}"] for shape in ("arm", "crossed", "dense")})
+        shape: timed[f"joint_reml {shape}"] for shape in ("arm", "crossed", "nested", "dense")})
     records["glmm_extras"].update(timed["glmm_extras crossed"], by_shape={
         shape: timed[f"glmm_extras {shape}"] for shape in ("arm", "crossed", "nested", "dense")},
         geometry=k12_geometry)

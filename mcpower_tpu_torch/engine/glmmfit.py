@@ -907,12 +907,46 @@ def glmm_slope_scratch_bytes(cells: int, m: int, q: int, p: int) -> int:
     return int(fn(cells, m, q, p))
 
 
+_SLOPE_GEOMETRY_KEYS = ("form", "smem", "static_smem", "cells_per_sm", "waves", "registers",
+                        "local_bytes", "p_bucket", "min_cells_per_sm")
+
+
+def glmm_slope_geometry(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequence[int],
+                        zcols: Sequence[int], grid: Sequence[int], layout: Tuple[bool, int, int],
+                        *_rest) -> Dict[str, int]:
+    """The launch form K10's C launcher takes for :func:`glmm_slope_kernel`'s
+    arguments: ``form`` 1 with the rows and the f32 state in shared memory,
+    2 streamed (state in device scratch); the dynamic and static shared
+    bytes a block, resident cells an SM, the launch's waves, its kernel's
+    registers and local (spill and stack) bytes a thread, the p bucket and
+    the cells an SM its registers are held to. Builds and loads K10; needs
+    a CUDA device."""
+    fn = kernels.KERNELS["glmm_slope"].fn("mcp_glmm_slope_geometry",
+                                          [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * len(_SLOPE_GEOMETRY_KEYS))()
+    err = fn(X.shape[0], X.shape[1], len(fit), len(zcols) + 1, len(grid), int(layout[2]), out)
+    if err:
+        raise RuntimeError(f"mcp_glmm_slope_geometry: CUDA error {err}")
+    return dict(zip(_SLOPE_GEOMETRY_KEYS, out))
+
+
+def glmm_slope_set_form(form: int) -> None:
+    """Where K10's later launches put the rows and the f32 state: 0 as its
+    launcher picks, 2 the streamed form (device scratch). A measurement and
+    check knob: both forms give the same bits."""
+    fn = kernels.KERNELS["glmm_slope"].fn("mcp_glmm_slope_set_form", [ctypes.c_int])
+    fn.restype = None
+    fn(int(form))
+
+
 def glmm_slope_kernel(code: int, X: torch.Tensor, y: torch.Tensor, fit: Sequence[int],
                       zcols: Sequence[int], grid: Sequence[int], layout: Tuple[bool, int, int],
                       beta0: torch.Tensor, theta0, lower, hessian: bool = False):
     """Kernel K10: :func:`glmm_slope_plain` on the card, a (sim, grid) cell
-    a block, its four warps the search's four candidates, with the device
-    scratch its C entry point sizes."""
+    a block, its four warps the search's four candidates, the cell's rows
+    and f32 state in shared memory where they fit
+    (:func:`glmm_slope_geometry`), with the device scratch its C entry point
+    sizes."""
     fit, zcols, grid = [int(c) for c in fit], [int(c) for c in zcols], [int(n) for n in grid]
     rr, period, m = bool(layout[0]), int(layout[1]), int(layout[2])
     pf, G, q = len(fit), len(grid), len(zcols) + 1

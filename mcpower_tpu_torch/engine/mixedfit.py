@@ -870,10 +870,38 @@ _JOINT_ARGS = [
 ]
 
 
+_JOINT_GEOMETRY_KEYS = ("structured", "warps_per_cell", "twin_staged", "smem", "static_smem",
+                        "cells_per_sm", "waves", "twin_bytes", "registers", "local_bytes")
+
+
+def joint_reml_geometry(ztz, ztx, zty, xtx, xty, yty, ns, plan_shape, theta0, lower,
+                        dense: bool = False) -> Dict[str, int]:
+    """The launch form K11's C launcher takes for :func:`joint_reml_kernel`'s
+    arguments: the capacitance's form, warps a cell (the search's candidates
+    at once), whether the f32 twin of the statistics is staged in shared
+    memory, the dynamic and static shared bytes a block, resident cells an
+    SM, the launch's waves, the twin's bytes, and the kernel's registers and
+    local (spill and stack) bytes a thread. Builds and loads K11; needs a
+    CUDA device."""
+    levels = [int(m) for m, _ in plan_shape]
+    comps = [int(q) for _, q in plan_shape]
+    fn = kernels.KERNELS["joint_reml"].fn(
+        "mcp_joint_reml_geometry", [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+        + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * len(_JOINT_GEOMETRY_KEYS))()
+    ng = len(levels)
+    err = fn(int(yty.numel()), int(ztz.shape[-1]), int(xtx.shape[-1]), ng,
+             (ctypes.c_int * ng)(*levels), (ctypes.c_int * ng)(*comps), int(dense), out)
+    if err:
+        raise RuntimeError(f"mcp_joint_reml_geometry: CUDA error {err}")
+    return dict(zip(_JOINT_GEOMETRY_KEYS, out))
+
+
 def joint_reml_kernel(ztz, ztx, zty, xtx, xty, yty, ns, plan_shape, theta0, lower,
                       theta=None, dense: bool = False, with_theta: bool = False):
     """Kernel K11: :func:`joint_reml_plain` on the card (the same optional
-    arguments), one warp a (sim, grid) cell."""
+    arguments), a (sim, grid) cell a block of up to four warps, the search's
+    candidates at once (:func:`joint_reml_geometry`)."""
     M, p, Gn = ztz.shape[-1], xtx.shape[-1], xtx.shape[-3]
     levels = [m for m, _ in plan_shape]
     comps = [q for _, q in plan_shape]
