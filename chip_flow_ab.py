@@ -2,9 +2,11 @@
 """A/B of ``MCPower`` flow walls on one card: another tree against this one.
 
     git archive <commit> | tar -x -C _parent      # _parent/ is gitignored
-    python3 chip_flow_ab.py _parent [flow ...]
+    python3 chip_flow_ab.py [--kernels NAME,...] [--build-only] _parent [flow ...]
 
-Builds both trees' kernels at once, then runs each tree in a process of its
+Builds both trees' kernels at once (with ``--kernels`` only those of
+``kernels.KERNELS`` named, the others on first use, before the timed calls;
+``--build-only`` stops there), then runs each tree in a process of its
 own in turns (other, this, this, other): per flow of ``chip_smoke.MODEL_FLOWS``
 (default: README flow 1's power and sample size, the Tukey ANOVA, the logit
 and the LMM power flows) one warm-up call and 7 timed calls of 10,000 sims
@@ -21,7 +23,9 @@ import time
 FLOWS = ["model_readme_ols_power", "model_readme_ols_sample_size", "model_anova_tukey",
          "model_logit_power", "model_lmm_power"]
 BUILD = ("import sys; sys.path.insert(0, {t!r}); "
-         "from mcpower_tpu_torch.engine import kernels; kernels.build_all()")
+         "from mcpower_tpu_torch.engine import kernels; "
+         "ks = [kernels.KERNELS[n] for n in ({names!r} or kernels.KERNELS)]; "
+         "[k.finish_build(p) for k, p in [(k, k.start_build()) for k in ks]]")
 RUN = """
 import json, statistics, sys, time
 sys.path.insert(0, {t!r})
@@ -41,6 +45,15 @@ print("RESULT " + json.dumps(out))
 
 
 def main(argv) -> int:
+    argv = list(argv)
+    names = []
+    build_only = "--build-only" in argv
+    if build_only:
+        argv.remove("--build-only")
+    if "--kernels" in argv:
+        i = argv.index("--kernels")
+        names = argv[i + 1].split(",") if i + 1 < len(argv) else []
+        del argv[i:i + 2]
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -49,11 +62,13 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     t0 = time.time()
-    procs = {k: subprocess.Popen([sys.executable, "-c", BUILD.format(t=t)], cwd=t)
+    procs = {k: subprocess.Popen([sys.executable, "-c", BUILD.format(t=t, names=names)], cwd=t)
              for k, t in trees.items()}
     if any(p.wait() != 0 for p in procs.values()):
         return 1
     print(f"built both trees in {time.time() - t0:.0f} s", flush=True)
+    if build_only:
+        return 0
     turns = []
     for k in ("other", "this", "this", "other"):
         r = subprocess.run([sys.executable, "-c", RUN.format(t=trees[k], flows=flows)],

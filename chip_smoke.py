@@ -6,8 +6,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (``--checks-only`` stops after phase 3; ``--compare LABEL=DIR`` adds phase
-5's A/B against K1, K2's joint mode, K3, K6, K7, K10, K11 and K12 built from
-another ``csrc`` directory.)
+5's A/B against K1, K2 (its slope and joint modes too), K3, K6, K7 and
+K9-K12 built from another ``csrc`` directory.)
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -28,7 +28,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    form, shared bytes, resident cells an SM, waves, registers and local
    bytes a thread) and K11's (its capacitance's form, warps a cell, the
    twin staged or not, shared bytes, resident cells an SM, waves,
-   registers and local bytes) at theirs (``K10_SHAPES``, ``K11_SHAPES``);
+   registers and local bytes) and K9's (its form, shared bytes, resident
+   cells an SM, waves, registers and local bytes) at theirs
+   (``K10_SHAPES``, ``K11_SHAPES``, ``K9_SHAPES``);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (10,000 sims; the LMM's N = 200, p = 3, m = 20, G = 1,
    the curve design's p = 7, G = 8 and the GLM arm's N = 300, p = 4), and
@@ -63,7 +65,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    2's power and sample-size flows, ``benchmarks/throughput.py``'s
    lmm_slopes at 10,000 sims and lmm_multislope, and off the path a null
    slope, q = 4, q = 4 at p = 16 and 1,024 clusters on K9's streamed path),
-   every output bit-identical (flags, pins, beta, cov, tau^2); K10 at every
+   every output bit-identical (flags, pins, beta, cov, tau^2), in the form
+   its launcher takes and forced into each of its three forms (p <= 4; the
+   wider buckets have one); K10 at every
    case of ``K10_CHECKS`` (``benchmarks/throughput.py``'s glmm_slopes, a
    launch of the slope-GLMM flow, and off the path q = 3, q = 4 at p = 16,
    probit, Poisson, the FD Hessian, blocked clusters and 300 clusters),
@@ -121,8 +125,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    the logit sample-size flow and at both launches of the logit factor
    flow, K8 at a launch of the Poisson flow, K7 at the GLMM arms' cells and
    at a launch of README flow 3's power and sample-size flows, K9 at a
-   launch of README flow 2 and at the lmm_slopes and lmm_multislope cells,
-   K2's slope mode at the lmm_slopes rows and a README flow 2 launch's, K10
+   launch of README flow 2's power and sample-size flows and at the
+   lmm_slopes and lmm_multislope cells (its bound from the f32 evaluations
+   its cells needed, the kernel's count), K2's slope mode at the lmm_slopes
+   rows and both README flow 2 launches', K10
    at a launch of the slope-GLMM flow, at the glmm_slopes cells and at a
    launch of the slope-GLMM sample-size flow (1,250 sims x 11 grid points),
    K11 at the lmm_extras arm's cells and at a launch of the crossed, the
@@ -143,12 +149,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
    kernel's step counter) and, for K2, one ``torch.bmm`` that computes the
    same statistics at the OLS shape; with ``--compare LABEL=DIR`` (another
    ``csrc`` directory, such as the parent commit's; repeatable) its K1, K2,
-   K3, K6, K7, K10, K11 and K12 are built too, checked against this tree's
-   (K7 bit for bit; K11's seven outputs at every case of ``K11_CHECKS``,
-   K10's and K12's eight at every case of ``K10_CHECKS`` and ``K12_CHECKS``
-   and K2's joint ztz, ztx and zty at ``K2_JOINT_CHECKS``, bit for bit) and
-   timed beside them in turns (other, this, this, other; K10 at its three
-   rows, K11 and K12 at their four, K2 in its joint mode at its two); K1 at
+   K3, K6, K7 and K9-K12 are built too, checked against this tree's
+   (K7 bit for bit; K9's six outputs at every case of ``K9_CHECKS``, K11's
+   seven at every case of ``K11_CHECKS``, K10's and K12's eight at every
+   case of ``K10_CHECKS`` and ``K12_CHECKS``, K2's slope-mode outputs at
+   ``K2_SLOPE_CHECKS`` and both README flow 2 launches and at every K2
+   timing row, and its joint ztz, ztx and zty at ``K2_JOINT_CHECKS``, bit
+   for bit) and timed beside them in turns (other, this, this, other; K9 at
+   its four rows, K10 at its three, K11 and K12 at their four, K2 at its
+   six rows and in its joint mode at its two); K1 at
    the realistic LMM's long
    normals with its cluster streams padded in one launch against them in a
    launch of their own; then each arm's wall (the GLMM and slope arms' too),
@@ -2693,10 +2702,58 @@ def k7_bound(args, outs) -> Tuple[float, str]:
 F32_DIV_OPS = 8  # an f32 division or square root (IEEE-rounded), in f32 operations
 
 
+def k9_div_check(torch, kernels, dev, n: int = 1 << 22) -> None:
+    """K9's f32 solves divide by ``div_by`` (the reciprocal of the pivot and
+    two fma corrections, no branch) where numerator and pivot lie in
+    [2^-40, 2^41) or the numerator is zero, and by the IEEE division
+    elsewhere. On the card, ``mcp_k9_div_check`` holds ``div_by`` against
+    ``__fdiv_rn`` bit for bit over ``n`` pairs: random exponents over that
+    range, random mantissas and signs, every 16th numerator a signed zero,
+    every 64th pair outside the range (which must be flagged)."""
+    import ctypes
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(lo, hi, signed):
+        e = torch.randint(lo, hi + 1, (n,), generator=g, device=dev, dtype=torch.int32)
+        m = torch.randint(0, 1 << 23, (n,), generator=g, device=dev, dtype=torch.int32)
+        s = torch.randint(0, 2, (n,), generator=g, device=dev, dtype=torch.int32) if signed \
+            else torch.zeros(n, dtype=torch.int32, device=dev)
+        return ((s << 31) | (e << 23) | m).view(torch.float32)
+
+    a, b = draw(87, 167, True), draw(87, 167, False)
+    idx = torch.arange(n, device=dev)
+    a = torch.where(idx % 16 == 3, torch.where(idx % 32 == 3, -0.0, 0.0), a)
+    a = torch.where(idx % 64 == 5, draw(1, 86, True), a)   # numerators below the range
+    b = torch.where(idx % 64 == 9, draw(168, 254, False), b)  # pivots above it
+    got, want = torch.empty_like(a), torch.empty_like(a)
+    bad = torch.empty(n, dtype=torch.uint8, device=dev)
+    fn = kernels.KERNELS["slope_reml"].fn("mcp_k9_div_check", [ctypes.c_void_p] * 5
+                                          + [ctypes.c_int, ctypes.c_void_p])
+    kernels.KERNELS["slope_reml"].check(fn(kernels.ptr(a), kernels.ptr(b), kernels.ptr(got),
+                                           kernels.ptr(want), kernels.ptr(bad), n,
+                                           kernels.stream_of(a)))
+    torch.cuda.synchronize()
+    ok = bad == 0
+    out_of_range = (idx % 64 == 5) | (idx % 64 == 9)
+    differ = int((got.view(torch.int32) != want.view(torch.int32))[ok].sum())
+    zeros = int((a == 0).sum())
+    print(f"K9 div_by against the IEEE division: {n} pairs ({zeros} zero numerators, "
+          f"{int(out_of_range.sum())} outside the range), {int(ok.sum())} in range, "
+          f"{differ} quotients differ; flagged outside the range "
+          f"{int((~ok & out_of_range).sum())} of {int(out_of_range.sum())}, "
+          f"flagged inside {int((~ok & ~out_of_range).sum())}", flush=True)
+    check(differ == 0, f"K9 div_by: {differ} quotients differ from the IEEE division's")
+    check(bool((~ok)[out_of_range].all()), "K9 div_by: a pair outside its range not flagged")
+    check(bool(ok[~out_of_range].all()), "K9 div_by: a pair inside its range flagged")
+
+
 def k9_bound(args, outs) -> Tuple[float, str]:
-    """Every cell's fit as K9 runs it: d + 1 + 4 x 140 f32 deviance
-    evaluations (the initial simplex and four candidates an iteration) and
-    q + 2 f64 ones (the optimum, the q zero-column probes, the final fit),
+    """Every cell's fit as its data needs it: the f32 deviance evaluations
+    its search needed (``outs[6]``, the kernel's count: the initial simplex,
+    then each iteration's reflection and at most the one candidate the
+    selection reads; without it, the first version's fixed d + 1 + 4 x 140)
+    and q + 2 f64 ones (the optimum, the q zero-column probes, the final fit),
     each per cluster the q x q products Lam' G Lam, the factor of C and its
     q logs, Lam' A and Lam' b, p + 1 solves and the p (p + 1) / 2 + p + 1
     terms, per cell the p x p factor, solve, rss and p + 1 logs (a multiply-
@@ -2717,8 +2774,10 @@ def k9_bound(args, outs) -> Tuple[float, str]:
     pmac = p ** 3 // 6 + p * p + p + p * (p + 1) // 2
     per_cell = {"f32": 2 * pmac + 3 * p * F32_DIV_OPS + (p + 1) * F32_EXP_OPS,
                 "f64": 2 * pmac + 3 * p * F64_DIV_INSTR + (p + 1) * F64_LOG_INSTR}
-    evals = {"f32": d + 1 + 4 * mixedfit.SLOPE_NM_ITERS, "f64": q + 2}
-    ops = {k: cells * evals[k] * (m * per_cluster[k] + per_cell[k]) for k in evals}
+    f32_evals = (float(outs[6].double().sum()) if len(outs) > 6
+                 else cells * (d + 1 + 4 * mixedfit.SLOPE_NM_ITERS))
+    evals = {"f32": f32_evals, "f64": cells * (q + 2)}
+    ops = {k: evals[k] * (m * per_cluster[k] + per_cell[k]) for k in evals}
     ops["f64"] += cells * (p ** 3 + p * p)
     return bound(nbytes(G, A, b, xtx, xty, yty, *(o for o in outs if hasattr(o, "numel"))), ops)
 
@@ -3136,14 +3195,16 @@ def _ptxas_lines(name: str, log: str) -> list:
     (``philox_fill_kernelILi<mode>ELb<vec>E``), by (q, p) for K9
     (``slope_reml_kernelILi<q>ELi<p>E``, p = 8 and 16 its buckets)."""
     if name in ("slope_reml", "glmm_slope"):
+        # K9's third template argument is its form (K10's, its blocks an SM)
+        forms = {"1": " packed", "2": " pair", "3": " quad"} if name == "slope_reml" else {}
         rows = []
         for mangled, v in _ptxas_by_kernel(log).items():
-            m = re.search(r"kernelILi(\d+)ELi(\d+)E", mangled)
+            m = re.search(r"kernelILi(\d+)ELi(\d+)E(?:Li(\d)E)?", mangled)
             if m:
-                rows.append((int(m.group(1)), int(m.group(2)), v))
+                rows.append((int(m.group(1)), int(m.group(2)), forms.get(m.group(3), ""), v))
         out = [f"  ptxas {name} by q and p (p = 8, 16: the p <= 8, p <= 16 buckets): " + ", ".join(
-            f"q={q} p={pm}: {v['regs']} registers, {v.get('spill', 0)} B spill stores"
-            for q, pm, v in sorted(rows, key=lambda r: r[:2]))] if rows else []
+            f"q={q} p={pm}{form}: {v['regs']} registers, {v.get('spill', 0)} B spill stores"
+            for q, pm, form, v in sorted(rows, key=lambda r: r[:3]))] if rows else []
         if name == "glmm_slope":  # its pass function, not inlined: a stack frame of its own
             passes = []
             cur = None
@@ -3266,9 +3327,9 @@ def _c_entry_points(source: Path, name: str) -> list:
 # The kernels ``--compare`` builds from another tree: their outputs are held
 # to this tree's and timed beside them in phase 5.
 COMPARED = ("philox_fill", "ols_solve", "glm_irls", "glmm_intercept", "grid_suffstats",
-            "glmm_extras", "joint_reml", "glmm_slope")
+            "glmm_extras", "joint_reml", "glmm_slope", "slope_reml")
 # Those compared on every timing row of their name; K2 is compared in its
-# joint mode and K10, K11 and K12 at their cases, each in a block of its own.
+# joint and slope modes and K9-K12 at their cases, each in a block of its own.
 COMPARED_BY_ROW = ("philox_fill", "ols_solve", "glm_irls", "glmm_intercept")
 
 
@@ -3387,6 +3448,35 @@ def k10_k11_geometry_lines(glmmfit_mod, mixedfit_mod) -> list:
                      f"({g['twin_bytes']} B), {g['smem']} + {g['static_smem']} B shared, "
                      f"{g['cells_per_sm']} cells an SM (registers {g['registers']} a thread, "
                      f"local {g['local_bytes']} B), {g['waves']} wave(s)")
+    return lines
+
+
+# K9's launch shapes (cells, m, q, p): its timed shapes.
+K9_SHAPES = {
+    "README flow 2 power launch": (N_SIMS // 8, 30, 2, 2),
+    "README flow 2 sample-size launch": (N_SIMS // 8 * 11, 30, 2, 2),
+    "lmm_slopes arm": (N_SIMS, 20, 2, 3),
+    "lmm_multislope": (GOLDEN_SIMS, 20, 3, 5),
+}
+
+
+def k9_geometry_lines(mixedfit_mod) -> list:
+    """Lines of K9's launch geometry at its timed shapes, from its C launcher
+    (``mcp_slope_reml_geometry``): the form, shared bytes, resident cells an
+    SM, waves, registers and local bytes a thread."""
+    import torch
+
+    lines = []
+    for tag, (cells, m, q, p) in K9_SHAPES.items():
+        g = mixedfit_mod.slope_reml_geometry(torch.empty((1, m, q, q)), None, None,
+                                             torch.empty((1, p, p)), None, torch.empty(cells),
+                                             None, None, None)
+        lines.append(f"  K9 geometry at the {tag} ({cells} cells, m {m}, q {q}, p {p}): "
+                     f"{mixedfit_mod.SLOPE_FORMS[g['form']]} form, {g['cells_per_block']} cells a "
+                     f"block, {g['smem']} B shared a block "
+                     f"({'staged' if g['staged'] else 'streamed'}), {g['cells_per_sm']} cells an "
+                     f"SM (registers {g['registers']} a thread, local {g['local_bytes']} B), "
+                     f"{g['waves']} wave(s)")
     return lines
 
 
@@ -3579,10 +3669,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", default=[], metavar="LABEL=DIR",
                     help="a csrc directory of another tree (the parent commit's, say): build its "
-                         "K1, K2, K3, K6, K7, K10, K11 and K12 too, hold their outputs to this "
-                         "tree's and "
-                         "time them beside this tree's, in turns (K2: its joint mode); "
-                         "repeatable")
+                         "K1, K2, K3, K6, K7 and K9-K12 too, hold their outputs to this tree's "
+                         "and time them beside this tree's, in turns; repeatable")
     ap.add_argument("--checks-only", action="store_true",
                     help="stop after phase 3 (build, ptxas, each kernel against its plain "
                          "version), print no result line")
@@ -3644,7 +3732,7 @@ def main(argv=None) -> int:
         print(line, flush=True)
     for tag, shape in K7_SHAPES.items():
         print(k7_geometry_line(glmmfit, tag, shape), flush=True)
-    for line in k10_k11_geometry_lines(glmmfit, mixedfit):
+    for line in k10_k11_geometry_lines(glmmfit, mixedfit) + k9_geometry_lines(mixedfit):
         print(line, flush=True)
 
     # --- phase 3: each kernel against its plain version ---
@@ -3951,10 +4039,12 @@ def main(argv=None) -> int:
     records["glmm_intercept"] = {"max_abs_err": k7_err}
 
     # K2's slope mode on generated slope designs (p = 3, q = 2; p = 16, q = 4)
+    k2s_rows = {}  # name -> (spec, X, y): the --compare A/B's cases
     for name in K2_SLOPE_CHECKS:
         spec_, arr_ = lower_design(lower, ClusterStatic, name)
         X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
                                            sim_ids[:GOLDEN_SIMS], plain=True)
+        k2s_rows[name] = (spec_, X_, y_)
         got = olsfit.grid_suffstats_kernel(spec_, X_, y_, with_slopes=True)
         want = olsfit.grid_suffstats_plain(spec_, X_, y_, with_slopes=True)
         check(set(got) == set(want), f"K2 slope mode outputs {sorted(got)} != {sorted(want)}")
@@ -3966,8 +4056,9 @@ def main(argv=None) -> int:
         check(rel <= K2_REL, f"K2 slope mode {name}: rel err {rel:.3e} > {K2_REL}")
     records["grid_suffstats"]["max_abs_err"] = k2_err
 
-    # K9 on the K2 slope-mode statistics of generated rows, bit for bit
-    k9_args_by = {}
+    # K9 on the K2 slope-mode statistics of generated rows, bit for bit, in
+    # the form its launcher takes and forced into each of its forms
+    k9_args_by, k9_out = {}, {}
     flow_cases9 = {name: flow_lowered(flow)[0] for name, (flow, _) in K9_FLOW_CASES.items()}
     k9_err = 0.0
     for name, n in K9_CHECKS.items():
@@ -3975,6 +4066,8 @@ def main(argv=None) -> int:
             lower_design(lower, ClusterStatic, name)
         X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
                                            sim_ids[:n], plain=True)
+        if name in flow_cases9:
+            k2s_rows[name] = (spec_, X_, y_)
         args = k9_args(spec_, olsfit.grid_suffstats_plain(spec_, X_, y_, with_slopes=True))
         k9_args_by[name] = args
         q_, p_, m_ = args[0].shape[-1], args[3].shape[-1], args[0].shape[-3]
@@ -3982,7 +4075,9 @@ def main(argv=None) -> int:
         check(staged == (name not in K9_STREAMED),
               f"K9 {name}: took the {'staged' if staged else 'streamed'} path")
         got = mixedfit.slope_reml_kernel(*args)
+        geo = mixedfit.slope_reml_geometry(*args)
         want = mixedfit.slope_reml_plain(*args)
+        k9_out[name] = got
         cells = want[2].numel()
         n_conv, n_bnd = int(want[2].sum()), int(want[3].sum())
         pins = want[5].reshape(-1, q_).sum(0).tolist()
@@ -3994,12 +4089,30 @@ def main(argv=None) -> int:
                                     got, want)}
         k9_err = max(k9_err, max(float((g - w)[torch.isfinite(w)].abs().max())
                                  for g, w in zip(got[:2] + got[4:5], want[:2] + want[4:5])))
+        forced = {}
+        # every form, forced (the p <= 4 buckets have packed and pair, the p > 4 ones
+        # quad only; a form a bucket lacks is not taken): the same bits
+        try:
+            for form in mixedfit.SLOPE_FORMS:
+                mixedfit.slope_reml_set_form(form)
+                taken = mixedfit.SLOPE_FORMS[mixedfit.slope_reml_geometry(*args)["form"]]
+                again = mixedfit.slope_reml_kernel(*args)
+                forced[taken] = sum(int((~((a == b) | (a.isnan() & b.isnan()))).sum())
+                                    for a, b in zip(again, want))
+        finally:
+            mixedfit.slope_reml_set_form(0)
         print(f"K9 slope_reml {name} cells {tuple(got[2].shape)} p {p_} q {q_} m {m_}, "
-              f"{'staged' if staged else 'streamed'}: {n_conv} converged, {n_bnd} with a pin "
+              f"{'staged' if staged else 'streamed'}, {mixedfit.SLOPE_FORMS[geo['form']]} form: "
+              f"{n_conv} converged, {n_bnd} with a pin "
               f"(per component {pins}); entries that differ from the plain version: "
-              + ", ".join(f"{k} {v}" for k, v in diffs.items()), flush=True)
+              + ", ".join(f"{k} {v}" for k, v in diffs.items())
+              + "; forced into each form: " + ", ".join(f"{k} {v}" for k, v in forced.items()),
+              flush=True)
         check(not any(diffs.values()), f"K9 {name}: outputs differ from the plain version's {diffs}")
+        check(not any(forced.values()), f"K9 {name}: a forced form differs from the plain "
+                                        f"version's {forced}")
     records["slope_reml"] = {"max_abs_err": k9_err}
+    k9_div_check(torch, kernels, dev)
 
     # K10 on generated slope-GLMM rows, bit for bit; the Poisson design
     # draws its counts through K8
@@ -4617,19 +4730,28 @@ def main(argv=None) -> int:
         out_ = glmmfit.glmm_intercept_kernel(*args_)
         timing.append((key, shape.format(tuple(out_[2].shape)), glmmfit.glmm_intercept_kernel,
                        glmmfit.glmm_intercept_plain, args_, k7_bound(args_, out_), None))
-    # K9 at a launch of README flow 2, at the lmm_slopes arm's cells and at
-    # lmm_multislope's; K2's slope mode at the arm's rows and the flow
-    # launch's
+    # K9 at a launch of README flow 2's power and sample-size flows, at the
+    # lmm_slopes arm's cells and at lmm_multislope's, each bound counted from
+    # the f32 evaluations its cells needed (the kernel's count; beside it the
+    # first version's fixed d + 1 + 4 x 140); K2's slope mode at the arm's rows
+    # and both flow launches'
     for key, case, shape in (
             ("slope_reml readme2", "readme2_flow_launch",
              "README flow 2 launch, cells {}, N 600, m 30, p 2, q 2"),
+            ("slope_reml sample_size", "readme2_sample_size_launch",
+             "README flow 2 sample-size launch, cells {}, N 300..900, m 30, p 2, q 2"),
             ("slope_reml lmm_slopes", "lmm_slopes", "lmm_slopes arm cells {}, N 200, m 20, p 3, q 2"),
             ("slope_reml multislope", "lmm_multislope",
              "lmm_multislope cells {}, N 480, m 20, p 5, q 3")):
         args_ = k9_args_by[case]
-        out_ = mixedfit.slope_reml_kernel(*args_)
+        out_ = mixedfit.slope_reml_kernel(*args_, evals=True)
+        fixed_ms, _ = k9_bound(args_, out_[:6])
+        counted = k9_bound(args_, out_)
+        print(f"K9 bound at the {key.split()[1]} row: {counted[0]:.4f} ms from the "
+              f"{float(out_[6].double().mean()):.1f} f32 evaluations a cell its cells needed, "
+              f"{fixed_ms:.4f} ms at the first version's fixed count", flush=True)
         timing.append((key, shape.format(tuple(out_[2].shape)), mixedfit.slope_reml_kernel,
-                       mixedfit.slope_reml_plain, args_, k9_bound(args_, out_), None))
+                       mixedfit.slope_reml_plain, args_, counted, None))
 
     # K10 at a launch of the slope-GLMM flow (README flow 3's shape) and at
     # the glmm_slopes arm's cells of phase 3
@@ -4663,7 +4785,9 @@ def main(argv=None) -> int:
     for arm, (spec_, arr_), n, shape in (
             ("lmm_slopes", slope_specs["lmm_slopes"], N_SIMS, "lmm_slopes X {}, m 20, q 2"),
             ("readme2", flow_cases9["readme2_flow_launch"], N_SIMS // 8,
-             "README flow 2 launch X {}, m 30, q 2")):
+             "README flow 2 launch X {}, m 30, q 2"),
+            ("readme2_ss", flow_cases9["readme2_sample_size_launch"], N_SIMS // 8,
+             "README flow 2 sample-size launch X {}, m 30, q 2, G 11")):
         X_, y_, _ = datagen.generate_batch(spec_, datagen.to_device(arr_, dev), SEED, 0,
                                            sim_ids[:n], plain=True)
         out_ = olsfit.grid_suffstats_kernel(spec_, X_, y_, with_slopes=True)
@@ -4893,6 +5017,25 @@ def main(argv=None) -> int:
                 check(n_diff == 0, f"A/B K12 {case}: {lb}'s build differs in {n_diff} entries")
             print(f"A/B K12 against {lb}: the same bits in all eight outputs at the "
                   f"{len(k12_args_by)} cases of K12_CHECKS", flush=True)
+        if "slope_reml" in ks:  # K9's six outputs at every K9_CHECKS case
+            for case in K9_CHECKS:
+                with kernel_swapped(kernels, "slope_reml", ks["slope_reml"]):
+                    theirs = mixedfit.slope_reml_kernel(*k9_args_by[case])
+                n_diff = sum(int((~((a == b) | (a.isnan() & b.isnan()))).sum())
+                             for a, b in zip(theirs, k9_out[case]))
+                check(n_diff == 0, f"A/B K9 {case}: {lb}'s build differs in {n_diff} entries")
+            print(f"A/B K9 against {lb}: the same bits in all six outputs at the "
+                  f"{len(K9_CHECKS)} cases of K9_CHECKS", flush=True)
+        if "grid_suffstats" in ks:  # K2's slope mode: every output at its cases
+            for name, (spec_, X_, y_) in k2s_rows.items():
+                ours = olsfit.grid_suffstats_kernel(spec_, X_, y_, with_slopes=True)
+                with kernel_swapped(kernels, "grid_suffstats", ks["grid_suffstats"]):
+                    theirs = olsfit.grid_suffstats_kernel(spec_, X_, y_, with_slopes=True)
+                n_diff = sum(int((theirs[k] != ours[k]).sum()) for k in ours)
+                check(n_diff == 0, f"A/B K2 slope {name}: {lb}'s build differs in {n_diff} "
+                                   "entries")
+            print(f"A/B K2 slope mode against {lb}: the same bits in every output (G, A, b and "
+                  f"the prefix sums) at {', '.join(k2s_rows)}", flush=True)
         if "grid_suffstats" in ks:
             for name in K2_JOINT_CHECKS:
                 spec_, arr_ = lower_design(lower, ClusterStatic, name)
@@ -4907,7 +5050,8 @@ def main(argv=None) -> int:
                   f"{', '.join(K2_JOINT_CHECKS)}", flush=True)
     for key, shape, fk, fp, inputs, _, _ in timing:
         kname = key.split()[0]
-        if kname not in ("glmm_extras", "grid_suffstats_joint", "joint_reml", "glmm_slope"):
+        if kname not in ("glmm_extras", "grid_suffstats_joint", "joint_reml", "glmm_slope",
+                         "slope_reml", "grid_suffstats"):
             continue
         name = "grid_suffstats" if kname == "grid_suffstats_joint" else kname
         copies = input_copies(inputs)
@@ -4915,6 +5059,12 @@ def main(argv=None) -> int:
         for lb, ks in others.items():
             if name not in ks:
                 continue
+            if kname == "grid_suffstats":  # every K2 row's outputs, bit for bit
+                ours = fk(*copies[0])
+                with kernel_swapped(kernels, name, ks[name]):
+                    theirs = fk(*copies[0])
+                n_diff = sum(int((theirs[k] != ours[k]).sum()) for k in ours)
+                check(n_diff == 0, f"A/B {key}: {lb}'s K2 differs in {n_diff} entries")
             turns = []
             for k in (ks[name], kernels.KERNELS[name], kernels.KERNELS[name], ks[name]):
                 with kernel_swapped(kernels, name, k):
@@ -4932,7 +5082,8 @@ def main(argv=None) -> int:
         shape: timed[f"glmm_intercept {shape}"]
         for shape in ("agq7", "laplace", "readme", "sample_size")})
     records["slope_reml"].update(timed["slope_reml readme2"], by_shape={
-        shape: timed[f"slope_reml {shape}"] for shape in ("readme2", "lmm_slopes", "multislope")})
+        shape: timed[f"slope_reml {shape}"]
+        for shape in ("readme2", "sample_size", "lmm_slopes", "multislope")})
     records["glmm_slope"].update(timed["glmm_slope flow"], by_shape={
         shape: timed[f"glmm_slope {shape}"] for shape in ("flow", "arm", "sample_size")})
     records["joint_reml"].update(timed["joint_reml crossed"], by_shape={
@@ -4951,7 +5102,7 @@ def main(argv=None) -> int:
     for name, top, arms in (("philox_fill", "lmm", ("lmm", "ols", "curve", "lmm_realistic",
                                                     "short")),
                             ("grid_suffstats", "ols", ("lmm", "ols", "curve", "lmm_slopes",
-                                                       "readme2")),
+                                                       "readme2", "readme2_ss")),
                             ("ols_solve", "curve", ("ols", "curve", "readme"))):
         records[name].update(timed[f"{name} {top}"],
                              by_arm={arm: timed[f"{name} {arm}"] for arm in arms})

@@ -48,6 +48,14 @@
 //   never a gather. Row counts n_j are exact integer counts. The slope mode
 //   is its own instantiation (SL), so the sums it adds to a lane (3 + 6 +
 //   3 p + 3 at q = 4) cost the other modes no registers.
+// - The slope mode's clusters carry about 15 dependent f64 sums a row, so a
+//   launch of few sims (a flow's 1,250: 313 groups of four, under three
+//   warps an SM) is bound by one lane's walk over its clusters. Where the
+//   groups of four are fewer than the resident warps, the slope mode runs
+//   one sim a warp (SPW = 1): lanes 0-7 keep the prefix sums as before and
+//   all 32 lanes take a cluster each. A cluster's sums stay one lane's walk
+//   over its rows in ascending order from the previous piece's sums, so the
+//   outputs keep their bits.
 
 #include "common.cuh"
 
@@ -109,8 +117,8 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 // Shared-memory floats of one sim's X rows and y in a stage.
 __host__ __device__ constexpr int x_floats(int rows, int P) { return round4(rows * P); }
-__host__ __device__ constexpr int stage_floats(int rows, int P) {
-    return SIMS_PER_WARP * (x_floats(rows, P) + round4(rows));
+__host__ __device__ constexpr int stage_floats(int rows, int P, int spw = SIMS_PER_WARP) {
+    return spw * (x_floats(rows, P) + round4(rows));
 }
 
 __host__ __device__ constexpr int sim_stage_bytes(int rows, int P) {
@@ -171,18 +179,19 @@ __device__ __forceinline__ void warp_copy(float* dst, const float* src, int n, b
     for (int i = done + lane; i < n; i += WARP) cp_async4(dst + i, src + i);
 }
 
-// Stage rows [r0, r0 + chunk_rows) of the sims of group `group`: slot k's X
-// rows at k * x_floats, then every slot's y.
+// Stage rows [r0, r0 + chunk_rows) of the SPW sims of group `group`: slot
+// k's X rows at k * x_floats, then every slot's y.
+template <int SPW>
 __device__ __forceinline__ void stage_chunk(const Args& a, float* stage, long long group, int r0,
                                             int lane) {
     const int rows = min(a.chunk_rows, a.max_n - r0);
     const int xf = x_floats(a.chunk_rows, a.P);
-    for (int k = 0; k < SIMS_PER_WARP; ++k) {
-        const long long sim = group * SIMS_PER_WARP + k;
+    for (int k = 0; k < SPW; ++k) {
+        const long long sim = group * SPW + k;
         if (sim >= a.sims) break;
         warp_copy(stage + k * xf, a.X + (sim * a.max_n + r0) * (long long)a.P, rows * a.P,
                   a.vec16, lane);
-        warp_copy(stage + SIMS_PER_WARP * xf + k * round4(a.chunk_rows),
+        warp_copy(stage + SPW * xf + k * round4(a.chunk_rows),
                   a.y + sim * a.max_n + r0, rows, a.vec16, lane);
     }
 }
@@ -264,21 +273,22 @@ __device__ __forceinline__ void store(const Args& a, int target, long long cell,
 }
 
 // Cluster sums of rows [r, e) (inside the staged chunk starting at r0) for
-// grid cell `cell`, lane `sl` of the sim taking clusters sl, sl + 8, ...;
+// grid cell `cell`, lane `cl` of the CLL lanes on the sim taking clusters
+// cl, cl + CLL, ...;
 // `first` marks the segment's first piece, which starts from the previous
 // grid point's sums (or zero at g = 0).
 //
 // In the slope mode (SL) the same walk also sums, with z_k = X[row, zc[k]],
 // z_k, z_k z_l (l >= k), z_k x and z_k y, and writes the cluster's G, A, b
 // (G[0][0] = n_j, A[0] = s_j, b[0] = t_j; G symmetric).
-template <int PF, bool SL>
+template <int PF, bool SL, int CLL>
 __device__ __forceinline__ void cluster_piece(const Args& a, const Layout& lay, const Slopes& z,
                                               const float* Xs,
                                               const float* ys, int r0, int r, int e,
                                               long long cell, bool first, bool has_prev,
-                                              int sl) {
+                                              int cl) {
     constexpr int QS = SL ? MCP_MAX_QS : 1;
-    for (int c = sl; c < a.m; c += SIM_LANES) {
+    for (int c = cl; c < a.m; c += CLL) {
         int lo, hi, step;
         if (a.round_robin) {
             lo = r + ((c - r % a.period) % a.period + a.period) % a.period;
@@ -369,19 +379,25 @@ __device__ __forceinline__ void cluster_piece(const Args& a, const Layout& lay, 
     }
 }
 
-template <int PF, bool SL>
+// SPW sims a warp: SIMS_PER_WARP, or (the slope mode's wide form, for
+// launches of fewer sim groups than resident warps) one sim, its rows on
+// lanes 0-7 as before and its clusters on all 32 lanes (CLL).
+template <int PF, bool SL, int SPW = SIMS_PER_WARP>
 __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, const Layout lay,
                                                                const Slopes z) {
     constexpr int NG = n_groups(PF);
     constexpr int K = per_group(PF);
     constexpr int NGLOB = n_global(PF);
     constexpr int OWN = halved(K, SIM_LEVELS);
+    constexpr int CLL = SPW == 1 ? WARP : SIM_LANES;
     extern __shared__ __align__(16) float smem[];
     const int lane = threadIdx.x;
     const int slot = lane / SIM_LANES;  // this lane's sim within the group
     const int sl = lane % SIM_LANES;
+    const int sslot = SPW == 1 ? 0 : slot;  // the staged sim this lane reads
+    const int cl = SPW == 1 ? lane : sl;    // this lane among the sim's cluster lanes
     const int xf = x_floats(a.chunk_rows, a.P);
-    const int sf = stage_floats(a.chunk_rows, a.P);
+    const int sf = stage_floats(a.chunk_rows, a.P, SPW);
     // The grid, staged once behind the two stages; the row cursor below
     // walks it (gi), so G has no bound but shared memory.
     int* grid = reinterpret_cast<int*>(smem + 2 * sf);
@@ -389,19 +405,22 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
     __syncwarp();
     const int n_chunks = (a.max_n + a.chunk_rows - 1) / a.chunk_rows;
     const long long n_tasks =
-        (((long long)a.sims + SIMS_PER_WARP - 1) / SIMS_PER_WARP) * NG;
+        (((long long)a.sims + SPW - 1) / SPW) * NG;
     int base, own_size;
     own_range(K, sl, base, own_size);
 
     int buf = 0;
     long long task = blockIdx.x;
-    if (task < n_tasks) stage_chunk(a, smem, task / NG, 0, lane);
+    if (task < n_tasks) stage_chunk<SPW>(a, smem, task / NG, 0, lane);
     cp_commit();
     for (; task < n_tasks; task += gridDim.x) {
-        const long long sim = (task / NG) * SIMS_PER_WARP + slot;
-        const bool valid = sim < a.sims;  // the last group may be short
+        const long long sim = (task / NG) * SPW + sslot;
+        // the last group may be short; with one sim a warp only lanes 0-7
+        // hold its rows, all 32 its clusters (both tests fold at compile
+        // time, so the four-sim form compiles as if SPW were not there)
+        const bool valid = (SPW == SIMS_PER_WARP || slot < SPW) && sim < a.sims;
         const int g = (NG == 1) ? 0 : (int)(task % NG);
-        const bool clusters = valid && a.m > 0 && g == 0;
+        const bool clusters = (SPW == SIMS_PER_WARP ? valid : sim < a.sims) && a.m > 0 && g == 0;
         double cum[OWN], seg[OWN];
         int target[OWN];
 #pragma unroll
@@ -424,8 +443,8 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
                 store<PF>(a, target[q], cell, cum[q]);
             }
             if (clusters && empty)
-                cluster_piece<PF, SL>(a, lay, z, nullptr, nullptr, 0, 0, 0, cell, true, gi > 0,
-                                      sl);
+                cluster_piece<PF, SL, CLL>(a, lay, z, nullptr, nullptr, 0, 0, 0, cell, true,
+                                           gi > 0, cl);
             seg_lo = grid[gi];
             ++gi;
         };
@@ -440,14 +459,14 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
                 next_k = 0;
             }
             if (next_task < n_tasks)
-                stage_chunk(a, smem + (buf ^ 1) * sf, next_task / NG, next_k * a.chunk_rows,
-                            lane);
+                stage_chunk<SPW>(a, smem + (buf ^ 1) * sf, next_task / NG, next_k * a.chunk_rows,
+                                 lane);
             cp_commit();
             cp_wait_prior();
             __syncwarp();
 
-            const float* Xs = smem + buf * sf + slot * xf;
-            const float* ys = smem + buf * sf + SIMS_PER_WARP * xf + slot * round4(a.chunk_rows);
+            const float* Xs = smem + buf * sf + sslot * xf;
+            const float* ys = smem + buf * sf + SPW * xf + sslot * round4(a.chunk_rows);
             const int r0 = k * a.chunk_rows;
             const int r1 = min(a.max_n, r0 + a.chunk_rows);
             int r = r0;
@@ -485,8 +504,8 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
 #pragma unroll
                 for (int q = 0; q < OWN; ++q) seg[q] += acc[q];
                 if (clusters)
-                    cluster_piece<PF, SL>(a, lay, z, Xs, ys, r0, r, e, sim * a.G + gi,
-                                          r == seg_lo, gi > 0, sl);
+                    cluster_piece<PF, SL, CLL>(a, lay, z, Xs, ys, r0, r, e, sim * a.G + gi,
+                                               r == seg_lo, gi > 0, cl);
                 r = e;
                 if (r == n) {
                     finish(false);
@@ -499,29 +518,66 @@ __global__ void __launch_bounds__(WARP) grid_suffstats_kernel(const Args a, cons
     }
 }
 
-template <int PF, bool SL>
-int launch_mode(const Args& a, const Layout& lay, const Slopes& z, cudaStream_t stream) {
-    const size_t smem =
-        2 * sizeof(float) * (size_t)stage_floats(a.chunk_rows, a.P) + sizeof(int) * (size_t)a.G;
-    if (smem > (size_t)MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-    auto kernel = grid_suffstats_kernel<PF, SL>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Shared bytes a block and resident blocks an SM of
+// grid_suffstats_kernel<PF, SL, SPW> (its shared-memory attribute set), and
+// the SMs. The runtime is asked once for each (shared bytes, device) the
+// kernel meets in turn (the last kept), not every launch.
+template <int PF, bool SL, int SPW>
+int residency(const Args& a, size_t* smem, int* per_sm, int* sms) {
+    static size_t memo_smem = ~(size_t)0;
+    static int memo_dev = -1, memo_per_sm = 0, memo_sms = 0;
+    *smem = 2 * sizeof(float) * (size_t)stage_floats(a.chunk_rows, a.P, SPW) +
+            sizeof(int) * (size_t)a.G;
+    if (*smem > (size_t)MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-        return (int)err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WARP, smem)) !=
-        cudaSuccess)
-        return (int)err;
-    if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
-    const long long tasks =
-        (((long long)a.sims + SIMS_PER_WARP - 1) / SIMS_PER_WARP) * n_groups(PF);
+    if (memo_smem != *smem || memo_dev != dev) {
+        auto kernel = grid_suffstats_kernel<PF, SL, SPW>;
+        int n_sms = 0, n_per_sm = 0;
+        if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)*smem)) != cudaSuccess ||
+            (err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev)) !=
+                cudaSuccess ||
+            (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n_per_sm, kernel, WARP,
+                                                                 *smem)) != cudaSuccess)
+            return (int)err;
+        memo_smem = *smem;
+        memo_dev = dev;
+        memo_per_sm = n_per_sm;
+        memo_sms = n_sms;
+    }
+    *per_sm = memo_per_sm;
+    *sms = memo_sms;
+    return *per_sm > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
+}
+
+template <int PF, bool SL, int SPW>
+int launch_spw(const Args& a, const Layout& lay, const Slopes& z, size_t smem, int per_sm,
+               int sms, cudaStream_t stream) {
+    const long long tasks = (((long long)a.sims + SPW - 1) / SPW) * n_groups(PF);
     const long long resident = (long long)sms * per_sm;
     const unsigned blocks = (unsigned)(tasks < resident ? tasks : resident);
-    kernel<<<blocks, WARP, smem, stream>>>(a, lay, z);
+    grid_suffstats_kernel<PF, SL, SPW><<<blocks, WARP, smem, stream>>>(a, lay, z);
     return (int)cudaGetLastError();
+}
+
+// The slope mode takes one sim a warp where the launch has fewer sim groups
+// than resident warps (the same sums, the same bits); the other modes four.
+template <int PF, bool SL>
+int launch_mode(const Args& a, const Layout& lay, const Slopes& z, cudaStream_t stream) {
+    size_t smem = 0;
+    int per_sm = 0, sms = 0, err;
+    if ((err = residency<PF, SL, SIMS_PER_WARP>(a, &smem, &per_sm, &sms))) return err;
+    const long long tasks =
+        (((long long)a.sims + SIMS_PER_WARP - 1) / SIMS_PER_WARP) * n_groups(PF);
+    if constexpr (SL) {
+        if (tasks < (long long)sms * per_sm) {
+            if ((err = residency<PF, SL, 1>(a, &smem, &per_sm, &sms))) return err;
+            return launch_spw<PF, SL, 1>(a, lay, z, smem, per_sm, sms, stream);
+        }
+    }
+    return launch_spw<PF, SL, SIMS_PER_WARP>(a, lay, z, smem, per_sm, sms, stream);
 }
 
 template <int PF>

@@ -510,9 +510,45 @@ def slope_reml_staged(m: int, q: int, p: int) -> bool:
     return bool(got)
 
 
-def slope_reml_kernel(G, A, b, xtx, xty, yty, ns, theta0, lower):
-    """Kernel K9: :func:`slope_reml_plain` on the card, one warp a (sim,
-    grid) cell."""
+# K9's launch forms (csrc/slope_reml.cu): at p <= 4 packed, 8 lanes a cell
+# and four cells a warp, the candidates evaluated as the selection reads
+# them, or pair, two warps a cell, the four candidates at once on 16 lanes
+# each; at p > 4 quad, a warp a cell, the four candidates on its four 8-lane
+# groups.
+SLOPE_FORMS = {1: "packed", 2: "pair", 3: "quad"}
+_SLOPE_GEOMETRY_KEYS = ("form", "smem", "cells_per_sm", "waves", "registers", "local_bytes",
+                        "staged", "cells_per_block")
+
+
+def slope_reml_geometry(G, A, b, xtx, xty, yty, ns, theta0, lower) -> Dict[str, int]:
+    """The launch form K9's C launcher takes for :func:`slope_reml_kernel`'s
+    arguments (``SLOPE_FORMS``), the dynamic shared bytes a block, resident
+    cells an SM, the launch's waves, its kernel's registers and local (spill
+    and stack) bytes a thread, whether the f32 twins are staged and cells a
+    block. Builds and loads K9; needs a CUDA device."""
+    fn = kernels.KERNELS["slope_reml"].fn("mcp_slope_reml_geometry",
+                                          [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * len(_SLOPE_GEOMETRY_KEYS))()
+    err = fn(int(yty.numel()), int(G.shape[-3]), int(G.shape[-1]), int(xtx.shape[-1]), out)
+    if err:
+        raise RuntimeError(f"mcp_slope_reml_geometry: CUDA error {err}")
+    return dict(zip(_SLOPE_GEOMETRY_KEYS, out))
+
+
+def slope_reml_set_form(form: int) -> None:
+    """The form K9's later launches take: 0 as its launcher picks, else one
+    of ``SLOPE_FORMS`` where the launch's p bucket has it (else the
+    launcher's pick). A measurement and check knob: every form gives the
+    same bits."""
+    fn = kernels.KERNELS["slope_reml"].fn("mcp_slope_reml_set_form", [ctypes.c_int])
+    fn.restype = None
+    fn(int(form))
+
+
+def slope_reml_kernel(G, A, b, xtx, xty, yty, ns, theta0, lower, evals: bool = False):
+    """Kernel K9: :func:`slope_reml_plain` on the card, in the form its
+    launcher picks (:func:`slope_reml_geometry`). With ``evals`` also each
+    cell's count of the f32 evaluations its search needed (int32)."""
     q, p, m, Gn = G.shape[-1], xtx.shape[-1], G.shape[-3], xtx.shape[-3]
     if not 2 <= q <= MAX_Q or not 1 <= p <= MAX_P:
         raise ValueError(f"slope_reml kernel takes 2 <= q <= {MAX_Q} and 1 <= p <= {MAX_P}, "
@@ -534,21 +570,24 @@ def slope_reml_kernel(G, A, b, xtx, xty, yty, ns, theta0, lower):
     tau2 = torch.empty(lead, **kw)
     flags = torch.empty(lead, dtype=torch.uint8, device=xtx.device)
     pinned = torch.empty(lead + (q,), dtype=torch.uint8, device=xtx.device)
-    kernels.require_cuda("slope_reml", G, A, b, xtx, xty, yty, ns, beta, cov, tau2, flags, pinned)
+    counts = torch.empty(lead, dtype=torch.int32, device=xtx.device) if evals else None
+    kernels.require_cuda("slope_reml", G, A, b, xtx, xty, yty, ns, beta, cov, tau2, flags, pinned,
+                         *(() if counts is None else (counts,)))
     if B:
         k = kernels.KERNELS["slope_reml"]
-        fn = k.fn("mcp_slope_reml", _SLOPE_ARGS)
-        k.check(
-            fn(
-                kernels.ptr(G), kernels.ptr(A), kernels.ptr(b), kernels.ptr(xtx),
+        args = [kernels.ptr(G), kernels.ptr(A), kernels.ptr(b), kernels.ptr(xtx),
                 kernels.ptr(xty), kernels.ptr(yty), kernels.ptr(ns), B, Gn, m, q, p,
                 (ctypes.c_double * d)(*theta0), (ctypes.c_double * d)(*lower),
                 SLOPE_NM_ITERS, SLOPE_NM_STEP, smallchol.EPS_RANK,
                 kernels.ptr(beta), kernels.ptr(cov), kernels.ptr(tau2), kernels.ptr(flags),
-                kernels.ptr(pinned), kernels.stream_of(xtx),
-            )
-        )
-    return beta, cov, (flags & 1).bool(), (flags & 2).bool(), tau2, pinned.bool()
+                kernels.ptr(pinned)]
+        if counts is None:
+            k.check(k.fn("mcp_slope_reml", _SLOPE_ARGS)(*args, kernels.stream_of(xtx)))
+        else:
+            fn = k.fn("mcp_slope_reml_counted", _SLOPE_ARGS[:-1] + [ctypes.c_void_p] * 2)
+            k.check(fn(*args, kernels.ptr(counts), kernels.stream_of(xtx)))
+    out = (beta, cov, (flags & 1).bool(), (flags & 2).bool(), tau2, pinned.bool())
+    return out + (counts,) if evals else out
 
 
 def slope_reml(G, A, b, xtx, xty, yty, ns, theta0, lower):
